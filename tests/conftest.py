@@ -73,3 +73,8 @@ def make_random_net(seed: int):
 @pytest.fixture(params=NET_SEEDS)
 def seeded_net(request):
     return make_random_net(request.param)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; each test skips without one")
