@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fleet replay on one CUDA card and check it.
+"""Drive the PyTorch port's fleet replay and compute kernels on one CUDA
+card and check them.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -24,7 +25,22 @@ prints one JSON line per phase; any failure exits non-zero.
    kernel is held against the plain version on the first run's inputs,
    and the first 4 lanes of a full-width ``har_net()`` replay are held
    bitwise too.
-5. the kernels line, the ``nvidia-smi`` line, and the result line.
+5. (part of 4) har_first_lanes.
+6. kernels_vs_plain -- the ``repro_torch.kernels`` entry points
+   (``dense_matmul``, ``BlockSparseFC``, ``fir_conv1d``) at small seeded
+   shapes (odd sizes, explicit tiles, f32 and bf16, an empty row-block,
+   batches off the batch tile, K = 1 and K = L), each output held against
+   its kernel's plain version on the card.
+7. kernels_full_width -- the same entry points at the repo's benchmark
+   shapes, through ``mnist_net()`` at its published widths over a batch
+   of 1024 inputs (convolutions composed from FIRs, fc1 pruned to 90 %
+   and block-sparse, fc2/fc3 dense), and at one large shape per kernel.
+   Launch counts are zeroed just before and read just after; each kernel
+   must have launched.  Then every output is held against the plain
+   version (and the MNIST logits against the plain chain and the numpy
+   simulator), and the kernel, its plain version and one PyTorch library
+   call computing the same function are timed, beside the bound.
+8. the kernels line, the ``nvidia-smi`` line, and the result line.
 """
 
 from __future__ import annotations
@@ -166,6 +182,380 @@ def replay_bound_ms(args, kw, out, torch) -> tuple[float, str, dict]:
     return t_bytes, "bytes", info
 
 
+#: H100 SXM peaks for the compute kernels (NVIDIA data sheet): f32 on the
+#: CUDA cores and bf16 on the tensor cores.
+PEAK_F32_OPS = 67e12
+PEAK_BF16_OPS = 989e12
+
+#: Inputs of the MNIST phase, and the large shape of each compute kernel
+#: (matmul M = K = N; block-sparse FC weight edge and batch; FIR C = L).
+MNIST_BATCH = 1024
+LARGE_MATMUL = 4096
+LARGE_SPARSE, LARGE_SPARSE_BATCH = 4096, 512
+LARGE_FIR = 8192
+
+#: The compute kernels: name, module, wrapper, source, the TPU kernel it
+#: replaces (file:line of the function that reaches pl.pallas_call).
+COMPUTE_KERNELS = (
+    ("dense_matmul", "dense_matmul", "matmul",
+     "src/repro/kernels/dense_matmul.py:32", "matmul"),
+    ("block_sparse_fc", "sparse_fc", "block_sparse_matvec",
+     "src/repro/kernels/sparse_fc.py:96", "block_sparse_matvec"),
+    ("fir_conv1d", "fir_conv1d", "fir_conv1d",
+     "src/repro/kernels/fir_conv1d.py:30", "fir_conv1d"),
+)
+
+
+def median_ms(torch, fn, reps: int = 5) -> float:
+    """Median time of ``fn`` in ms over ``reps`` calls, each between two
+    CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1))
+    return sorted(times)[len(times) // 2]
+
+
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """The least time (ms) for ``flops`` operations at ``peak`` and
+    ``nbytes`` at HBM bandwidth, and which of the two bounds it."""
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+#: How a compute kernel's output is held against its plain version's.
+TOLERANCES = {
+    "bitwise": "equal bit for bit",
+    "allclose": "|d| <= 2e-4 + 2e-4 |ref| (tests/test_kernels.py)",
+    "k4096": "max |d| <= 1e-5 max |ref|",
+    "bf16": "max |d| <= 1e-2 max |ref|",
+    "logits": "max |d| <= 1e-4 max |logit|",
+}
+
+
+def agree(torch, got, want, rule: str) -> tuple[bool, float]:
+    """Whether ``got`` holds against ``want`` under ``rule`` (a key of
+    :data:`TOLERANCES`), and their max abs difference."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False, float("inf")
+    g, w = got.float(), want.float()
+    if not g.numel():
+        return True, 0.0
+    d = (g - w).abs()
+    diff, scale = float(d.max()), float(w.abs().max())
+    if not bool(torch.isfinite(g).all()):
+        return False, diff
+    if rule == "bitwise":
+        return torch.equal(got, want), diff
+    if rule == "allclose":
+        return bool((d <= 2e-4 + 2e-4 * w.abs()).all()), diff
+    limit = {"k4096": 1e-5, "bf16": 1e-2, "logits": 1e-4}[rule]
+    return diff <= limit * scale, diff
+
+
+def conv_by_fir(torch, fir, x, w, b):
+    """A valid 2-D convolution composed from FIRs as TAILS does (Sec. 7.2):
+    one FIR per (ci, dy) over all B * co * ho rows stacked as channels,
+    summed in plain PyTorch; then bias and ReLU."""
+    bsz, ci, h, wd = x.shape
+    co, _, kh, kw = w.shape
+    ho, wo = h - kh + 1, wd - kw + 1
+    out = torch.zeros((bsz, co, ho, wo), device=x.device)
+    for c in range(ci):
+        for dy in range(kh):
+            rows = x[:, None, c, dy:dy + ho, :].expand(
+                bsz, co, ho, wd).reshape(-1, wd).contiguous()
+            taps = w[None, :, c, dy, None, :].expand(
+                bsz, co, ho, kw).reshape(-1, kw).contiguous()
+            out += fir(rows, taps).reshape(bsz, co, ho, wo)
+    return torch.relu(out + b.view(1, co, 1, 1))
+
+
+def pool2(h):
+    b, c, hh, ww = h.shape
+    return h.reshape(b, c, hh // 2, 2, ww // 2, 2).amax(dim=(3, 5))
+
+
+def mnist_chain(torch, params, x, fir, sfc, mm):
+    """``mnist_net()`` over a batch: convs from FIRs, fc1 block-sparse,
+    fc2 and fc3 dense; bias, ReLU and pooling in plain PyTorch."""
+    c1w, c1b, c2w, c2b, b1, w2t, b2, w3t, b3 = params
+    h = pool2(conv_by_fir(torch, fir, x, c1w, c1b))
+    h = pool2(conv_by_fir(torch, fir, h, c2w, c2b))
+    h = h.reshape(h.shape[0], -1)
+    h = torch.relu(sfc(h) + b1)
+    h = torch.relu(mm(h, w2t) + b2)
+    return mm(h, w3t) + b3
+
+
+def checkerboard(np, rng, n: int, blk: int):
+    """An (n, n) f32 weight with every other (blk, blk) block zero."""
+    w = rng.normal(size=(n, n)).astype(np.float32)
+    for i in range(n // blk):
+        for j in range(n // blk):
+            if (i + j) % 2:
+                w[i * blk:(i + 1) * blk, j * blk:(j + 1) * blk] = 0
+    return w
+
+
+def compute_kernels(torch, np, emit) -> list[dict]:
+    """Phases 6 and 7: the three compute kernels against their plain
+    versions at small shapes, then at full width with their launches
+    counted; returns their entries of the kernels line."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from repro_torch.compress.prune import prune_by_sparsity
+    from repro_torch.core.inference import SimNet, SparseFC
+    from repro_torch.kernels import (BlockSparseFC, MatmulTiles,
+                                     dense_matmul, fir_conv1d, ref)
+    from repro_torch.models.dnn import mnist_net
+
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{mod}")
+            for name, mod, *_ in COMPUTE_KERNELS}
+    wrappers = {name: getattr(mods[name], fn)
+                for name, _m, fn, *_ in COMPUTE_KERNELS}
+    sparse_plain = mods["block_sparse_fc"].block_sparse_matvec_plain
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def dev(a, dtype=f32):
+        a = np.ascontiguousarray(a, np.float32)
+        return torch.from_numpy(a).to(dtype).cuda()
+
+    def fc_plain(fc):
+        return lambda h: sparse_plain(h, *fc._bundle, fc.m, bm=fc.bm,
+                                      bk=fc.bk)
+
+    # ---- 6. every compute kernel against its plain version, small shapes
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    checks = []          # (kernel, case, kernel output, plain output, rule)
+    for m, k, n, dtype, tiles in (
+            (13, 57, 31, f32, None), (1, 1, 1, f32, None),
+            (129, 1000, 70, f32, None), (64, 512, 384, f32, (8, 128, 128)),
+            (64, 512, 384, f32, (16, 256, 128)), (13, 57, 31, bf16, None),
+            (1, 1, 1, bf16, None), (200, 300, 100, bf16, None)):
+        x = dev(rng.normal(size=(m, k)), dtype)
+        w = dev(rng.normal(size=(k, n)), dtype)
+        t = tiles and MatmulTiles(*tiles)
+        checks.append(("dense_matmul", f"{m}x{k}x{n} {dtype} tiles={tiles}",
+                       dense_matmul(x, w, tiles=t), ref.matmul_ref(x, w),
+                       "allclose" if dtype == f32 else "bf16"))
+    w_empty = rng.normal(size=(512, 512)).astype(np.float32)
+    w_empty[128:, :] = 0
+    w_empty[:128, 256:] = 0
+    w_ragged = rng.normal(size=(300, 200)).astype(np.float32)
+    w_ragged[:, 60:] *= rng.random((300, 140)) < 0.05
+    w_ragged[128:256] = 0
+    for w, batch, blocks in ((w_empty, 8, (128, 128, 8)),
+                             (w_ragged, 1, (128, 128, 8)),
+                             (w_ragged, 7, (128, 128, 8)),
+                             (w_ragged, 17, (128, 128, 8)),
+                             (w_ragged, 33, (128, 128, 32)),
+                             (w_ragged, 9, (64, 48, 4)),
+                             (w_ragged, 5, (40, 40, 1))):
+        bm, bk, bn = blocks
+        fc = BlockSparseFC(w, bm=bm, bk=bk, bn=bn)
+        if w is w_empty and fc.vals.shape[0] != 5:
+            raise SystemExit("kernels_vs_plain: the empty-row-block bundle "
+                             f"holds {fc.vals.shape[0]} blocks, not 5")
+        x = dev(rng.normal(size=(batch, w.shape[1])))
+        checks.append(("block_sparse_fc",
+                       f"{w.shape} nnzb={fc.vals.shape[0]} batch={batch} "
+                       f"blocks={blocks}", fc(x), fc_plain(fc)(x),
+                       "allclose"))
+    for c, length, k in ((37, 101, 7), (5, 12, 1), (5, 12, 12), (1, 1, 1),
+                         (3, 300, 70), (2, 600, 33), (4000, 28, 5)):
+        x = dev(rng.normal(size=(c, length)))
+        taps = dev(rng.normal(size=(c, k)))
+        checks.append(("fir_conv1d", f"C={c} L={length} K={k}",
+                       fir_conv1d(x, taps), ref.fir_conv1d_ref(x, taps),
+                       "bitwise"))
+    torch.cuda.synchronize()
+    small_err = {}
+    for name, case, got, want, rule in checks:
+        ok, diff = agree(torch, got, want, rule)
+        small_err[name] = max(small_err.get(name, 0.0), diff)
+        if not ok:
+            raise SystemExit(f"kernels_vs_plain: {name} {case}: kernel "
+                             f"disagrees with the plain version "
+                             f"({TOLERANCES[rule]}; max abs diff {diff})")
+    emit({"phase": "kernels_vs_plain", "cases": len(checks),
+          "max_abs_diff_vs_plain": small_err, "all_agree": True,
+          "seconds": time.perf_counter() - t0})
+
+    # ---- 7. the entry points at full width, launches counted
+    rng = np.random.default_rng(0)
+    runs = []
+
+    def run(kernel, shape, out, kernel_fn, plain_fn, library_fn, flops,
+            nbytes, peak, rule, headline):
+        runs.append(dict(kernel=kernel, shape=shape, out=out,
+                         kernel_fn=kernel_fn, plain_fn=plain_fn,
+                         library_fn=library_fn, flops=flops, bytes=nbytes,
+                         peak=peak, rule=rule, headline=headline))
+
+    def matmul_run(m, k, n, dtype, rule, headline=False):
+        x = dev(rng.normal(size=(m, k)), dtype)
+        w = dev(rng.normal(size=(k, n)), dtype)
+        size = x.element_size()
+        run("dense_matmul", f"{m}x{k}x{n} {str(dtype)[6:]}",
+            dense_matmul(x, w), lambda: dense_matmul(x, w),
+            lambda: ref.matmul_ref(x, w), lambda: torch.matmul(x, w),
+            2.0 * m * n * k, size * (m * k + k * n + m * n),
+            PEAK_F32_OPS if dtype == f32 else PEAK_BF16_OPS, rule, headline)
+
+    def sparse_run(w, batch, rule, headline=False):
+        fc = BlockSparseFC(w)
+        x = dev(rng.normal(size=(batch, w.shape[1])))
+        wd = dev(w)
+        nnzb = fc.vals.shape[0]
+        run("block_sparse_fc",
+            f"{w.shape[0]}x{w.shape[1]} density {fc.density:.2f} "
+            f"batch {batch}", fc(x), lambda: fc(x), lambda: fc_plain(fc)(x),
+            lambda: torch.matmul(x, wd.T),
+            2.0 * batch * nnzb * fc.bm * fc.bk,
+            4 * (x.numel() + fc.vals.size + fc.row_ptr.size
+                 + fc.col_idx.size + batch * fc.m), PEAK_F32_OPS, rule,
+            headline)
+
+    def fir_run(c, length, k, headline=False):
+        x = dev(rng.normal(size=(c, length)))
+        taps = dev(rng.normal(size=(c, k)))
+        n_out = length - k + 1
+        run("fir_conv1d", f"C={c} L={length} K={k}", fir_conv1d(x, taps),
+            lambda: fir_conv1d(x, taps),
+            lambda: ref.fir_conv1d_ref(x, taps),
+            lambda: F.conv1d(x[None], taps[:, None], groups=c),
+            2.0 * c * n_out * k, 4 * (c * length + c * k + c * n_out),
+            PEAK_F32_OPS, "bitwise", headline)
+
+    net = mnist_net()
+    conv1, _p1, conv2, _p2, fc1, fc2, fc3 = net.layers
+    w1p = prune_by_sparsity(fc1.w, 0.9)
+    xs = np.random.default_rng(42).normal(
+        size=(MNIST_BATCH,) + net.input_shape).astype(np.float32)
+    params = [dev(a) for a in (conv1.w, conv1.b, conv2.w, conv2.b, fc1.b,
+                               fc2.w.T, fc2.b, fc3.w.T, fc3.b)]
+    x_mnist = dev(xs)
+    sfc = BlockSparseFC(w1p)
+
+    for name in wrappers:
+        wrappers[name].launches = 0     # zero just before the path
+    t0 = time.perf_counter()
+    # the repo's benchmark shapes (benchmarks/kernels_bench.py)
+    matmul_run(512, 1024, 768, f32, "allclose")
+    sparse_run(checkerboard(np, rng, 512, 128), 16, "allclose")
+    fir_run(128, 512, 5)
+    bench_launches = {n: w.launches for n, w in wrappers.items()}
+    # MNIST at its published widths over a batch
+    logits = mnist_chain(torch, params, x_mnist, fir_conv1d, sfc,
+                         dense_matmul)
+    torch.cuda.synchronize()
+    mnist_launches = {n: w.launches - bench_launches[n]
+                      for n, w in wrappers.items()}
+    # one large shape per kernel
+    n = LARGE_MATMUL
+    matmul_run(n, n, n, f32, "k4096", headline=True)
+    matmul_run(n, n, n, bf16, "bf16")
+    sparse_run(checkerboard(np, rng, LARGE_SPARSE, 128), LARGE_SPARSE_BATCH,
+               "k4096", headline=True)
+    fir_run(LARGE_FIR, LARGE_FIR, 5, headline=True)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}   # read just after
+    path_s = time.perf_counter() - t0
+    for name, n in launches.items():
+        if n <= 0:
+            raise SystemExit(f"kernels_full_width: {name} never launched")
+
+    # the MNIST logits: against the plain chain on the card (all inputs)
+    # and against the numpy simulator (first 8 inputs)
+    t0 = time.perf_counter()
+    mnist_chain(torch, params, x_mnist, fir_conv1d, sfc, dense_matmul)
+    torch.cuda.synchronize()
+    kernel_chain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_logits = mnist_chain(torch, params, x_mnist, ref.fir_conv1d_ref,
+                               fc_plain(sfc), ref.matmul_ref)
+    torch.cuda.synchronize()
+    plain_chain_s = time.perf_counter() - t0
+    ok, diff_plain = agree(torch, logits, plain_logits, "logits")
+    if not ok or logits.shape != (MNIST_BATCH, 10):
+        raise SystemExit(f"mnist: logits disagree with the plain chain "
+                         f"(max abs diff {diff_plain})")
+    ref_net = SimNet([conv1, _p1, conv2, _p2, SparseFC(w1p, fc1.b), fc2,
+                      fc3], input_shape=net.input_shape, name="mnist-fc1-90")
+    want = torch.tensor(np.stack([ref_net.ref_forward(xs[i])
+                                  for i in range(8)]).astype(np.float32))
+    ok, diff_ref = agree(torch, logits[:8].cpu(), want, "logits")
+    if not ok:
+        raise SystemExit(f"mnist: logits disagree with SimNet.ref_forward "
+                         f"(max abs diff {diff_ref})")
+    emit({"phase": "kernels_full_width", "run": "mnist", "batch":
+          MNIST_BATCH, "launches": mnist_launches,
+          "fc1_block_density": sfc.density,
+          "fc1_element_sparsity": float(np.mean(w1p == 0)),
+          "kernel_chain_s": kernel_chain_s, "plain_chain_s": plain_chain_s,
+          "max_abs_diff_vs_plain": diff_plain,
+          "max_abs_diff_vs_ref_forward": diff_ref,
+          "max_abs_logit": float(want.abs().max()),
+          "tolerance": TOLERANCES["logits"]})
+
+    # every run: against its plain version, then timed
+    entries = {}
+    for r in runs:
+        plain = r["plain_fn"]()
+        torch.cuda.synchronize()
+        ok, diff = agree(torch, r["out"], plain, r["rule"])
+        if not ok:
+            raise SystemExit(f"kernels_full_width: {r['kernel']} "
+                             f"{r['shape']} disagrees with the plain version "
+                             f"({TOLERANCES[r['rule']]}; max abs diff "
+                             f"{diff})")
+        del plain
+        ms = median_ms(torch, r["kernel_fn"])
+        plain_ms = median_ms(torch, r["plain_fn"], reps=3)
+        library_ms = median_ms(torch, r["library_fn"])
+        bound_ms, bound_by = bound(r["flops"], r["bytes"], r["peak"])
+        line = {"phase": "kernels_full_width", "kernel": r["kernel"],
+                "shape": r["shape"], "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "of_bound": bound_ms / ms,
+                "flops": r["flops"], "bytes": r["bytes"],
+                "max_abs_diff_vs_plain": diff,
+                "tolerance": TOLERANCES[r["rule"]]}
+        emit(line)
+        if r["headline"]:
+            entries[r["kernel"]] = line
+    emit({"phase": "kernels_full_width", "launches": launches,
+          "seconds_path": path_s, "all_agree": True})
+
+    out = []
+    for name, _mod, _fn, replaces, replaces_fn in COMPUTE_KERNELS:
+        e = entries[name]
+        src = "sparse_fc" if name == "block_sparse_fc" else name
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": replaces, "replaces_function": replaces_fn,
+            "launches": launches[name],
+            "max_abs_err": e["max_abs_diff_vs_plain"],
+            "max_abs_diff_vs_plain": e["max_abs_diff_vs_plain"],
+            "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+            "library_ms": e["library_ms"], "shape": e["shape"]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -206,12 +596,13 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # ---- 2. build every kernel of the path
-    built = _build.build("charge_replay")
+    built = _build.build("charge_replay", "dense_matmul", "sparse_fc",
+                         "fir_conv1d")
     for b in built.values():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln or "stack" in ln]
         emit({"phase": "build", "kernel": b.name, "seconds": b.seconds,
-              "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas})
+              "flags": " ".join(_build.SOURCE_FLAGS[b.name]), "ptxas": ptxas})
 
     wrapper = cr.charge_replay
     rec = Recorder(torch, wrapper)
@@ -446,7 +837,11 @@ def main() -> int:
           "plain_ms": har_plain_ms})
     cr.charge_replay = wrapper
 
-    # ---- 5. the kernels line, the card, the result
+    # ---- 6, 7. the compute kernels: against their plain versions, then at
+    # full width with their launches counted
+    compute = compute_kernels(torch, np, emit)
+
+    # ---- 8. the kernels line, the card, the result
     emit({"kernels": [{
         "name": "charge_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/charge_replay.cu",
@@ -457,7 +852,7 @@ def main() -> int:
         "ms": min(times), "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "shape": f"{results[0][0]}: {len(results[0][1])} rows x "
-                 f"{int(a[1].shape[0])} lanes"}]})
+                 f"{int(a[1].shape[0])} lanes"}] + compute})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,11 +8,14 @@ package reaches the port as numpy fields:
   ``MaxPool2D``, ``DenseFC`` and ``SparseFC`` (:func:`numpy_layers` reads
   that form off any simulator network);
 * a plan as the dict of its :class:`~repro_torch.core.fleetsim.FleetPlan`
-  fields (:func:`plan_fields`).
+  fields (:func:`plan_fields`);
+* a block-sparse FC layer as its block-CSR bundle and sizes
+  (:func:`block_sparse_fc_fields`).
 
 :func:`simnet_from_numpy` and :func:`plan_from_numpy` rebuild the port's
 objects from them, copying every array, so both packages replay the same
-plan.
+plan; :func:`block_sparse_fc_from_numpy` rebuilds a
+:class:`~repro_torch.kernels.ops.BlockSparseFC` on the same bundle.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 
 from .core.fleetsim import FleetPlan
 from .core.inference import Conv2D, DenseFC, MaxPool2D, SimNet, SparseFC
+from .kernels.ops import BlockSparseFC
 
 _LAYERS = {cls.__name__: cls for cls in (Conv2D, MaxPool2D, DenseFC,
                                          SparseFC)}
@@ -72,3 +76,28 @@ def plan_from_numpy(fields: dict) -> FleetPlan:
     if unknown:
         raise ValueError(f"unknown FleetPlan fields {sorted(unknown)}")
     return FleetPlan(**{k: _copy(v) for k, v in fields.items()})
+
+
+#: The arrays and the sizes that define a block-sparse FC layer.
+_BSFC_ARRAYS = ("vals", "row_ptr", "col_idx")
+_BSFC_SIZES = ("m", "k", "bm", "bk", "bn")
+_BSFC_FIELDS = _BSFC_ARRAYS + _BSFC_SIZES
+
+
+def block_sparse_fc_fields(fc) -> dict:
+    """The numpy bundle and sizes of a ``BlockSparseFC`` (of either
+    package): ``vals``, ``row_ptr``, ``col_idx``, ``m``, ``k``, ``bm``,
+    ``bk`` and ``bn``."""
+    out = {n: np.array(getattr(fc, n), copy=True) for n in _BSFC_ARRAYS}
+    out.update({n: int(getattr(fc, n)) for n in _BSFC_SIZES})
+    return out
+
+
+def block_sparse_fc_from_numpy(fields: dict,
+                               device="cuda") -> BlockSparseFC:
+    """Rebuild a port :class:`BlockSparseFC` on the bundle of
+    :func:`block_sparse_fc_fields`, placed on ``device``."""
+    if set(fields) != set(_BSFC_FIELDS):
+        raise ValueError(f"expected the fields {sorted(_BSFC_FIELDS)}, got "
+                         f"{sorted(fields)}")
+    return BlockSparseFC.from_block_csr(**fields, device=device)

@@ -1,0 +1,107 @@
+"""Public entry points of the port's compute kernels (the counterpart of
+the JAX package's ``repro.kernels.ops``).
+
+Same arguments, layouts and output dtypes as that module.  Its
+``interpret=`` argument gives way to the port's rule: a CPU tensor takes
+the kernel's plain version, a CUDA tensor the hand-written kernel (or an
+exception; nothing falls back).  Tiles come from :mod:`.calibrate`, which
+budgets the H100's shared memory; the kernels mask ragged edges, so no
+operand is padded.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .calibrate import MatmulTiles, fir_tiles, matmul_tiles
+from .dense_matmul import matmul as _matmul
+from .fir_conv1d import fir_conv1d as _fir
+from .sparse_fc import block_sparse_matvec as _bsmv, check_tiles, \
+    to_block_csr
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor,
+                 tiles: MatmulTiles | None = None) -> torch.Tensor:
+    """x (M, K) @ w (K, N) through the tiled kernel.  ``tiles`` is honoured
+    as given on the card, or refused with ``ValueError`` if the kernel
+    cannot launch with it; by default :func:`~.calibrate.matmul_tiles`
+    picks them."""
+    m, k = x.shape
+    n = w.shape[-1]
+    t = tiles or matmul_tiles(m, k, n, x.element_size())
+    return _matmul(x, w, bm=t.bm, bk=t.bk, bn=t.bn)
+
+
+class BlockSparseFC:
+    """Pruned FC layer compiled to the block-CSR kernel.
+
+    Build once from the dense-with-zeros master weight (M, K); call on
+    activations (N, K) -> (N, M).  ``vals``, ``row_ptr`` and ``col_idx``
+    are the numpy bundle (the JAX package's, bit for bit); the layer keeps
+    a copy of it on ``device`` (default the card) and takes inputs there.
+    """
+
+    def __init__(self, w_dense, bm: int = 128, bk: int = 128, bn: int = 8,
+                 device="cuda"):
+        w_dense = np.asarray(w_dense)
+        m, k = w_dense.shape
+        mp, kp = -(-m // bm) * bm, -(-k // bk) * bk
+        wp = np.zeros((mp, kp), w_dense.dtype)
+        wp[:m, :k] = w_dense
+        self._set(*to_block_csr(wp, bm, bk), m, k, bm, bk, bn, device)
+
+    @classmethod
+    def from_block_csr(cls, vals, row_ptr, col_idx, m: int, k: int,
+                       bm: int, bk: int, bn: int = 8,
+                       device="cuda") -> "BlockSparseFC":
+        """A layer from a bundle already made (for example the JAX
+        package's, carried across as numpy by ``repro_torch.convert``)."""
+        fc = cls.__new__(cls)
+        fc._set(np.array(vals, copy=True), np.array(row_ptr, np.int32),
+                np.array(col_idx, np.int32), m, k, bm, bk, bn, device)
+        return fc
+
+    def _set(self, vals, row_ptr, col_idx, m, k, bm, bk, bn, device):
+        check_tiles(bm, bk, bn)
+        nbr = -(-m // bm)
+        nnzb = vals.shape[0]
+        if vals.shape[1:] != (bm, bk) or row_ptr.shape != (nbr + 1,) \
+                or col_idx.shape != (nnzb,) or row_ptr[0] != 0 \
+                or row_ptr[-1] != nnzb or np.any(np.diff(row_ptr) < 0) \
+                or np.any(col_idx < 0) \
+                or np.any(col_idx >= -(-k // bk)):
+            raise ValueError(f"not a block-CSR bundle of a ({m}, {k}) "
+                             f"weight in ({bm}, {bk}) blocks")
+        self.m, self.k = m, k
+        self.bm, self.bk, self.bn = bm, bk, bn
+        self.padded_m, self.padded_k = nbr * bm, -(-k // bk) * bk
+        self.vals, self.row_ptr, self.col_idx = vals, row_ptr, col_idx
+        dev = resolve_device(device)
+        self._bundle = (
+            torch.as_tensor(vals, dtype=torch.float32, device=dev),
+            torch.as_tensor(row_ptr, device=dev),
+            torch.as_tensor(col_idx, device=dev))
+        self.device = self._bundle[0].device      # with its index
+
+    @property
+    def density(self) -> float:
+        nbr = (self.padded_m // self.bm) * (self.padded_k // self.bk)
+        return self.vals.shape[0] / nbr
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != 2 or x.shape[1] != self.k:
+            raise ValueError(f"expected (N, {self.k}) activations, got "
+                             f"{tuple(x.shape)}")
+        if x.device != self.device:
+            raise ValueError(f"x is on {x.device}, the layer on "
+                             f"{self.device}")
+        return _bsmv(x, *self._bundle, self.m, bm=self.bm, bk=self.bk,
+                     bn=self.bn)
+
+
+def fir_conv1d(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Depthwise valid FIR conv: x (C, L), taps (C, K)."""
+    c, length = x.shape
+    return _fir(x, taps, cb=fir_tiles(c, length, x.element_size()))

@@ -1,9 +1,14 @@
-"""The CUDA lane kernel on the card: it must equal the plain PyTorch
-version bitwise on every output channel, count its launches, and refuse
-CPU tensors.  Every test skips, from inside the test, where no card is
-visible; run them on the card with ``python -m pytest -m gpu``."""
+"""The CUDA kernels on the card.  The lane kernel must equal the plain
+PyTorch version bitwise on every output channel, count its launches, and
+refuse CPU tensors; the compute kernels (dense matmul, block-sparse FC,
+FIR) must agree with their plain versions -- the FIR bitwise, the products
+within the tolerance of ``tests/test_kernels.py`` -- count only their own
+launches, and send CPU tensors to the plain versions.  Every test skips,
+from inside the test, where no card is visible; run them on the card with
+``python -m pytest -m gpu``."""
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -139,3 +144,127 @@ def test_cpu_tensors_with_cuda_backend_raise():
     bad[7] = bad[7].to(torch.int64)                # s_real of the wrong type
     with pytest.raises(TypeError, match="s_real"):
         cr.charge_replay(*bad, **kw)
+
+
+# --------------------------------------------------------------------------
+# the compute kernels: dense matmul, block-sparse FC, FIR
+# --------------------------------------------------------------------------
+
+def _kmod(name):
+    """A kernel module by its full path (``repro_torch.kernels`` exports
+    functions named ``dense_matmul`` and ``fir_conv1d``)."""
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+def _cuda(a, dtype=torch.float32):
+    return torch.tensor(np.asarray(a, np.float32)).to(dtype).cuda()
+
+
+@pytest.mark.parametrize("shape,dtype,tiles", [
+    ((13, 57, 31), torch.float32, None), ((1, 1, 1), torch.float32, None),
+    ((64, 512, 384), torch.float32, (8, 128, 128)),
+    ((64, 512, 384), torch.float32, (16, 256, 128)),
+    ((300, 1000, 200), torch.float32, None),
+    ((13, 57, 31), torch.bfloat16, None),
+    ((300, 1000, 200), torch.bfloat16, None)])
+def test_dense_matmul_kernel_equals_plain(shape, dtype, tiles):
+    _need_card()
+    from repro_torch.kernels import MatmulTiles, dense_matmul, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + n)
+    x = _cuda(rng.normal(size=(m, k)), dtype)
+    w = _cuda(rng.normal(size=(k, n)), dtype)
+    mod = _kmod("dense_matmul")
+    before = mod.matmul.launches
+    got = dense_matmul(x, w, tiles=tiles and MatmulTiles(*tiles))
+    torch.cuda.synchronize()
+    assert mod.matmul.launches == before + 1
+    want = ref.matmul_ref(x, w)
+    assert got.dtype == dtype and got.device == x.device
+    scale = float(want.float().abs().max())
+    diff = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:      # tests/test_kernels.py's tolerance
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:                           # one bf16 rounding of the output
+        assert diff <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("batch,bn", [(1, 8), (7, 8), (17, 8), (33, 32),
+                                      (5, 1)])
+def test_block_sparse_kernel_equals_plain(batch, bn):
+    _need_card()
+    from repro_torch.kernels import BlockSparseFC
+    rng = np.random.default_rng(batch)
+    w = rng.normal(size=(300, 200)).astype(np.float32)
+    w[128:256] = 0                                  # an empty row-block
+    w[:, 60:] *= rng.random((300, 140)) < 0.05
+    fc = BlockSparseFC(w, bn=bn)
+    x = _cuda(rng.normal(size=(batch, 200)))
+    mod = _kmod("sparse_fc")
+    before = mod.block_sparse_matvec.launches
+    got = fc(x)
+    torch.cuda.synchronize()
+    assert mod.block_sparse_matvec.launches == before + 1
+    want = mod.block_sparse_matvec_plain(x, *fc._bundle, fc.m, bm=fc.bm,
+                                         bk=fc.bk)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("c,length,k", [(37, 101, 7), (5, 12, 1),
+                                        (5, 12, 12), (3, 300, 70),
+                                        (4000, 28, 5), (2, 9000, 5)])
+def test_fir_kernel_bitwise_equals_plain(c, length, k):
+    _need_card()
+    from repro_torch.kernels import fir_conv1d, ref
+    rng = np.random.default_rng(c + length + k)
+    x = _cuda(rng.normal(size=(c, length)))
+    taps = _cuda(rng.normal(size=(c, k)))
+    mod = _kmod("fir_conv1d")
+    before = mod.fir_conv1d.launches
+    got = fir_conv1d(x, taps)
+    torch.cuda.synchronize()
+    assert mod.fir_conv1d.launches == before + 1
+    assert torch.equal(got, ref.fir_conv1d_ref(x, taps))
+
+
+def test_compute_kernels_count_only_cuda_launches():
+    """CPU tensors go to the plain versions and launch nothing."""
+    _need_card()
+    from repro_torch.kernels import BlockSparseFC, dense_matmul, fir_conv1d
+    mods = [(_kmod("dense_matmul"), "matmul"),
+            (_kmod("sparse_fc"), "block_sparse_matvec"),
+            (_kmod("fir_conv1d"), "fir_conv1d")]
+    count = lambda: [getattr(m, f).launches for m, f in mods]
+    before = count()
+    x = torch.randn(9, 20)
+    dense_matmul(x, torch.randn(20, 3))
+    BlockSparseFC(np.ones((5, 20), np.float32), device="cpu")(x)
+    fir_conv1d(x, torch.randn(9, 4))
+    assert count() == before
+    xc = x.cuda()
+    dense_matmul(xc, torch.randn(20, 3, device="cuda"))
+    BlockSparseFC(np.ones((5, 20), np.float32))(xc)
+    fir_conv1d(xc, torch.randn(9, 4, device="cuda"))
+    torch.cuda.synchronize()
+    assert count() == [b + 1 for b in before]
+
+
+def test_compute_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    from repro_torch.kernels import BlockSparseFC, dense_matmul, fir_conv1d
+    x = torch.randn(16, 32, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_matmul(x, torch.randn(16, 32, device="cuda").T)
+    with pytest.raises(TypeError, match="w must be"):
+        dense_matmul(x, torch.randn(32, 8, device="cuda",
+                                    dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="but w on"):
+        dense_matmul(x, torch.randn(32, 8))
+    with pytest.raises(TypeError, match="x must be"):
+        fir_conv1d(x.double(), torch.randn(16, 3, device="cuda").double())
+    fc = BlockSparseFC(np.ones((8, 32), np.float32))
+    with pytest.raises(ValueError, match="the layer on"):
+        fc(x.cpu())
+    with pytest.raises(TypeError, match="x must be"):
+        fc(x.half())

@@ -26,7 +26,12 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch, repro_torch.convert, repro_torch.device\n"
         "import repro_torch.core, repro_torch.core.fleetsim\n"
         "import repro_torch.kernels, repro_torch.kernels.charge_replay\n"
-        "import repro_torch.kernels._build\n"
+        "import repro_torch.kernels._build, repro_torch.kernels._launch\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.calibrate\n"
+        "import repro_torch.kernels.ref, repro_torch.kernels.dense_matmul\n"
+        "import repro_torch.kernels.sparse_fc\n"
+        "import repro_torch.kernels.fir_conv1d\n"
+        "import repro_torch.compress, repro_torch.compress.prune\n"
         "import repro_torch.models, repro_torch.runtime\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -41,6 +46,10 @@ def test_import_loads_no_jax_and_no_repro():
 def test_port_files_found():
     assert "repro_torch/kernels/charge_replay.py" in PORT_FILES
     assert "repro_torch/core/fleetsim.py" in PORT_FILES
+    for name in ("ops", "calibrate", "ref", "dense_matmul", "sparse_fc",
+                 "fir_conv1d", "_launch"):
+        assert f"repro_torch/kernels/{name}.py" in PORT_FILES
+    assert "repro_torch/compress/prune.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
