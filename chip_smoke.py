@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fleet replay and compute kernels on one CUDA
-card and check them.
+"""Drive the PyTorch port's fleet replay, compute kernels and LM forward on
+one CUDA card and check them.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -40,7 +40,21 @@ prints one JSON line per phase; any failure exits non-zero.
    version (and the MNIST logits against the plain chain and the numpy
    simulator), and the kernel, its plain version and one PyTorch library
    call computing the same function are timed, beside the bound.
-8. the kernels line, the ``nvidia-smi`` line, and the result line.
+8. lm_vs_plain -- the attention kernel (f32 and bf16, causal or not,
+   Sq != Sk, S of 1, 37 and 300, d of 64 and 128, GQA group 2) and the SSD
+   cell (the tests' shapes, an overflowing decay, Q = 256) against their
+   plain versions on the card.
+9. lm_full_width -- qwen3-0.6b as published (28 layers, bf16, attention
+   through the kernel) over 2 x 4,096 tokens: the attention kernel's
+   launches zeroed just before ``forward`` and read just after (one a
+   layer), the logits held against the blockwise path in bf16 and, on the
+   same weights widened to f32, in f32; the forward timed and split (hidden states, LM
+   head) beside its bound.  Then each kernel at its full-width shape
+   (one layer's attention; the SSD cell at mamba2-370m's widths, reached
+   through the ``kernels`` entry point, launches counted) against its
+   plain version, timed beside its plain version, its bound and, for
+   attention, ``scaled_dot_product_attention`` as a yardstick.
+10. the kernels line, the ``nvidia-smi`` line, and the result line.
 """
 
 from __future__ import annotations
@@ -238,6 +252,18 @@ TOLERANCES = {
     "k4096": "max |d| <= 1e-5 max |ref|",
     "bf16": "max |d| <= 1e-2 max |ref|",
     "logits": "max |d| <= 1e-4 max |logit|",
+    "ssd": "max |d| <= 1e-5 max |ref| per output (f32 sums over N then Q "
+           "terms in another order than the plain version's cuBLAS "
+           "products grow as sqrt(terms), about 1e-6 of the largest value; "
+           "a bound on each element would fail on the entries that cancel "
+           "to near 0)",
+    "lm_bf16": "max |d| <= 5e-2 max |logit| (the kernel and the blockwise "
+               "path round p and the attention output to bf16 at other tile "
+               "boundaries, and 28 bf16 residual layers compound it: 0.76-"
+               "0.94 % at 4-8 layers of these widths on the CPU; a dropped "
+               "causal mask, a GQA head map in .repeat order or keys "
+               "shifted by one move the logits by more than 100 %)",
+    "lm_f32": "max |d| <= 1e-4 max |logit| (f32 sums in another order)",
 }
 
 
@@ -257,7 +283,8 @@ def agree(torch, got, want, rule: str) -> tuple[bool, float]:
         return torch.equal(got, want), diff
     if rule == "allclose":
         return bool((d <= 2e-4 + 2e-4 * w.abs()).all()), diff
-    limit = {"k4096": 1e-5, "bf16": 1e-2, "logits": 1e-4}[rule]
+    limit = {"k4096": 1e-5, "bf16": 1e-2, "logits": 1e-4, "ssd": 1e-5,
+             "lm_bf16": 5e-2, "lm_f32": 1e-4}[rule]
     return diff <= limit * scale, diff
 
 
@@ -556,6 +583,285 @@ def compute_kernels(torch, np, emit) -> list[dict]:
     return out
 
 
+#: The LM slice's full-width run: qwen3-0.6b as the repo publishes it, at
+#: the sequence length of SHAPES["train_4k"], weights from seed 0 and
+#: tokens from seed 42.
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH, LM_SEQ = 2, 4096
+#: The SSD cell at mamba2-370m's widths (Q = ssm_chunk 256, N = ssm_state
+#: 128, P = ssm_headdim 64, H = 2 * 1024 / 64) over batch 2 x 4,096 tokens.
+SSD_BC, SSD_H, SSD_Q, SSD_P, SSD_N = 2 * 4096 // 256, 32, 256, 64, 128
+
+def lm_kernels(torch, np, emit) -> list[dict]:
+    """Phases 8 and 9: the attention and SSD kernels against their plain
+    versions at small shapes, then the qwen3-0.6b forward at full width
+    with the attention kernel's launches counted, its logits held against
+    the blockwise path in bf16 and in f32, and both kernels timed at the
+    full-width shapes; returns their entries of the kernels line."""
+    import dataclasses
+    import importlib
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ref, ssd_intra
+    from repro_torch.models import counting, transformer
+
+    fmod = importlib.import_module("repro_torch.kernels.flash_attention")
+    smod = importlib.import_module("repro_torch.kernels.ssd_intra")
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def dev(a, dtype=f32):
+        a = np.ascontiguousarray(a, np.float32)
+        return torch.from_numpy(a).to(dtype).cuda()
+
+    def ssd_inputs(rng, bc, h, q, p, n, steep):
+        step = rng.uniform(1.0, 4.0, (bc, h, q)) if steep else \
+            rng.uniform(0.005, 1.0, (bc, h, q))
+        return (dev(rng.normal(size=(bc, h, q, p))),
+                dev(rng.normal(size=(bc, q, n))),
+                dev(rng.normal(size=(bc, q, n))),
+                dev(np.cumsum(-step, axis=-1)))
+
+    # ---- 8. both kernels against their plain versions, small shapes
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    checks = []          # (kernel, case, [kernel outputs], [plain], rule)
+    for dtype in (f32, bf16):
+        for bh, sq, sk, d, group in ((2, 37, 37, 64, 1), (4, 300, 300, 128, 2),
+                                     (2, 1, 1, 128, 2), (4, 37, 300, 128, 2),
+                                     (2, 300, 37, 64, 1), (4, 1, 300, 64, 2)):
+            for causal in (True, False):
+                q = dev(rng.normal(size=(bh, sq, d)), dtype)
+                k = dev(rng.normal(size=(bh // group, sk, d)), dtype)
+                v = dev(rng.normal(size=(bh // group, sk, d)), dtype)
+                checks.append((
+                    "flash_attention",
+                    f"bh={bh} sq={sq} sk={sk} d={d} group={group} "
+                    f"causal={causal} {dtype}",
+                    [fmod.flash_attention(q, k, v, causal=causal,
+                                          group=group)],
+                    [fmod.flash_attention_plain(q, k, v, causal=causal,
+                                                group=group)],
+                    "allclose" if dtype == f32 else "bf16"))
+    for shape in ((2, 3, 8, 4, 5, False), (1, 2, 4, 8, 3, False),
+                  (1, 2, 64, 8, 6, True), (2, 4, SSD_Q, SSD_P, SSD_N, True),
+                  (1, 2, 100, 70, 70, False)):
+        args = ssd_inputs(rng, *shape)
+        checks.append(("ssd_intra", f"(bc, h, q, p, n, steep)={shape}",
+                       list(ssd_intra(*args)), list(ref.ssd_intra_ref(*args)),
+                       "ssd"))
+    torch.cuda.synchronize()
+    small_err = {}
+    for name, case, got, want, rule in checks:
+        for g, w in zip(got, want):
+            ok, diff = agree(torch, g, w, rule)
+            small_err[name] = max(small_err.get(name, 0.0), diff)
+            if not ok:
+                raise SystemExit(f"lm_vs_plain: {name} {case}: kernel "
+                                 f"disagrees with the plain version "
+                                 f"({TOLERANCES[rule]}; max abs diff {diff})")
+    emit({"phase": "lm_vs_plain", "cases": len(checks),
+          "max_abs_diff_vs_plain": small_err, "all_agree": True,
+          "tolerances": {"flash_attention f32": TOLERANCES["allclose"],
+                         "flash_attention bf16": TOLERANCES["bf16"],
+                         "ssd_intra": TOLERANCES["ssd"]},
+          "seconds": time.perf_counter() - t0})
+    del checks
+
+    # ---- 9. the qwen3-0.6b forward at full width
+    cfg = dataclasses.replace(get_config(LM_ARCH), use_pallas_attention=True)
+    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(42).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).cuda()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = LM_BATCH * LM_SEQ
+
+    fmod.flash_attention.launches = 0         # zero just before the path
+    logits = transformer.forward(cfg, params, toks)
+    torch.cuda.synchronize()
+    launches = fmod.flash_attention.launches  # read just after
+    if launches != cfg.num_layers:
+        raise SystemExit(f"lm_full_width: {launches} flash_attention "
+                         f"launches in one forward, not {cfg.num_layers}")
+    if logits.shape != (LM_BATCH, LM_SEQ, cfg.vocab_padded) \
+            or logits.dtype != f32:
+        raise SystemExit(f"lm_full_width: logits {tuple(logits.shape)} "
+                         f"{logits.dtype}")
+    plain = transformer.forward(plain_cfg, params, toks)
+    torch.cuda.synchronize()
+    vocab = cfg.vocab_size                    # padded columns are -1e30
+    logits, plain = logits[..., :vocab], plain[..., :vocab]
+    ok, diff_bf16 = agree(torch, logits, plain, "lm_bf16")
+    max_logit = float(plain.abs().max())
+    mean_rel = float((logits - plain).abs().mean() / plain.abs().mean())
+    if not ok:
+        raise SystemExit(f"lm_full_width: bf16 logits disagree with the "
+                         f"blockwise path ({TOLERANCES['lm_bf16']}; max "
+                         f"abs diff {diff_bf16}, max |logit| {max_logit})")
+    del logits, plain
+
+    # the forward's time and its split (CUDA events, median of 3)
+    def fwd():
+        return transformer.forward(cfg, params, toks)
+
+    forward_ms = median_ms(torch, fwd, reps=3)
+    plain_forward_ms = median_ms(
+        torch, lambda: transformer.forward(plain_cfg, params, toks), reps=3)
+    hidden = transformer.hidden_states(cfg, params, toks)
+    hidden_ms = median_ms(
+        torch, lambda: transformer.hidden_states(cfg, params, toks), reps=3)
+    head_ms = median_ms(
+        torch, lambda: transformer.logits_fn(cfg, params, hidden), reps=3)
+    del hidden
+    n_params = counting.param_count(cfg)
+    attn_flops = 2.0 * LM_SEQ * LM_SEQ * cfg.hd * cfg.num_heads * LM_BATCH \
+        * cfg.num_layers                      # causal half, QK^T and PV
+    fwd_flops = counting.model_flops(cfg, tokens, "prefill") + attn_flops
+    fwd_bound_ms = fwd_flops / PEAK_BF16_OPS * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the same weights, widened to f32, through both paths in f32
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+
+    def widen(tree):
+        return {k: widen(a) if isinstance(a, dict) else a.float()
+                for k, a in tree.items()}
+
+    params32 = widen(params)
+    del params
+    torch.cuda.empty_cache()
+    logits = transformer.forward(cfg32, params32, toks)
+    plain = transformer.forward(dataclasses.replace(
+        cfg32, use_pallas_attention=False), params32, toks)
+    torch.cuda.synchronize()
+    logits, plain = logits[..., :vocab], plain[..., :vocab]
+    ok, diff_f32 = agree(torch, logits, plain, "lm_f32")
+    max_logit32 = float(plain.abs().max())
+    if not ok:
+        raise SystemExit(f"lm_full_width: f32 logits disagree with the "
+                         f"blockwise path ({TOLERANCES['lm_f32']}; max "
+                         f"abs diff {diff_f32}, max |logit| {max_logit32})")
+    del logits, plain, params32
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_full_width", "arch": LM_ARCH, "layers":
+          cfg.num_layers, "batch": LM_BATCH, "seq": LM_SEQ,
+          "params": n_params, "init_s": init_s,
+          "flash_attention_launches": launches,
+          "bf16_max_abs_diff_vs_blockwise": diff_bf16,
+          "bf16_mean_rel_diff_vs_blockwise": mean_rel,
+          "bf16_max_abs_logit": max_logit,
+          "bf16_tolerance": TOLERANCES["lm_bf16"],
+          "f32_max_abs_diff_vs_blockwise": diff_f32,
+          "f32_max_abs_logit": max_logit32,
+          "f32_tolerance": TOLERANCES["lm_f32"],
+          "forward_ms": forward_ms, "tokens_per_s": tokens / forward_ms * 1e3,
+          "blockwise_forward_ms": plain_forward_ms,
+          "hidden_states_ms": hidden_ms, "lm_head_f32_ms": head_ms,
+          "forward_flops": fwd_flops, "attention_flops": attn_flops,
+          "forward_bound_ms": fwd_bound_ms, "bound_by": "operations",
+          "of_bound": fwd_bound_ms / forward_ms, "peak_memory_gb": peak_gb})
+
+    # ---- the kernels at the path's full-width shapes, timed
+    g = cfg.num_heads // cfg.num_kv_heads
+    bh = LM_BATCH * cfg.num_heads
+    q = dev(rng.normal(size=(bh, LM_SEQ, cfg.hd)), bf16)
+    k = dev(rng.normal(size=(bh // g, LM_SEQ, cfg.hd)), bf16)
+    v = dev(rng.normal(size=(bh // g, LM_SEQ, cfg.hd)), bf16)
+    bq = bk = min(cfg.q_chunk, 128)
+    got = fmod.flash_attention(q, k, v, causal=True, group=g)
+    want = fmod.flash_attention_plain(q, k, v, causal=True, group=g, bq=bq,
+                                      bk=bk)
+    ok, flash_diff = agree(torch, got, want, "bf16")
+    if not ok:
+        raise SystemExit(f"lm_full_width: flash_attention ({bh}, {LM_SEQ}, "
+                         f"{cfg.hd}) disagrees with the plain version "
+                         f"({TOLERANCES['bf16']}; max abs diff {flash_diff})")
+    del got, want
+    q4 = q.view(LM_BATCH, cfg.num_heads, LM_SEQ, cfg.hd)
+    k4 = k.view(LM_BATCH, cfg.num_kv_heads, LM_SEQ, cfg.hd
+                ).repeat_interleave(g, 1)
+    v4 = v.view(LM_BATCH, cfg.num_kv_heads, LM_SEQ, cfg.hd
+                ).repeat_interleave(g, 1)
+    flash_flops = 2.0 * LM_SEQ * LM_SEQ * cfg.hd * bh
+    flash_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flash = dict(
+        ms=median_ms(torch, lambda: fmod.flash_attention(q, k, v, causal=True,
+                                                         group=g)),
+        plain_ms=median_ms(torch, lambda: fmod.flash_attention_plain(
+            q, k, v, causal=True, group=g, bq=bq, bk=bk), reps=3),
+        library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)),
+        max_abs_err=flash_diff, flops=flash_flops, bytes=flash_bytes,
+        shape=f"q ({bh}, {LM_SEQ}, {cfg.hd}) bf16, k/v ({bh // g}, "
+              f"{LM_SEQ}, {cfg.hd}), group {g}, causal")
+    flash["bound_ms"], flash["bound_by"] = bound(flash_flops, flash_bytes,
+                                                 PEAK_BF16_OPS)
+    del q, k, v, q4, k4, v4
+
+    args = ssd_inputs(rng, SSD_BC, SSD_H, SSD_Q, SSD_P, SSD_N, False)
+    smod.ssd_intra.launches = 0               # its path: the entry point
+    got = ssd_intra(*args)
+    torch.cuda.synchronize()
+    ssd_launches = smod.ssd_intra.launches
+    if ssd_launches <= 0:
+        raise SystemExit("lm_full_width: ssd_intra never launched")
+    want = ref.ssd_intra_ref(*args)
+    ssd_diff = 0.0
+    for gt, wt in zip(got, want):
+        ok, diff = agree(torch, gt, wt, "ssd")
+        ssd_diff = max(ssd_diff, diff)
+        if not ok:
+            raise SystemExit(f"lm_full_width: ssd_intra at mamba2-370m's "
+                             f"shape disagrees with the plain version "
+                             f"({TOLERANCES['ssd']}; max abs diff {diff})")
+    del got, want
+    tri = SSD_Q * (SSD_Q + 1) // 2            # (i, j) pairs with j <= i
+    cells = SSD_BC * SSD_H
+    ssd_flops = 2.0 * cells * (tri * SSD_N + tri * SSD_P
+                               + SSD_Q * SSD_N * SSD_P)
+    ssd_bytes = 4 * (2 * cells * SSD_Q * SSD_P + 2 * SSD_BC * SSD_Q * SSD_N
+                     + cells * SSD_Q + cells * SSD_N * SSD_P)
+    ssd = dict(
+        ms=median_ms(torch, lambda: ssd_intra(*args)),
+        plain_ms=median_ms(torch, lambda: ref.ssd_intra_ref(*args), reps=3),
+        library_ms=None, max_abs_err=ssd_diff, flops=ssd_flops,
+        bytes=ssd_bytes,
+        shape=f"xdt ({SSD_BC}, {SSD_H}, {SSD_Q}, {SSD_P}), bb/cc ({SSD_BC}, "
+              f"{SSD_Q}, {SSD_N}) f32")
+    ssd["bound_ms"], ssd["bound_by"] = bound(ssd_flops, ssd_bytes,
+                                             PEAK_F32_OPS)
+    del args
+    for name, r in (("flash_attention", flash), ("ssd_intra", ssd)):
+        emit({"phase": "lm_full_width", "kernel": name, **r,
+              "of_bound": r["bound_ms"] / r["ms"]})
+    emit({"phase": "lm_full_width", "launches": {
+        "flash_attention": launches, "ssd_intra": ssd_launches},
+        "all_agree": True})
+
+    out = []
+    for name, r, n, replaces in (
+            ("flash_attention", flash, launches,
+             "src/repro/kernels/flash_attention.py:70"),
+            ("ssd_intra", ssd, ssd_launches,
+             "src/repro/kernels/ssd_intra.py:44")):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "replaces_function": name,
+            "launches": n, "max_abs_err": r["max_abs_err"],
+            "max_abs_diff_vs_plain": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -597,7 +903,7 @@ def main() -> int:
 
     # ---- 2. build every kernel of the path
     built = _build.build("charge_replay", "dense_matmul", "sparse_fc",
-                         "fir_conv1d")
+                         "fir_conv1d", "flash_attention", "ssd_intra")
     for b in built.values():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln or "stack" in ln]
@@ -841,7 +1147,11 @@ def main() -> int:
     # full width with their launches counted
     compute = compute_kernels(torch, np, emit)
 
-    # ---- 8. the kernels line, the card, the result
+    # ---- 8, 9. the LM slice: attention and SSD kernels against their plain
+    # versions, then the qwen3-0.6b forward at full width
+    lm = lm_kernels(torch, np, emit)
+
+    # ---- 10. the kernels line, the card, the result
     emit({"kernels": [{
         "name": "charge_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/charge_replay.cu",
@@ -852,7 +1162,7 @@ def main() -> int:
         "ms": min(times), "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "shape": f"{results[0][0]}: {len(results[0][1])} rows x "
-                 f"{int(a[1].shape[0])} lanes"}] + compute})
+                 f"{int(a[1].shape[0])} lanes"}] + compute + lm})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

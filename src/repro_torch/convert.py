@@ -10,12 +10,16 @@ package reaches the port as numpy fields:
 * a plan as the dict of its :class:`~repro_torch.core.fleetsim.FleetPlan`
   fields (:func:`plan_fields`);
 * a block-sparse FC layer as its block-CSR bundle and sizes
-  (:func:`block_sparse_fc_fields`).
+  (:func:`block_sparse_fc_fields`);
+* a model config as the dict of its fields (``dataclasses.asdict``), and
+  an LM's parameters as the JAX tree with numpy leaves.
 
 :func:`simnet_from_numpy` and :func:`plan_from_numpy` rebuild the port's
 objects from them, copying every array, so both packages replay the same
 plan; :func:`block_sparse_fc_from_numpy` rebuilds a
-:class:`~repro_torch.kernels.ops.BlockSparseFC` on the same bundle.
+:class:`~repro_torch.kernels.ops.BlockSparseFC` on the same bundle;
+:func:`model_config_from_fields` and :func:`lm_params_from_numpy` rebuild
+a config and copy an LM's weights onto a device.
 """
 
 from __future__ import annotations
@@ -23,10 +27,14 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core.fleetsim import FleetPlan
 from .core.inference import Conv2D, DenseFC, MaxPool2D, SimNet, SparseFC
 from .kernels.ops import BlockSparseFC
+from .models import transformer
+from .models.config import ModelConfig
+from .models.layers import dt
 
 _LAYERS = {cls.__name__: cls for cls in (Conv2D, MaxPool2D, DenseFC,
                                          SparseFC)}
@@ -101,3 +109,51 @@ def block_sparse_fc_from_numpy(fields: dict,
         raise ValueError(f"expected the fields {sorted(_BSFC_FIELDS)}, got "
                          f"{sorted(fields)}")
     return BlockSparseFC.from_block_csr(**fields, device=device)
+
+
+def model_config_from_fields(fields: dict) -> ModelConfig:
+    """A port :class:`ModelConfig` from the fields of a JAX-package config
+    (``dataclasses.asdict(cfg)``)."""
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    unknown = set(fields) - names
+    if unknown:
+        raise ValueError(f"unknown ModelConfig fields {sorted(unknown)}")
+    return ModelConfig(**fields)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, params: dict,
+                         device="cuda") -> dict:
+    """The port's LM parameters from the JAX package's tree with numpy
+    leaves: ``embed``, ``final_norm``, ``lm_head`` (unless the embeddings
+    are tied) and ``layers`` with a leading L dimension on every leaf.
+    Every leaf is checked against the config's shapes and copied onto
+    ``device`` in ``cfg.param_dtype``, so editing the numpy tree afterwards
+    changes nothing in the port."""
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    want = transformer.param_shapes(cfg)
+    flat = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            name = f"{prefix}{k}"
+            if isinstance(v, dict):
+                walk(v, name + ".")
+            else:
+                flat[name] = v
+
+    walk(params, "")
+    if set(flat) != set(want):
+        raise ValueError(f"parameter names differ from {cfg.name}'s: missing "
+                         f"{sorted(set(want) - set(flat))}, unknown "
+                         f"{sorted(set(flat) - set(want))}")
+    out = {}
+    for name, shape in want.items():
+        a = np.asarray(flat[name])
+        if a.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"{tuple(shape)}")
+        out[name] = torch.tensor(np.array(a, np.float32, copy=True)).to(
+            device=dev, dtype=dt(cfg.param_dtype))
+    return transformer._nest(out)

@@ -29,14 +29,16 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-#: The matrix kernels sum in another order than their plain versions
-#: anyway, so they may contract a multiply and an add into one FMA.
+#: The matrix kernels (matmul, block-sparse FC, attention, SSD) sum in
+#: another order than their plain versions anyway, so they may contract a
+#: multiply and an add into one FMA.
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
 #: Each source's flags: the lane kernel and the FIR are held bitwise
 #: against their plain versions and keep one rounding per operation.
 SOURCE_FLAGS = {"charge_replay": NVCC_FLAGS, "fir_conv1d": NVCC_FLAGS,
-                "dense_matmul": FMAD_FLAGS, "sparse_fc": FMAD_FLAGS}
+                "dense_matmul": FMAD_FLAGS, "sparse_fc": FMAD_FLAGS,
+                "flash_attention": FMAD_FLAGS, "ssd_intra": FMAD_FLAGS}
 
 
 @dataclass

@@ -1,7 +1,8 @@
 """Public entry points of the port's compute kernels (the counterpart of
 the JAX package's ``repro.kernels.ops``).
 
-Same arguments, layouts and output dtypes as that module.  Its
+Same arguments, layouts and output dtypes as that module (attention also
+takes k and v with fewer heads than q).  Its
 ``interpret=`` argument gives way to the port's rule: a CPU tensor takes
 the kernel's plain version, a CUDA tensor the hand-written kernel (or an
 exception; nothing falls back).  Tiles come from :mod:`.calibrate`, which
@@ -18,6 +19,7 @@ from ..device import resolve_device
 from .calibrate import MatmulTiles, fir_tiles, matmul_tiles
 from .dense_matmul import matmul as _matmul
 from .fir_conv1d import fir_conv1d as _fir
+from .flash_attention import flash_attention as _flash
 from .sparse_fc import block_sparse_matvec as _bsmv, check_tiles, \
     to_block_csr
 
@@ -105,3 +107,27 @@ def fir_conv1d(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Depthwise valid FIR conv: x (C, L), taps (C, K)."""
     c, length = x.shape
     return _fir(x, taps, cb=fir_tiles(c, length, x.element_size()))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = 128,
+                    bk: int = 128) -> torch.Tensor:
+    """q: (B, H, Sq, d); k, v: (B, Hkv, Sk, d) with Hkv dividing H -- the
+    MHA layout when Hkv == H.  Query head h reads kv head h // (H / Hkv),
+    the order in which ``models.layers.blockwise_attention`` expands GQA;
+    the kernel indexes it without copying k and v out.  ``bq`` and ``bk``
+    are the tiles of the plain version (CPU tensors), the Pallas kernel's;
+    the CUDA kernel runs its own.  Returns (B, H, Sq, d) in q's dtype."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[0] != q.shape[0] or k.shape[1] < 1 \
+            or q.shape[1] % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be (B, H, Sq, d) and "
+                         f"(B, Hkv, Sk, d) with Hkv dividing H")
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    out = _flash(q.reshape(b * h, sq, d).contiguous(),
+                 k.reshape(b * hkv, sk, d).contiguous(),
+                 v.reshape(b * hkv, sk, d).contiguous(), causal=causal,
+                 group=h // hkv, bq=bq, bk=bk)
+    return out.reshape(b, h, sq, d)

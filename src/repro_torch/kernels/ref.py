@@ -1,13 +1,17 @@
 """Plain PyTorch oracles for the port's kernels (the correctness ground
 truth), in f32 on whatever device the inputs lie.
 
-The dense product and the FIR are also the kernels' plain versions: the
-wrappers call them for CPU tensors, and ``chip_smoke.py`` holds the
-kernels against them on the card.  The FIR sums its taps in order t = 0 ..
+The dense product, the FIR and the SSD cell are also the kernels' plain
+versions: the wrappers call them for CPU tensors, and ``chip_smoke.py``
+holds the kernels against them on the card.  Attention's plain version is
+the tile-by-tile online softmax in ``flash_attention``; the naive form
+here is its oracle.  The FIR sums its taps in order t = 0 ..
 K-1 with one rounding per multiply and per add, as the kernel does.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -35,3 +39,48 @@ def fir_conv1d_ref(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     for t in range(k):
         out += xf[:, t:t + n] * tf[:, t:t + 1]
     return out.to(x.dtype)
+
+
+#: The score given to masked (query, key) pairs, as in the Pallas kernel.
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Naive softmax attention in f32 over (B, H, S, d), returned in f32.
+
+    Under ``causal`` the mask is start-aligned: query i attends keys
+    j <= i, also when Sq != Sk, as in ``models.layers.blockwise_attention``."""
+    qf, kf, vf = q.to(F32), k.to(F32), v.to(F32)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) / math.sqrt(q.shape[-1])
+    if causal:
+        sq, sk = s.shape[-2:]
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    s = s - s.amax(-1, keepdim=True)
+    p = torch.exp(s)
+    p = p / p.sum(-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf)
+
+
+def ssd_intra_ref(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
+                  cs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Mamba2 SSD intra-chunk cell per (batch*chunk, head), in f32.
+
+    xdt (BC, H, Q, P), bb/cc (BC, Q, N), cs (BC, H, Q) -> y (BC, H, Q, P),
+    s (BC, H, N, P): ``G = C B^T``, ``M = G * exp(cs_i - cs_j)`` for
+    j <= i (else 0), ``y = M xdt``, ``s = B^T (exp(cs_Q - cs) * xdt)``.
+    The exponential of a masked pair may overflow; ``torch.where`` drops
+    it without touching the kept entries, as ``jnp.where`` does."""
+    xdt, bb, cc, cs = xdt.to(F32), bb.to(F32), cc.to(F32), cs.to(F32)
+    q = xdt.shape[2]
+    g = torch.matmul(cc, bb.transpose(-1, -2))[:, None]       # (BC,1,Q,Q)
+    l_log = cs[..., :, None] - cs[..., None, :]                # (BC,H,Q,Q)
+    causal = torch.ones((q, q), dtype=torch.bool, device=xdt.device).tril()
+    m = torch.where(causal, g * torch.exp(l_log), 0.0)
+    y = torch.matmul(m, xdt)
+    decay_end = torch.exp(cs[..., -1:] - cs)                   # (BC,H,Q)
+    s = torch.matmul(bb.transpose(-1, -2)[:, None],
+                     decay_end[..., None] * xdt)
+    return y, s

@@ -3,7 +3,10 @@ PyTorch version bitwise on every output channel, count its launches, and
 refuse CPU tensors; the compute kernels (dense matmul, block-sparse FC,
 FIR) must agree with their plain versions -- the FIR bitwise, the products
 within the tolerance of ``tests/test_kernels.py`` -- count only their own
-launches, and send CPU tensors to the plain versions.  Every test skips,
+launches, and send CPU tensors to the plain versions; so must the
+attention and SSD kernels, and the LM forward with the attention kernel
+must launch it once a layer and agree with the blockwise path.  Every
+test skips,
 from inside the test, where no card is visible; run them on the card with
 ``python -m pytest -m gpu``."""
 
@@ -268,3 +271,99 @@ def test_compute_kernels_refuse_what_they_do_not_take():
         fc(x.cpu())
     with pytest.raises(TypeError, match="x must be"):
         fc(x.half())
+
+
+# --------------------------------------------------------------------------
+# the LM slice: flash attention, the SSD cell, the forward
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,group,causal", [
+    (2, 37, 37, 64, 1, True), (4, 300, 300, 128, 2, True),
+    (2, 1, 1, 128, 1, True), (4, 70, 130, 128, 2, False),
+    (2, 130, 70, 32, 1, True), (2, 65, 200, 100, 2, False)])
+def test_flash_kernel_equals_plain(bh, sq, sk, d, group, causal, dtype):
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mod = _kmod("flash_attention")
+    rng = np.random.default_rng(bh + sq + sk + d)
+    q = _cuda(rng.normal(size=(bh, sq, d)), dtype)
+    k = _cuda(rng.normal(size=(bh // group, sk, d)), dtype)
+    v = _cuda(rng.normal(size=(bh // group, sk, d)), dtype)
+    before = mod.flash_attention.launches
+    got = mod.flash_attention(q, k, v, causal=causal, group=group)
+    torch.cuda.synchronize()
+    assert mod.flash_attention.launches == before + 1
+    want = mod.flash_attention_plain(q, k, v, causal=causal, group=group)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    if dtype == torch.float32:      # tests/test_kernels.py's tolerance
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:                           # one bf16 rounding of the output
+        diff = float((got.float() - want.float()).abs().max())
+        assert diff <= 1e-2 * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("bc,h,q,p,n,steep", [
+    (2, 3, 8, 4, 5, False), (1, 2, 64, 8, 6, True), (2, 4, 256, 64, 128, True),
+    (1, 2, 100, 70, 70, False)])
+def test_ssd_kernel_equals_plain(bc, h, q, p, n, steep):
+    """Against the plain version, max |d| <= 1e-5 max |ref| per output; the
+    steep cases overflow exp(cs_i - cs_j) above the diagonal."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import ref, ssd_intra
+    mod = _kmod("ssd_intra")
+    rng = np.random.default_rng(q + n)
+    xdt = _cuda(rng.normal(size=(bc, h, q, p)))
+    bb, cc = (_cuda(rng.normal(size=(bc, q, n))) for _ in range(2))
+    step = rng.uniform(1.0, 4.0, (bc, h, q)) if steep else \
+        rng.uniform(0.005, 1.0, (bc, h, q))
+    cs = _cuda(np.cumsum(-step, axis=-1))
+    before = mod.ssd_intra.launches
+    y, s = ssd_intra(xdt, bb, cc, cs)
+    torch.cuda.synchronize()
+    assert mod.ssd_intra.launches == before + 1
+    for got, want in zip((y, s), ref.ssd_intra_ref(xdt, bb, cc, cs)):
+        assert torch.isfinite(got).all()
+        diff = float((got - want).abs().max())
+        assert diff <= 1e-5 * float(want.abs().max())
+
+
+def test_lm_forward_launches_flash_once_a_layer():
+    """qwen3-0.6b scaled down on the card: 2 launches in one forward, and
+    logits within 2e-5 max |logit| of the blockwise path (f32)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config("qwen3-0.6b").scaled_down(use_pallas_attention=True)
+    params = transformer.init_params(cfg, seed=0)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, 256, (2, 77)),
+                        device="cuda")
+    mod = _kmod("flash_attention")
+    mod.flash_attention.launches = 0
+    got = transformer.forward(cfg, params, toks)
+    torch.cuda.synchronize()
+    assert mod.flash_attention.launches == cfg.num_layers
+    want = transformer.forward(dataclasses.replace(
+        cfg, use_pallas_attention=False), params, toks)
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
+def test_lm_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    mod = _kmod("flash_attention")
+    q = torch.randn(2, 8, 256, device="cuda")
+    with pytest.raises(ValueError, match="d <= 128"):
+        mod.flash_attention(q, q, q)
+    q = torch.randn(2, 8, 16, device="cuda")
+    with pytest.raises(TypeError, match="k must be"):
+        mod.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="lie on"):
+        mod.flash_attention(q, q.cpu(), q.cpu())
+    from repro_torch.kernels import ssd_intra
+    x = torch.randn(1, 2, 4, 3, device="cuda")
+    bb = torch.randn(1, 4, 5, device="cuda")
+    with pytest.raises(TypeError, match="cs must be"):
+        ssd_intra(x, bb, bb, torch.randn(1, 2, 4, device="cuda").double())

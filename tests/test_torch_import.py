@@ -31,6 +31,13 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.kernels.ref, repro_torch.kernels.dense_matmul\n"
         "import repro_torch.kernels.sparse_fc\n"
         "import repro_torch.kernels.fir_conv1d\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.ssd_intra\n"
+        "import repro_torch.configs, repro_torch.models.config\n"
+        "import repro_torch.models.layers, repro_torch.models.transformer\n"
+        "import repro_torch.models.api, repro_torch.models.counting\n"
+        "from repro_torch.configs import ARCHS, get_config\n"
+        "[get_config(a) for a in ARCHS]\n"
         "import repro_torch.compress, repro_torch.compress.prune\n"
         "import repro_torch.models, repro_torch.runtime\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -47,9 +54,13 @@ def test_port_files_found():
     assert "repro_torch/kernels/charge_replay.py" in PORT_FILES
     assert "repro_torch/core/fleetsim.py" in PORT_FILES
     for name in ("ops", "calibrate", "ref", "dense_matmul", "sparse_fc",
-                 "fir_conv1d", "_launch"):
+                 "fir_conv1d", "_launch", "flash_attention", "ssd_intra"):
         assert f"repro_torch/kernels/{name}.py" in PORT_FILES
     assert "repro_torch/compress/prune.py" in PORT_FILES
+    for name in ("config", "layers", "transformer", "api", "counting"):
+        assert f"repro_torch/models/{name}.py" in PORT_FILES
+    for name in ("__init__", "qwen3_0_6b", "qwen1_5_0_5b", "mamba2_370m"):
+        assert f"repro_torch/configs/{name}.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)

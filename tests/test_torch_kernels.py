@@ -4,9 +4,10 @@
 On CPU tensors the port's wrappers take their kernels' plain PyTorch
 versions; the JAX side runs its Pallas kernels in interpret mode, as its own
 tests do.  Inputs are made by numpy from a seed and handed to both.
-Tolerances: the f32 products are those of ``tests/test_kernels.py``
-(rtol = atol = 2e-4: the sums are taken in another order); bf16 that test's
-3e-2, one bf16 rounding of an O(1) output; the block-CSR bundles, the
+Tolerances: the f32 products and attention are those of
+``tests/test_kernels.py`` (rtol = atol = 2e-4: the sums are taken in
+another order); bf16 that test's 3e-2, one bf16 rounding of an O(1) output;
+the SSD cell that test's rtol 3e-4, atol 3e-5; the block-CSR bundles, the
 pruning and the FIR against its own plain oracle are exact.
 """
 
@@ -22,13 +23,20 @@ from repro.kernels import BlockSparseFC as JaxBlockSparseFC
 from repro.kernels import MatmulTiles as JaxTiles
 from repro.kernels import dense_matmul as jax_dense_matmul
 from repro.kernels import fir_conv1d as jax_fir
+from repro.kernels import flash_attention as jax_flash
+from repro.kernels import ssd_intra as jax_ssd
+from repro.models import layers as jlayers
+from repro.models.config import ModelConfig as JaxModelConfig
 from repro.kernels import ref as jref
 from repro_torch.compress import prune as tprune
 from repro_torch.convert import (block_sparse_fc_fields,
                                  block_sparse_fc_from_numpy)
 from repro_torch.kernels import (BlockSparseFC, MatmulTiles, calibrate,
                                  dense_matmul, fir_conv1d, fir_tiles,
-                                 matmul_tiles, ref)
+                                 flash_attention, matmul_tiles, ref,
+                                 ssd_intra)
+from repro_torch.models import layers as tlayers
+from repro_torch.models.config import ModelConfig
 from repro_torch.kernels.sparse_fc import (block_sparse_matvec_plain,
                                            to_block_csr)
 
@@ -46,7 +54,9 @@ def _module(name):
 def _launches():
     return (_module("dense_matmul").matmul.launches,
             _module("sparse_fc").block_sparse_matvec.launches,
-            _module("fir_conv1d").fir_conv1d.launches)
+            _module("fir_conv1d").fir_conv1d.launches,
+            _module("flash_attention").flash_attention.launches,
+            _module("ssd_intra").ssd_intra.launches)
 
 
 def _t(a, dtype=torch.float32):
@@ -121,6 +131,13 @@ def test_cpu_tensors_take_the_plain_versions():
     fc(x)
     taps = torch.randn(9, 4)
     assert torch.equal(fir_conv1d(x, taps), ref.fir_conv1d_ref(x, taps))
+    q = torch.randn(1, 2, 5, 8)
+    flash_attention(q, q, q)
+    xdt = torch.randn(1, 2, 4, 3)
+    cs = torch.randn(1, 2, 4)
+    bb = torch.randn(1, 4, 5)
+    assert all(torch.equal(a, b) for a, b in zip(
+        ssd_intra(xdt, bb, bb, cs), ref.ssd_intra_ref(xdt, bb, bb, cs)))
     assert _launches() == before
 
 
@@ -388,3 +405,163 @@ def test_ref_matches_jax_ref():
         block_sparse_matvec_plain(_t(x), _t(vals), torch.tensor(row_ptr),
                                   torch.tensor(col_idx), 7, bm=8, bk=8),
         ref.block_sparse_matvec_ref(_t(x), wd), **TOL)
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,sq,sk,d", [(1, 1, 37, 53, 8), (2, 3, 61, 29, 16),
+                                         (2, 2, 45, 45, 32), (1, 3, 5, 79, 16),
+                                         (2, 1, 80, 4, 8)])
+def test_flash_attention_matches_jax(b, h, sq, sk, d, causal):
+    """The plain version (CPU tensors) against the Pallas kernel in
+    interpret mode, ragged and odd Sq != Sk, at the tiles of
+    ``tests/test_kernels.py``."""
+    rng = np.random.default_rng(sq * 131 + sk * 7 + d)
+    q = rng.normal(size=(b, h, sq, d)).astype(np.float32)
+    k = rng.normal(size=(b, h, sk, d)).astype(np.float32)
+    v = rng.normal(size=(b, h, sk, d)).astype(np.float32)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, bq=32, bk=32,
+                                interpret=True))
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal, bq=32, bk=32)
+    assert got.dtype == torch.float32 and got.shape == (b, h, sq, d)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(
+        ref.flash_attention_ref(_t(q), _t(k), _t(v), causal).numpy(),
+        jref.flash_attention_ref(q, k, v, causal=causal), **TOL)
+
+
+def test_flash_attention_gqa_equals_expanded_kv():
+    """k, v with fewer heads than q give what the expanded MHA layout gives
+    (query head h reads kv head h // g, the repeat_interleave order)."""
+    rng = np.random.default_rng(4)
+    q = _t(rng.normal(size=(2, 6, 21, 16)))
+    k, v = (_t(rng.normal(size=(2, 2, 33, 16))) for _ in range(2))
+    got = flash_attention(q, k, v, causal=True, bq=16, bk=16)
+    want = flash_attention(q, k.repeat_interleave(3, 1),
+                           v.repeat_interleave(3, 1), causal=True, bq=16,
+                           bk=16)
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_bf16_rounds_p_like_jax():
+    """bf16 inputs: p is rounded to bf16 before the p v product, as the
+    Pallas kernel does, so the plain version agrees with it in bf16."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=(1, 2, 40, 16)).astype(np.float32)
+               for _ in range(3))
+    want = np.asarray(jax_flash(*(jnp.asarray(a, jnp.bfloat16)
+                                  for a in (q, k, v)), causal=True, bq=16,
+                                bk=16, interpret=True), np.float32)
+    got = flash_attention(*(_t(a, torch.bfloat16) for a in (q, k, v)),
+                          causal=True, bq=16, bk=16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_attention_block_gqa_matches_jax(use_kernel):
+    """GQA (8 query heads over 2 kv heads) through the port's
+    ``attention_block`` against the JAX package's, with the flash path
+    (the plain version here) and the blockwise path."""
+    kw = dict(name="t", family="dense", num_layers=1, d_model=32,
+              num_heads=8, num_kv_heads=2, head_dim=8, d_ff=64,
+              vocab_size=64, q_chunk=8, k_chunk=8, qk_norm=True,
+              param_dtype="float32", compute_dtype="float32",
+              use_pallas_attention=use_kernel)
+    rng = np.random.default_rng(6)
+    shapes = jlayers.attn_param_shapes(JaxModelConfig(**kw))
+    params = {n: (rng.normal(size=s) * (0.3 if len(s) > 1 else 1.0)
+                  ).astype(np.float32) for n, s in shapes.items()}
+    x = rng.normal(size=(2, 19, 32)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(19, dtype=np.int32), (2, 19))
+    want = np.asarray(jlayers.attention_block(
+        JaxModelConfig(**kw), {n: jnp.asarray(a) for n, a in params.items()},
+        jnp.asarray(x), jnp.asarray(pos)))
+    got = tlayers.attention_block(
+        ModelConfig(**kw), {n: _t(a) for n, a in params.items()}, _t(x),
+        torch.tensor(pos, dtype=torch.long))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_flash_attention_refuses_bad_shapes():
+    q = torch.randn(1, 4, 8, 16)
+    with pytest.raises(ValueError, match="dividing H"):
+        flash_attention(q, torch.randn(1, 3, 8, 16), torch.randn(1, 3, 8, 16))
+    with pytest.raises(ValueError, match="at least one key"):
+        flash_attention(q, torch.randn(1, 4, 0, 16), torch.randn(1, 4, 0, 16))
+    with pytest.raises(ValueError, match="tiles"):
+        flash_attention(q, q, q, bq=0)
+
+
+# --------------------------------------------------------------------------
+# SSD intra-chunk cell
+# --------------------------------------------------------------------------
+
+def _ssd_inputs(b, h, q, p, n, seed, dt_range=(0.01, 0.5),
+                a_range=(0.5, 2.0), chunks=2):
+    """The recipe of ``tests/test_kernels.py``'s SSD test: a sequence of
+    ``chunks`` chunks, x dt and the cumulative decay per chunk."""
+    rng = np.random.default_rng(seed)
+    s = chunks * q
+    xh = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    bb = rng.normal(size=(b, s, n)).astype(np.float32)
+    cc = rng.normal(size=(b, s, n)).astype(np.float32)
+    dtv = rng.uniform(*dt_range, size=(b, s, h)).astype(np.float32)
+    a_neg = -rng.uniform(*a_range, size=(h,)).astype(np.float32)
+    nc = s // q
+    xdt = (xh * dtv[..., None]).reshape(b, nc, q, h, p)
+    xdt = np.moveaxis(xdt, 3, 2).reshape(b * nc, h, q, p)
+    cs = np.cumsum((dtv * a_neg).reshape(b, nc, q, h), axis=2,
+                   dtype=np.float32)
+    csk = np.moveaxis(cs, 3, 2).reshape(b * nc, h, q)
+    return (np.ascontiguousarray(xdt), bb.reshape(b * nc, q, n),
+            cc.reshape(b * nc, q, n), np.ascontiguousarray(csk))
+
+
+@pytest.mark.parametrize("b,h,q,p,n,seed", [
+    (1, 1, 4, 4, 3, 0), (2, 3, 8, 4, 5, 7), (1, 2, 4, 8, 5, 13),
+    (2, 1, 8, 8, 3, 50), (1, 2, 37, 9, 11, 3)])
+def test_ssd_intra_matches_jax(b, h, q, p, n, seed):
+    """The plain version (CPU tensors) against the Pallas kernel in
+    interpret mode, at the tolerance of ``tests/test_kernels.py``."""
+    args = _ssd_inputs(b, h, q, p, n, seed)
+    y_want, s_want = jax_ssd(*(jnp.asarray(a) for a in args),
+                             interpret=True)
+    y, s = ssd_intra(*(_t(a) for a in args))
+    assert y.shape == (b * 2, h, q, p) and s.shape == (b * 2, h, n, p)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_want), rtol=3e-4,
+                               atol=3e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_want), rtol=3e-4,
+                               atol=3e-5)
+
+
+def test_ssd_intra_masked_decay_overflow_stays_out():
+    """Q = 64 with dt * a down to -4 a step: exp(cs_i - cs_j) above the
+    diagonal overflows to inf, and neither result may see it."""
+    args = _ssd_inputs(1, 2, 64, 8, 6, 21, dt_range=(1.0, 2.0),
+                       a_range=(1.0, 2.0), chunks=1)
+    cs = args[3]
+    assert float(np.max(cs[..., None, :] - cs[..., :, None])) > 89.0
+    with np.errstate(over="ignore"):
+        assert np.isinf(np.exp(np.max(cs[..., None, :] - cs[..., :, None])))
+    y_want, s_want = jax_ssd(*(jnp.asarray(a) for a in args),
+                             interpret=True)
+    y, s = ssd_intra(*(_t(a) for a in args))
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_want), rtol=3e-4,
+                               atol=3e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_want), rtol=3e-4,
+                               atol=3e-5)
+
+
+def test_ssd_intra_refuses_bad_shapes():
+    xdt = torch.randn(2, 3, 4, 5)
+    bb = torch.randn(2, 4, 6)
+    with pytest.raises(ValueError, match="do not match"):
+        ssd_intra(xdt, bb, bb, torch.randn(2, 3, 5))
+    with pytest.raises(ValueError, match="expected xdt"):
+        ssd_intra(xdt, bb, torch.randn(2, 4, 7), torch.randn(2, 3, 4))
