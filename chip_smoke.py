@@ -43,17 +43,17 @@ prints one JSON line per phase; any failure exits non-zero.
 8. lm_vs_plain -- the attention kernel (f32 and bf16, causal or not,
    Sq != Sk, S of 1, 37 and 300, d of 64 and 128, GQA group 2) and the SSD
    cell (the tests' shapes, an overflowing decay, Q = 256) against their
-   plain versions on the card.
+   plain versions on the card, attention's at the kernel's own tiles.
 9. lm_full_width -- qwen3-0.6b as published (28 layers, bf16, attention
    through the kernel) over 2 x 4,096 tokens: the attention kernel's
    launches zeroed just before ``forward`` and read just after (one a
    layer), the logits held against the blockwise path in bf16 and, on the
-   same weights widened to f32, in f32; the forward timed and split (hidden states, LM
-   head) beside its bound.  Then each kernel at its full-width shape
-   (one layer's attention; the SSD cell at mamba2-370m's widths, reached
-   through the ``kernels`` entry point, launches counted) against its
-   plain version, timed beside its plain version, its bound and, for
-   attention, ``scaled_dot_product_attention`` as a yardstick.
+   same weights widened to f32, in f32; the forward timed and split
+   (hidden states, LM head) beside its bound.  Then each kernel at its
+   full-width shape (one layer's attention; the SSD cell at mamba2-370m's
+   widths, reached through the ``kernels`` entry point, launches counted)
+   against its plain version, timed beside its plain version, its bound
+   and, for attention, ``scaled_dot_product_attention`` as a yardstick.
 10. the kernels line, the ``nvidia-smi`` line, and the result line.
 """
 
@@ -257,14 +257,31 @@ TOLERANCES = {
            "products grow as sqrt(terms), about 1e-6 of the largest value; "
            "a bound on each element would fail on the entries that cancel "
            "to near 0)",
-    "lm_bf16": "max |d| <= 5e-2 max |logit| (the kernel and the blockwise "
-               "path round p and the attention output to bf16 at other tile "
-               "boundaries, and 28 bf16 residual layers compound it: 0.76-"
-               "0.94 % at 4-8 layers of these widths on the CPU; a dropped "
-               "causal mask, a GQA head map in .repeat order or keys "
-               "shifted by one move the logits by more than 100 %)",
+    "attn_bf16": "|d| <= 2^-7 |ref| + 2^-6 rms(ref's row) per element, "
+                 "against the plain version at the kernel's own tiles "
+                 "(64, 64), which takes the same running maxima and so "
+                 "rounds p at the same places: what is left is f32 sums in "
+                 "another order, which flip the output's bf16 rounding by "
+                 "one unit (<= 2^-7 |ref|) and, rarely, a p's; a row's rms "
+                 "scales the limit to that row, since an output row over "
+                 "n keys has rms about sqrt(e / n) (random q, k, v)",
+    "lm_bf16": "max |d| <= 5e-2 max |logit| (once one rounding differs, "
+               "the bf16 roundings of the two forwards part ways layer by "
+               "layer: one bf16 unit on 16 embedding entries moves the "
+               "logits by 0.8-1.1 % at 2-8 layers of these widths on the "
+               "CPU, and the blockwise path at the kernel's own tiles gave "
+               "1.31 % on the card, as at 1024-row chunks; the attention "
+               "kernel's numerics are held per element above, and a "
+               "dropped causal mask, a GQA head map in .repeat order or "
+               "keys shifted by one move the logits by more than 100 %)",
     "lm_f32": "max |d| <= 1e-4 max |logit| (f32 sums in another order)",
 }
+
+
+def attn_limit(torch, want):
+    """The ``attn_bf16`` limit of each element of ``want`` (f32)."""
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    return 2.0 ** -7 * want.abs() + 2.0 ** -6 * rms
 
 
 def agree(torch, got, want, rule: str) -> tuple[bool, float]:
@@ -283,6 +300,8 @@ def agree(torch, got, want, rule: str) -> tuple[bool, float]:
         return torch.equal(got, want), diff
     if rule == "allclose":
         return bool((d <= 2e-4 + 2e-4 * w.abs()).all()), diff
+    if rule == "attn_bf16":
+        return bool((d <= attn_limit(torch, w)).all()), diff
     limit = {"k4096": 1e-5, "bf16": 1e-2, "logits": 1e-4, "ssd": 1e-5,
              "lm_bf16": 5e-2, "lm_f32": 1e-4}[rule]
     return diff <= limit * scale, diff
@@ -642,8 +661,9 @@ def lm_kernels(torch, np, emit) -> list[dict]:
                     [fmod.flash_attention(q, k, v, causal=causal,
                                           group=group)],
                     [fmod.flash_attention_plain(q, k, v, causal=causal,
-                                                group=group)],
-                    "allclose" if dtype == f32 else "bf16"))
+                                                group=group, bq=fmod.BLOCK_Q,
+                                                bk=fmod.BLOCK_K)],
+                    "allclose" if dtype == f32 else "attn_bf16"))
     for shape in ((2, 3, 8, 4, 5, False), (1, 2, 4, 8, 3, False),
                   (1, 2, 64, 8, 6, True), (2, 4, SSD_Q, SSD_P, SSD_N, True),
                   (1, 2, 100, 70, 70, False)):
@@ -664,7 +684,7 @@ def lm_kernels(torch, np, emit) -> list[dict]:
     emit({"phase": "lm_vs_plain", "cases": len(checks),
           "max_abs_diff_vs_plain": small_err, "all_agree": True,
           "tolerances": {"flash_attention f32": TOLERANCES["allclose"],
-                         "flash_attention bf16": TOLERANCES["bf16"],
+                         "flash_attention bf16": TOLERANCES["attn_bf16"],
                          "ssd_intra": TOLERANCES["ssd"]},
           "seconds": time.perf_counter() - t0})
     del checks
@@ -721,7 +741,11 @@ def lm_kernels(torch, np, emit) -> list[dict]:
     n_params = counting.param_count(cfg)
     attn_flops = 2.0 * LM_SEQ * LM_SEQ * cfg.hd * cfg.num_heads * LM_BATCH \
         * cfg.num_layers                      # causal half, QK^T and PV
-    fwd_flops = counting.model_flops(cfg, tokens, "prefill") + attn_flops
+    # the 2 N D convention counts the embedding table, a gather that does
+    # no products; the bound counts the layers and the LM head only
+    convention_flops = counting.model_flops(cfg, tokens, "prefill")
+    fwd_flops = convention_flops - 2.0 * tokens * cfg.vocab_padded \
+        * cfg.d_model + attn_flops
     fwd_bound_ms = fwd_flops / PEAK_BF16_OPS * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -764,6 +788,7 @@ def lm_kernels(torch, np, emit) -> list[dict]:
           "blockwise_forward_ms": plain_forward_ms,
           "hidden_states_ms": hidden_ms, "lm_head_f32_ms": head_ms,
           "forward_flops": fwd_flops, "attention_flops": attn_flops,
+          "model_flops_2nd_with_embedding": convention_flops,
           "forward_bound_ms": fwd_bound_ms, "bound_by": "operations",
           "of_bound": fwd_bound_ms / forward_ms, "peak_memory_gb": peak_gb})
 
@@ -773,16 +798,20 @@ def lm_kernels(torch, np, emit) -> list[dict]:
     q = dev(rng.normal(size=(bh, LM_SEQ, cfg.hd)), bf16)
     k = dev(rng.normal(size=(bh // g, LM_SEQ, cfg.hd)), bf16)
     v = dev(rng.normal(size=(bh // g, LM_SEQ, cfg.hd)), bf16)
-    bq = bk = min(cfg.q_chunk, 128)
     got = fmod.flash_attention(q, k, v, causal=True, group=g)
-    want = fmod.flash_attention_plain(q, k, v, causal=True, group=g, bq=bq,
-                                      bk=bk)
-    ok, flash_diff = agree(torch, got, want, "bf16")
+    want = fmod.flash_attention_plain(q, k, v, causal=True, group=g,
+                                      bq=fmod.BLOCK_Q, bk=fmod.BLOCK_K)
+    ok, flash_diff = agree(torch, got, want, "attn_bf16")
+    # the largest share of its element's limit that a difference takes
+    limit_share = float(((got.float() - want.float()).abs()
+                         / attn_limit(torch, want.float())).max())
     if not ok:
         raise SystemExit(f"lm_full_width: flash_attention ({bh}, {LM_SEQ}, "
                          f"{cfg.hd}) disagrees with the plain version "
-                         f"({TOLERANCES['bf16']}; max abs diff {flash_diff})")
+                         f"({TOLERANCES['attn_bf16']}; max abs diff "
+                         f"{flash_diff}, {limit_share} of the limit)")
     del got, want
+    bq = bk = min(cfg.q_chunk, 128)           # the plain version's timing
     q4 = q.view(LM_BATCH, cfg.num_heads, LM_SEQ, cfg.hd)
     k4 = k.view(LM_BATCH, cfg.num_kv_heads, LM_SEQ, cfg.hd
                 ).repeat_interleave(g, 1)
@@ -797,7 +826,9 @@ def lm_kernels(torch, np, emit) -> list[dict]:
             q, k, v, causal=True, group=g, bq=bq, bk=bk), reps=3),
         library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True)),
-        max_abs_err=flash_diff, flops=flash_flops, bytes=flash_bytes,
+        max_abs_err=flash_diff, limit_share=limit_share,
+        tolerance=TOLERANCES["attn_bf16"], flops=flash_flops,
+        bytes=flash_bytes,
         shape=f"q ({bh}, {LM_SEQ}, {cfg.hd}) bf16, k/v ({bh // g}, "
               f"{LM_SEQ}, {cfg.hd}), group {g}, causal")
     flash["bound_ms"], flash["bound_by"] = bound(flash_flops, flash_bytes,

@@ -425,8 +425,10 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// The query tile and the widest head; the wrapper checks them.
+// The query tile, the KV tile and the widest head; the wrapper checks
+// them.
 int flash_attention_block_q() { return BQ; }
+int flash_attention_block_k() { return BKV; }
 int flash_attention_max_d() { return MAX_D; }
 
 // out (bh, sq, d) from q (bh, sq, d) and k, v (bh / group, sk, d), all

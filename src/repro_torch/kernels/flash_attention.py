@@ -26,8 +26,11 @@ from . import _launch
 from .ref import NEG_INF
 
 DTYPES = (torch.float32, torch.bfloat16)
-#: The kernel's query tile and the widest head it takes.
+#: The kernel's query tile, its KV tile and the widest head it takes: the
+#: plain version run with tiles (BLOCK_Q, BLOCK_K) takes the kernel's
+#: running maxima, so it rounds p at the same places.
 BLOCK_Q = 64
+BLOCK_K = 64
 MAX_D = 128
 _INT_MAX = 2**31 - 1
 _GRID_Y_MAX = 65535
@@ -40,10 +43,11 @@ def _library():
     lib = _build.load("flash_attention").lib
     if getattr(lib, "_bound", False):
         return lib
-    for fn in (lib.flash_attention_block_q, lib.flash_attention_max_d):
+    for fn in (lib.flash_attention_block_q, lib.flash_attention_block_k,
+               lib.flash_attention_max_d):
         fn.restype, fn.argtypes = ctypes.c_int, []
-    if (lib.flash_attention_block_q(), lib.flash_attention_max_d()) != \
-            (BLOCK_Q, MAX_D):
+    if (lib.flash_attention_block_q(), lib.flash_attention_block_k(),
+            lib.flash_attention_max_d()) != (BLOCK_Q, BLOCK_K, MAX_D):
         raise RuntimeError("csrc/flash_attention.cu was built for another "
                            "tile or head width than flash_attention.py's")
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -80,7 +84,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ascending from 0 (tiles wholly above the causal diagonal skipped),
     scores in f32 scaled after the product, masked scores -1e30, running
     (m, l, acc) in f32, p rounded to v's dtype before the p v product, and
-    acc / max(l, 1e-30) in q's dtype.  Shapes as :func:`flash_attention`."""
+    acc / max(l, 1e-30) in q's dtype.  Shapes as :func:`flash_attention`.
+    The model's blockwise path (``models.layers.blockwise_attention``) is
+    this function with its chunks as the tiles."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     if group > 1:                       # kv head h // group serves q head h

@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.flash_attention import flash_attention_plain
 from ..kernels.ops import flash_attention
 from .config import ModelConfig
 
@@ -74,55 +75,23 @@ def apply_rope(x, positions, theta: float):
 def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int,
                         k_chunk: int):
     """Flash-style online-softmax attention with O(chunk^2) memory, in
-    plain PyTorch on either device.
+    plain PyTorch on either device: the attention kernel's plain version
+    (``kernels.flash_attention.flash_attention_plain``) with the chunks as
+    its tiles.
 
-    q: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d).  KV is expanded over the GQA
-    group (query head h reads kv head h // g).  The causal mask is
-    start-aligned (the JAX package's ``q_offset`` = 0; decode continuation
-    waits for its slice).  Every (query chunk, key chunk) pair is computed,
-    as in the JAX package."""
+    q: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d); query head h reads kv head
+    h // g.  The causal mask is start-aligned (the JAX package's
+    ``q_offset`` = 0; decode continuation waits for its slice).  The JAX
+    package computes every (query chunk, key chunk) pair; the pairs wholly
+    above the causal diagonal are skipped here, which changes no bit: their
+    p are exp(-1e30 - m) = 0 and their correction exp(m - m) = 1."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
-    scale = 1.0 / math.sqrt(d)
-    g = hq // hkv
-    if g > 1:
-        k = k[:, :, None].expand(b, hkv, g, sk, d).reshape(b, hq, sk, d)
-        v = v[:, :, None].expand(b, hkv, g, sk, d).reshape(b, hq, sk, d)
-
-    nq = -(-sq // q_chunk)
-    nk = -(-sk // k_chunk)
-    qp = F.pad(q, (0, 0, 0, nq * q_chunk - sq))
-    kp = F.pad(k, (0, 0, 0, nk * k_chunk - sk))
-    vp = F.pad(v, (0, 0, 0, nk * k_chunk - sk))
-    dev = q.device
-    out = torch.empty((b, hq, nq * q_chunk, d), dtype=F32, device=dev)
-    for qi in range(nq):
-        q_i = qp[:, :, qi * q_chunk:(qi + 1) * q_chunk]
-        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
-        m = torch.full((b, hq, q_chunk), -math.inf, dtype=F32, device=dev)
-        l = torch.zeros((b, hq, q_chunk), dtype=F32, device=dev)
-        acc = torch.zeros((b, hq, q_chunk, d), dtype=F32, device=dev)
-        for kj in range(nk):
-            k_j = kp[:, :, kj * k_chunk:(kj + 1) * k_chunk]
-            v_j = vp[:, :, kj * k_chunk:(kj + 1) * k_chunk]
-            kpos = kj * k_chunk + torch.arange(k_chunk, device=dev)
-            # logits (B, Hq, qc, kc) in f32
-            s_ij = torch.matmul(q_i.to(F32), k_j.to(F32).transpose(-1, -2)
-                                ) * scale
-            mask = (kpos < sk)[None, :]
-            if causal:
-                mask = mask & (kpos[None, :] <= qpos[:, None])
-            s_ij = torch.where(mask, s_ij, -1e30)
-            m_new = torch.maximum(m, s_ij.amax(-1))
-            p = torch.exp(s_ij - m_new[..., None])
-            correction = torch.exp(m - m_new)
-            l = l * correction + p.sum(-1)
-            acc = acc * correction[..., None] + torch.matmul(
-                p.to(v_j.dtype).to(F32), v_j.to(F32))
-            m = m_new
-        out[:, :, qi * q_chunk:(qi + 1) * q_chunk] = \
-            acc / torch.clamp(l, min=1e-30)[..., None]
-    return out[:, :, :sq].to(q.dtype)
+    out = flash_attention_plain(
+        q.reshape(b * hq, sq, d), k.reshape(b * hkv, sk, d),
+        v.reshape(b * hkv, sk, d), causal=causal, group=hq // hkv,
+        bq=q_chunk, bk=k_chunk)
+    return out.reshape(b, hq, sq, d)
 
 
 # --------------------------------------------------------------------------

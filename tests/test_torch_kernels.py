@@ -11,7 +11,11 @@ the SSD cell that test's rtol 3e-4, atol 3e-5; the block-CSR bundles, the
 pruning and the FIR against its own plain oracle are exact.
 """
 
+import functools
 import importlib
+import importlib.util
+import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -460,6 +464,98 @@ def test_flash_attention_bf16_rounds_p_like_jax():
                           causal=True, bq=16, bk=16)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+@functools.lru_cache(maxsize=1)
+def _chip_smoke():
+    """The repo's ``chip_smoke.py`` (its module level imports the standard
+    library only), for the rules it holds the kernels to."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.lru_cache(maxsize=1)
+def _full_width_attention():
+    """bf16 q (2, 4096, 128) over k, v (1, 4096, 128), causal: the length
+    and head width of qwen3-0.6b's attention on the card, two q heads in
+    one GQA group; and the plain version's output at the kernel's tiles."""
+    rng = np.random.default_rng(11)
+    q = _t(rng.normal(size=(2, 4096, 128)), torch.bfloat16)
+    k, v = (_t(rng.normal(size=(1, 4096, 128)), torch.bfloat16)
+            for _ in range(2))
+    mod = _module("flash_attention")
+    want = mod.flash_attention_plain(q, k, v, causal=True, group=2,
+                                     bq=mod.BLOCK_Q, bk=mod.BLOCK_K)
+    return q, k, v, want
+
+
+def _masked_attention(q, k, v, keep):
+    """Softmax attention in f32 over the keys ``keep(rows, keys)`` admits
+    (k, v expanded over the group), rounded to bf16; p is not rounded."""
+    qf = q.float()
+    kf, vf = (a.float().repeat_interleave(q.shape[0] // k.shape[0], 0)
+              for a in (k, v))
+    out = torch.empty_like(qf)
+    keys = torch.arange(k.shape[1])
+    for r0 in range(0, q.shape[1], 512):
+        rows = torch.arange(r0, min(r0 + 512, q.shape[1]))
+        s = qf[:, rows] @ kf.transpose(1, 2) / math.sqrt(q.shape[-1])
+        s = s.masked_fill(~keep(rows[:, None], keys[None, :]), -math.inf)
+        out[:, rows] = torch.softmax(s, -1) @ vf
+    return out.to(torch.bfloat16)
+
+
+def _one_unit_up(x):
+    """x with a seeded 5 % of its bf16 elements one unit larger in
+    magnitude (the int16 view of sign and magnitude, plus one)."""
+    out = x.clone()
+    gen = torch.Generator().manual_seed(12)
+    out.view(torch.int16)[torch.rand(x.shape, generator=gen) < 0.05] += 1
+    return out
+
+
+_HALF = 2048              # the fault's rows: the second half of 4,096
+_ATTN_OUTPUTS = {
+    # honest: no rounding of p at all; the plain version at other tiles
+    # (other running maxima, so p rounded elsewhere); one bf16 unit off
+    "exact": (True, lambda q, k, v, w: _masked_attention(
+        q, k, v, lambda i, j: j <= i)),
+    "plain at 128 x 128 tiles": (True, lambda q, k, v, w: _module(
+        "flash_attention").flash_attention_plain(q, k, v, causal=True,
+                                                 group=2, bq=128, bk=128)),
+    "one unit off": (True, lambda q, k, v, w: _one_unit_up(w)),
+    # planted faults, in late rows only
+    "last KV tile dropped": (False, lambda q, k, v, w: _masked_attention(
+        q, k, v,
+        lambda i, j: (j <= i) & ~((i >= _HALF) & (j >= i // 64 * 64)))),
+    "diagonal key dropped": (False, lambda q, k, v, w: _masked_attention(
+        q, k, v, lambda i, j: (j <= i) & ~((i >= _HALF) & (j == i)))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ATTN_OUTPUTS))
+def test_bf16_attention_rule_at_full_width(case):
+    """``chip_smoke.py``'s rule for the bf16 attention kernel at the
+    model's length (|d| <= 2^-7 |ref| + 2^-6 rms of ref's row, against the
+    plain version at the kernel's tiles) passes outputs that differ only by
+    rounding, and fails a kernel that drops the last KV tile, or only the
+    diagonal key, for the late rows, whose outputs are small (rms about
+    sqrt(e / n) over n keys)."""
+    cs = _chip_smoke()
+    q, k, v, want = _full_width_attention()
+    holds, make = _ATTN_OUTPUTS[case]
+    got = make(q, k, v, want)
+    ok, diff = cs.agree(torch, got, want, "attn_bf16")
+    share = float(((got.float() - want.float()).abs()
+                   / cs.attn_limit(torch, want.float())).max())
+    assert ok is holds, (case, diff, share)
+    if holds:
+        assert share < 0.8, share   # what rounding leaves is well inside
+    else:
+        assert share > 10.0, share  # and a fault far outside
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
