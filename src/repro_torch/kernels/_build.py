@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
 ``build/repro_torch/lib<name>-<hash>.so`` at the root of the checkout
 (``.gitignore`` lists ``build/``) and is loaded with ``ctypes``: the
 sources have a plain C interface and include no PyTorch headers, so a
-build takes seconds.  The file name carries a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+build takes seconds.  The file name carries a hash of the source, of the
+shared headers (``csrc/*.cuh``) and of the flags, so an edited source or
+header rebuilds and an unchanged one is reused.
 Nothing is built when a module is imported.
 """
 
@@ -49,6 +50,7 @@ class Built:
     lib: ctypes.CDLL
     seconds: float      # nvcc wall time (0.0 when the library was reused)
     log: str            # nvcc's output, the ptxas register/spill lines
+    #                     (kept beside the library, so a reused one has it)
 
 
 def nvcc_path() -> str:
@@ -64,10 +66,14 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    flags = " ".join(SOURCE_FLAGS[name]).encode()
-    digest = hashlib.sha256(src + flags).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    of every header in ``csrc`` (any source may include any of them) and
+    of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(SOURCE_FLAGS[name]).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -90,7 +96,7 @@ def build(*names: str) -> dict[str, Built]:
     started = {n: _start(n) for n in names}
     built = {}
     for name, (out, job, t0) in started.items():
-        log, secs = "", 0.0
+        log_path, secs = out.with_suffix(".log"), 0.0
         if job is not None:
             proc, tmp = job
             log, _ = proc.communicate()
@@ -98,7 +104,9 @@ def build(*names: str) -> dict[str, Built]:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {name}.cu "
                                    f"(exit {proc.returncode}):\n{log}")
+            log_path.write_text(log)
             os.replace(tmp, out)
+        log = log_path.read_text() if log_path.exists() else ""
         built[name] = Built(name, out, ctypes.CDLL(str(out)), secs, log)
     return built
 

@@ -10,12 +10,15 @@ budget, halving one dimension at a time -- the same recursive-halving
 discipline as the paper, with the energy buffer replaced by shared memory.
 
 The alignment is the kernels' own granularity, not the TPU's 8 x 128:
-``csrc/dense_matmul.cu`` gives each thread an 8 x 8 micro-tile of the
-output (:data:`TILE`), so its bm and bn are multiples of 8 and a 128 x 128
-tile takes its 256 threads; ``csrc/fir_conv1d.cu`` runs 256 threads over a
-block of channels x output positions.  The tiles returned here are the
-ones the kernels launch with.  This is the one module of the port whose
-numbers differ from the JAX package's by design.
+``csrc/dense_matmul.cu``'s CUDA-core kernel gives each thread an 8 x 8
+micro-tile of the output (:data:`TILE`), so its bm and bn are multiples of
+8 and a 128 x 128 tile takes its 256 threads; ``csrc/fir_conv1d.cu`` runs
+256 threads over a block of channels x output positions.  The tiles
+returned here are the ones those kernels launch with.  The bf16 wgmma
+matmul kernel runs its own tiles (128 x 128 outputs, 64-wide K slices in a
+4-stage ring of 128 KB), so :func:`matmul_tiles` does not size it; the
+tiles are still checked when it runs.  This is the one module of the port
+whose numbers differ from the JAX package's by design.
 """
 
 from __future__ import annotations

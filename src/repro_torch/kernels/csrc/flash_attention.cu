@@ -5,11 +5,11 @@
 // innermost, sequential KV axis keeps the running max m, denominator l and
 // output accumulator acc of one query tile in VMEM scratch, skips KV tiles
 // wholly above the causal diagonal, and writes the tile once.  On the card
-// blocks run in no order, so one thread block owns one 64-row query tile
-// and walks the 64-key tiles itself, ascending from tile 0 (key 0 is valid
-// for every row, so the first tile always lifts m above the -1e30
-// sentinel), with m, l and acc in registers.  Heavy query tiles (those
-// near the end of the sequence under `causal`) are scheduled first.
+// blocks run in no order, so one thread block owns one query tile and
+// walks the KV tiles itself, ascending from tile 0 (key 0 is valid for
+// every row, so the first tile always lifts m above the -1e30 sentinel),
+// with m, l and acc in registers.  Heavy query tiles (those near the end
+// of the sequence under `causal`) are scheduled first.
 //
 // Arithmetic, as the Pallas kernel's: scores in f32, scaled by 1/sqrt(d)
 // after the product; masked scores are -1e30 (a key is valid below sk;
@@ -21,39 +21,59 @@
 //
 // GQA: q head h of batch b reads kv head h / group, i.e. kv row bh / group
 // of the (B * Hkv, Sk, d) k and v, so the group is never copied out.
-// Ragged Sq, Sk and d (d <= 128) are masked here; the caller pads nothing.
+// Ragged Sq and Sk are handled here; the caller pads nothing.
 //
-// Two kernels, chosen by the type:
+// Three kernels; the wrapper picks one from the operands before the launch
+// (flash_attention.py:attention_path):
 //
-// * bf16 (the model's type): 4 warps, each owning 16 query rows, on the
-//   tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).  A
-//   warp's q fragments stay in registers for the whole walk; s = q k^T
-//   comes out in the accumulator layout, which is also the layout of the
-//   A operand of p v, so p is rounded to bf16 and fed back without going
-//   through shared memory.  The row max and sum are two xor-shuffles over
-//   the four threads that share a row.  k is staged row-major and v
-//   transposed, rows padded by 16 bytes (no bank conflicts on the 32-bit
-//   fragment loads); 36 KB of shared memory at d = 128.
-// * f32: the tensor cores would round to TF32, so 256 threads as 16 x 16
-//   on the CUDA cores, thread (ty, tx) owning rows ty + 16 i (i < 4),
-//   score columns tx + 16 j (j < 4) and output columns tx + 16 j (j < NJ);
-//   q and k tiles transposed in shared memory (rows padded by one), v
-//   row-major, p row-major padded by 16; 120 KB at d = 128 (dynamic
-//   shared memory, opted into).
+// * flash_wgmma_kernel, bf16 at d = 64 or 128 with 16-byte-aligned q, k
+//   and v (the model's case): a block owns a 128-row query tile and walks
+//   128-key tiles.  One producer warpgroup (registers lowered by
+//   setmaxnreg) has one thread load the q tile once and the k and v tiles
+//   through a 2-stage ring of TMA loads (3-D tensor maps over (BH, S, d),
+//   so a tile past Sk is zero-filled within its own head), each stage
+//   with a full and an empty mbarrier; 160 KB of shared memory at d =
+//   128.  Two consumer warpgroups own 64 query rows each: s = q k^T is
+//   wgmma m64n128k16 with q and k from shared memory (k is K-major as
+//   stored); its accumulator layout is that of wgmma's register A operand,
+//   so p is rounded to bf16 in registers and o += p v is wgmma with A
+//   from registers and v from shared memory, MN-major (the transpose bit),
+//   so v is never transposed.  The row max and sum are two xor-shuffles
+//   over the four threads that share an accumulator row.  Only tiles
+//   that cross the diagonal or the end of the keys are masked.  Layout
+//   rules of the tiles and descriptors: hopper.cuh.
+// * flash_bf16_kernel, bf16 at any other d <= 128: 4 warps, each owning 16
+//   query rows of a 64-row tile, walking 64-key tiles on the tensor cores
+//   with mma.sync m16n8k16 (bf16 in, f32 accumulate).  A warp's q
+//   fragments stay in registers for the whole walk; s = q k^T comes out in
+//   the accumulator layout, which is also the layout of the A operand of
+//   p v, so p is rounded to bf16 and fed back without going through
+//   shared memory.  k is staged row-major and v transposed, rows padded by
+//   16 bytes (no bank conflicts on the 32-bit fragment loads); 36 KB of
+//   shared memory at d = 128.
+// * flash_f32_kernel, f32: the tensor cores would round to TF32, so 256
+//   threads as 16 x 16 on the CUDA cores over 64 x 64 tiles, thread (ty,
+//   tx) owning rows ty + 16 i (i < 4), score columns tx + 16 j (j < 4) and
+//   output columns tx + 16 j (j < NJ); q and k tiles transposed in shared
+//   memory (rows padded by one), v row-major, p row-major padded by 16;
+//   120 KB at d = 128 (dynamic shared memory, opted into).
 //
 // What bounds it on an H100: at the model's shapes (d = 128, S = 4096) the
 // work, 2 S^2 d BH operations for the causal half, is bound by operations:
 // 989 TFLOP/s for bf16 on the tensor cores (67 for f32 on the CUDA cores).
-// This design has one stage and no copy / compute overlap, and mma.sync
-// rather than wgmma; TMA, a ring of K/V tiles and warpgroup products are
-// later work.
+// The wgmma kernel keeps the tensor cores fed from a TMA ring; within a
+// warpgroup the softmax still waits on its s product and the p v product
+// on the softmax.  Ping-pong scheduling of the two warpgroups and
+// overlapping the softmax with the next product are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define BQ 64            // query rows of a block
-#define BKV 64           // keys of a KV tile
+#include "hopper.cuh"
+
+#define BQ 64            // query rows of a block (mma.sync and f32 kernels)
+#define BKV 64           // keys of a KV tile (mma.sync and f32 kernels)
 #define MAX_D 128        // the widest head the kernels take
 #define NEG_INF (-1e30f)
 
@@ -246,6 +266,234 @@ __global__ void __launch_bounds__(MMA_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on the tensor cores: wgmma fed by a TMA ring (d = 64 or 128)
+// ---------------------------------------------------------------------------
+
+#define WG_BQ 128                  // query rows of a block (two warpgroups)
+#define WG_BKV 128                 // keys of a KV tile
+#define WG_STAGES 2                // KV tiles in flight
+#define WG_THREADS 384             // producer + two consumer warpgroups
+#define WG_CONSUMER_WARPS 8
+
+static_assert(WG_BQ == 2 * 64 && WG_BKV == 128,
+              "two warpgroups of 64 query rows, wgmma m64n128 for s");
+
+constexpr uint32_t WG_CHUNK = 128 * 128;   // 128 rows x 64 columns of bf16
+
+template <int D>
+constexpr size_t wg_smem_bytes() {
+  return 1024 + (size_t)(1 + 2 * WG_STAGES) * (D / 64) * WG_CHUNK +
+         8 * (1 + 2 * WG_STAGES);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       __nv_bfloat16* __restrict__ out, int sq, int sk,
+                       int group, int causal, float scale) {
+  using namespace hopper;
+  static_assert(D == 64 || D == 128, "the head is one or two 64-col chunks");
+  constexpr int NCH = D / 64;                    // 64-column chunks of a row
+  constexpr uint32_t TILE = NCH * WG_CHUNK;      // one q, k or v tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  // tiles: smem rounded up to 1024 bytes (the swizzle's alignment); q at
+  // tiles, k of stage s at tiles + (1 + s) TILE, v at + (1 + S + s) TILE;
+  // chunk c of a tile (its columns 64 c .. 64 c + 63) at + c WG_CHUNK
+  const uint32_t tiles = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t q_s = tiles;
+  auto k_s = [&](int s) { return tiles + (1 + s) * TILE; };
+  auto v_s = [&](int s) { return tiles + (1 + WG_STAGES + s) * TILE; };
+  const uint32_t bars = tiles + (1 + 2 * WG_STAGES) * TILE;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + WG_STAGES + s); };
+
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WG_BQ;   // heavy tiles first
+  int n_tiles = (sk + WG_BKV - 1) / WG_BKV;
+  if (causal) n_tiles = min(n_tiles, q0 / WG_BKV + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WG_CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread loads q once, then k and v tile by tile
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int kvh = bh / group;
+      mbar_arrive_expect_tx(q_full, TILE);
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        tma_load_3d(q_s + c * WG_CHUNK, &qmap, q_full, 64 * c, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % WG_STAGES;
+        mbar_wait(empty(s), ((t / WG_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(s), 2 * TILE);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          tma_load_3d(k_s(s) + c * WG_CHUNK, &kmap, full(s), 64 * c,
+                      t * WG_BKV, kvh);
+          tma_load_3d(v_s(s) + c * WG_CHUNK, &vmap, full(s), 64 * c,
+                      t * WG_BKV, kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c owns query rows q0 + 64 c .. + 63; this thread
+  // rows row0 and row0 + 8 (accumulator registers j with j & 2 == 0 and
+  // j & 2 != 0), columns 8 (j / 4) + 2 (lane % 4) + (j & 1)
+  setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int row0 = q0 + c * 64 + warp * 16 + (lane >> 2);
+  const int row[2] = {row0, row0 + 8};
+  const int col0 = (lane & 3) * 2;
+  const uint32_t q_wg = q_s + c * 64 * 128;      // this warpgroup's q rows
+
+  float o[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) o[j] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % WG_STAGES;
+    const int k0 = t * WG_BKV;
+    mbar_wait(full(s), (t / WG_STAGES) & 1);
+
+    // s = q k^T: 128 keys, d / 16 k-steps (32 bytes each within a chunk)
+    float sc[64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) sc[j] = 0.0f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks / 4) * WG_CHUNK + (ks % 4) * 32;
+      wgmma_m64n128k16_ss<0>(sc, desc_sw128(q_wg + off, 16, 1024),
+                             desc_sw128(k_s(s) + off, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // scale; mask only a tile that crosses the end of the keys or, under
+    // causal, the diagonal of this warpgroup's rows
+    const bool edge = k0 + WG_BKV > sk ||
+                      (causal && k0 + WG_BKV - 1 > q0 + c * 64);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int h = (j >> 1) & 1;
+      if (edge) {
+        const int col = k0 + (j >> 2) * 8 + col0 + (j & 1);
+        const bool valid = col < sk && (!causal || col <= row[h]);
+        sc[j] = valid ? sc[j] * scale : NEG_INF;
+      } else {
+        sc[j] *= scale;
+      }
+      mx[h] = fmaxf(mx[h], sc[j]);
+    }
+    float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int h = (j >> 1) & 1;
+      sc[j] = expf(sc[j] - m[h]);
+      sum[h] += sc[j];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = l[h] * corr[h] + sum[h];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+
+    // o += p v: p rounded to bf16 in the register A layout, 16 keys a
+    // k-step (registers 8 kt .. 8 kt + 7); v MN-major, 16 rows of 128
+    // bytes a k-step, its 64-column chunks WG_CHUNK apart (LBO)
+    uint32_t pf[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) pf[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < WG_BKV / 16; ++kt) {
+      const uint32_t a[4] = {pf[4 * kt], pf[4 * kt + 1], pf[4 * kt + 2],
+                             pf[4 * kt + 3]};
+      const uint64_t dv = desc_sw128(v_s(s) + 2048 * kt, WG_CHUNK, 1024);
+      if constexpr (D == 128)
+        wgmma_m64n128k16_rs<1>(o, a, dv, 1);
+      else
+        wgmma_m64n64k16_rs<1>(o, a, dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  __nv_bfloat16* ob = out + (long long)bh * sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= sq) continue;
+    const float inv = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int j = 2 * h; j < D / 2; j += 4) {
+      const int col = (j >> 2) * 8 + col0;
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row[h] * D + col) =
+          __floats2bfloat162_rn(o[j] / inv, o[j + 1] / inv);
+    }
+  }
+}
+
+template <int D>
+static int launch_wgmma(const void* q, const void* k, const void* v,
+                        void* out, int bh, int sq, int sk, int group,
+                        int causal, float scale, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  const uint64_t qdims[3] = {(uint64_t)D, (uint64_t)sq, (uint64_t)bh};
+  const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)sk,
+                             (uint64_t)(bh / group)};
+  const uint32_t box[3] = {64, 128, 1};
+  int err = hopper::make_tensor_map(&qmap, q, 3, qdims, box);
+  if (err == 0) err = hopper::make_tensor_map(&kmap, k, 3, kdims, box);
+  if (err == 0) err = hopper::make_tensor_map(&vmap, v, 3, kdims, box);
+  if (err != 0) return err;
+  const size_t smem = wg_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(bh, (sq + WG_BQ - 1) / WG_BQ);
+  flash_wgmma_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), sq, sk, group,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // f32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -425,33 +673,43 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// The query tile, the KV tile and the widest head; the wrapper checks
+// The wgmma kernel's query tile and KV tile, the mma.sync (and f32)
+// kernels' query tile and KV tile, and the widest head; the wrapper checks
 // them.
-int flash_attention_block_q() { return BQ; }
-int flash_attention_block_k() { return BKV; }
+int flash_attention_block_q() { return WG_BQ; }
+int flash_attention_block_k() { return WG_BKV; }
+int flash_attention_mma_block_q() { return BQ; }
+int flash_attention_mma_block_k() { return BKV; }
 int flash_attention_max_d() { return MAX_D; }
 
 // out (bh, sq, d) from q (bh, sq, d) and k, v (bh / group, sk, d), all
-// row-major and contiguous, f32 (bf16 = 0) or bf16 (bf16 = 1).  1 <= d <=
-// MAX_D, sk >= 1, bh % group == 0, (sq + BQ - 1) / BQ <= 65535; the wrapper
-// checks them.  Returns cudaGetLastError() after the launch (0 on success).
+// row-major and contiguous, on kernel `path`: 0 the f32 kernel, 1 the bf16
+// mma.sync kernel, 2 the bf16 wgmma kernel (d = 64 or 128, q, k and v
+// 16-byte aligned).  1 <= d <= MAX_D, sk >= 1, bh % group == 0, the query
+// tiles <= 65535; the wrapper checks them.  Returns 0 on success, else a
+// cudaError_t (from building a tensor map or from the launch).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int bh, int sq, int sk, int d, int group,
-                           int causal, float scale, int bf16, void* stream) {
+                           int causal, float scale, int path, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (path == 2)
+    return d == 64 ? launch_wgmma<64>(q, k, v, out, bh, sq, sk, group, causal,
+                                      scale, s)
+                   : launch_wgmma<128>(q, k, v, out, bh, sq, sk, group,
+                                       causal, scale, s);
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
   // the 16-wide steps over d, rounded to a power of two
   const int steps = d <= 16 ? 1 : d <= 32 ? 2 : d <= 64 ? 4 : 8;
-  if (bf16 && steps == 1)
+  if (path == 1 && steps == 1)
     return launch_bf16<1>(q, k, v, out, grid, sq, sk, d, group, causal, scale,
                           s);
-  if (bf16 && steps == 2)
+  if (path == 1 && steps == 2)
     return launch_bf16<2>(q, k, v, out, grid, sq, sk, d, group, causal, scale,
                           s);
-  if (bf16 && steps == 4)
+  if (path == 1 && steps == 4)
     return launch_bf16<4>(q, k, v, out, grid, sq, sk, d, group, causal, scale,
                           s);
-  if (bf16)
+  if (path == 1)
     return launch_bf16<8>(q, k, v, out, grid, sq, sk, d, group, causal, scale,
                           s);
   if (steps == 1)

@@ -1,5 +1,5 @@
-"""Flash attention: the CUDA kernel ``csrc/flash_attention.cu`` and its
-plain PyTorch version.
+"""Flash attention: the CUDA kernels of ``csrc/flash_attention.cu`` and
+their plain PyTorch version.
 
 The counterpart of the JAX package's Pallas kernel
 ``repro/kernels/flash_attention.py:flash_attention``: online-softmax
@@ -7,12 +7,17 @@ attention over ``(BH, S, d)`` whose running max, denominator and output
 accumulator stay in fast memory for one query tile while the KV tiles go
 by, with whole KV tiles above the causal diagonal skipped.  There the KV
 axis is the innermost, sequential grid axis; on the card one thread block
-owns a 64-row query tile and walks the 64-key tiles itself, bf16 on the
-tensor cores (``mma.sync``) and f32 on the CUDA cores, since the tensor
-cores would round f32 to TF32 (see the source).  The kernel masks ragged
-edges, so unlike the Pallas kernel it takes any Sq and Sk and needs no
-``sk_valid``, and it takes k and v with fewer heads than q (GQA, ``group``
-q heads a kv head) without copying them out.
+owns a query tile and walks the KV tiles itself.  Three kernels, chosen
+from the operands before the launch by :func:`attention_path`:
+``"wgmma"``, bf16 at d = 64 or 128 on the tensor cores with ``wgmma`` fed
+by a TMA ring, over 128 x 128 tiles (:data:`BLOCK_Q`, :data:`BLOCK_K`);
+``"mma_sync"``, bf16 at any other d on the tensor cores with ``mma.sync``,
+over 64 x 64 tiles (:data:`MMA_BLOCK_Q`, :data:`MMA_BLOCK_K`); ``"f32"``,
+f32 on the CUDA cores, since the tensor cores would round f32 to TF32, over
+the same 64 x 64 tiles (see the source).  The kernels handle ragged edges,
+so unlike the Pallas kernel they take any Sq and Sk and need no
+``sk_valid``, and they take k and v with fewer heads than q (GQA,
+``group`` q heads a kv head) without copying them out.
 """
 
 from __future__ import annotations
@@ -26,12 +31,19 @@ from . import _launch
 from .ref import NEG_INF
 
 DTYPES = (torch.float32, torch.bfloat16)
-#: The kernel's query tile, its KV tile and the widest head it takes: the
-#: plain version run with tiles (BLOCK_Q, BLOCK_K) takes the kernel's
-#: running maxima, so it rounds p at the same places.
-BLOCK_Q = 64
-BLOCK_K = 64
+#: The wgmma kernel's query tile and KV tile, the mma.sync and f32
+#: kernels' query tile and KV tile, and the widest head any takes: the
+#: plain version run with a kernel's tiles (:func:`kernel_tiles`) takes
+#: that kernel's running maxima, so it rounds p at the same places.
+BLOCK_Q = 128
+BLOCK_K = 128
+MMA_BLOCK_Q = 64
+MMA_BLOCK_K = 64
 MAX_D = 128
+#: The head widths the wgmma kernel takes, and each path's code in the
+#: C launcher.
+WGMMA_D = (64, 128)
+_PATH_CODE = {"f32": 0, "mma_sync": 1, "wgmma": 2}
 _INT_MAX = 2**31 - 1
 _GRID_Y_MAX = 65535
 
@@ -43,11 +55,13 @@ def _library():
     lib = _build.load("flash_attention").lib
     if getattr(lib, "_bound", False):
         return lib
-    for fn in (lib.flash_attention_block_q, lib.flash_attention_block_k,
-               lib.flash_attention_max_d):
+    fns = (lib.flash_attention_block_q, lib.flash_attention_block_k,
+           lib.flash_attention_mma_block_q, lib.flash_attention_mma_block_k,
+           lib.flash_attention_max_d)
+    for fn in fns:
         fn.restype, fn.argtypes = ctypes.c_int, []
-    if (lib.flash_attention_block_q(), lib.flash_attention_block_k(),
-            lib.flash_attention_max_d()) != (BLOCK_Q, BLOCK_K, MAX_D):
+    if tuple(fn() for fn in fns) != (BLOCK_Q, BLOCK_K, MMA_BLOCK_Q,
+                                     MMA_BLOCK_K, MAX_D):
         raise RuntimeError("csrc/flash_attention.cu was built for another "
                            "tile or head width than flash_attention.py's")
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -56,6 +70,27 @@ def _library():
         ctypes.c_float, i, p]
     lib._bound = True
     return lib
+
+
+def attention_path(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> str:
+    """Which kernel takes attention of q over k, v on the card:
+    ``"wgmma"`` for bf16 at d = 64 or 128 (a multiple of 16, the wgmma
+    k-step) with q, k and v contiguous and 16-byte aligned (what a TMA
+    tensor map reads); ``"mma_sync"`` for any other bf16; ``"f32"`` for
+    f32.  Decided from the operands alone, before any launch."""
+    if q.dtype != torch.bfloat16:
+        return "f32"
+    tma = all(t.is_contiguous() and t.data_ptr() % 16 == 0
+              for t in (q, k, v))
+    return "wgmma" if tma and q.shape[-1] in WGMMA_D else "mma_sync"
+
+
+def kernel_tiles(path: str) -> tuple[int, int]:
+    """The (query, KV) tiles of kernel ``path``: the tiles at which the
+    plain version rounds p where that kernel does."""
+    return (BLOCK_Q, BLOCK_K) if path == "wgmma" else (MMA_BLOCK_Q,
+                                                        MMA_BLOCK_K)
 
 
 def _check_shapes(q, k, v, group: int, bq: int, bk: int) -> None:
@@ -129,13 +164,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q's dtype; q row bh reads kv row bh // group.
 
     CPU tensors take :func:`flash_attention_plain` with tiles (``bq``,
-    ``bk``); CUDA tensors (f32 or bf16, d <= 128) launch the kernel on the
-    current stream with its own 64 x 64 tiles, and count the launch in
-    ``flash_attention.launches``.  Nothing falls back."""
+    ``bk``); CUDA tensors (f32 or bf16, d <= 128) launch the kernel that
+    :func:`attention_path` names on the current stream, with that kernel's
+    own tiles, and count the launch in ``flash_attention.launches`` and,
+    by kernel, in ``flash_attention.launches_by_path``.  Nothing falls
+    back."""
     _check_shapes(q, k, v, group, bq, bk)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, group=group,
                                      bq=bq, bk=bk)
+    return launch(q, k, v, attention_path(q, k, v), causal=causal,
+                  group=group)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, path: str, *,
+           causal: bool, group: int = 1) -> torch.Tensor:
+    """Launch kernel ``path`` (``"wgmma"``, ``"mma_sync"`` or ``"f32"``) on
+    CUDA tensors and count it.  :func:`flash_attention` takes the path from
+    :func:`attention_path`; naming ``"mma_sync"`` for operands the wgmma
+    kernel takes runs the mma.sync kernel on them, as timing the two side
+    by side needs."""
+    _check_shapes(q, k, v, group, 1, 1)
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
@@ -143,12 +192,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _launch.check_input("q", q, device, DTYPES, 3)
     _launch.check_input("k", k, device, (q.dtype,), 3)
     _launch.check_input("v", v, device, (q.dtype,), 3)
+    if path not in _PATH_CODE:
+        raise ValueError(f"no attention kernel {path!r}")
+    if path != attention_path(q, k, v) and not (
+            path == "mma_sync" and q.dtype == torch.bfloat16):
+        raise ValueError(f"the {path} kernel does not take {q.dtype} "
+                         f"q {tuple(q.shape)}")
     bh, sq, d = q.shape
     sk = k.shape[1]
     if d > MAX_D:
         raise ValueError(f"head width d={d}: the kernel takes d <= {MAX_D}")
     if max(bh, sq * d, sk * d) > _INT_MAX \
-            or -(-sq // BLOCK_Q) > _GRID_Y_MAX:
+            or -(-sq // kernel_tiles(path)[0]) > _GRID_Y_MAX:
         raise ValueError(f"q {tuple(q.shape)} exceeds the kernel's grid")
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -157,14 +212,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-            sk, d, group, int(causal), 1.0 / math.sqrt(d),
-            int(q.dtype == torch.bfloat16), _launch.stream(device))
-    _launch.check_status(err, "flash_attention")
+            sk, d, group, int(causal), 1.0 / math.sqrt(d), _PATH_CODE[path],
+            _launch.stream(device))
+    _launch.check_status(err, f"flash_attention ({path})")
     _wrapper.launches += 1
+    _wrapper.launches_by_path[path] += 1
     return out
 
 
-#: ``flash_attention.launches`` counts launches of the CUDA kernel (calls
-#: that take the plain version do not count), through this alias.
+#: ``flash_attention.launches`` counts launches of the CUDA kernels (calls
+#: that take the plain version do not count), and
+#: ``flash_attention.launches_by_path`` each kernel's, through this alias.
 _wrapper = flash_attention
 flash_attention.launches = 0
+flash_attention.launches_by_path = {"wgmma": 0, "mma_sync": 0, "f32": 0}

@@ -26,10 +26,13 @@ from .sparse_fc import block_sparse_matvec as _bsmv, check_tiles, \
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor,
                  tiles: MatmulTiles | None = None) -> torch.Tensor:
-    """x (M, K) @ w (K, N) through the tiled kernel.  ``tiles`` is honoured
-    as given on the card, or refused with ``ValueError`` if the kernel
-    cannot launch with it; by default :func:`~.calibrate.matmul_tiles`
-    picks them."""
+    """x (M, K) @ w (K, N) through the tiled kernels.  ``tiles`` (by
+    default :func:`~.calibrate.matmul_tiles`'s) are the CUDA-core kernel's:
+    it honours them as given on the card, and they are refused with
+    ``ValueError`` if it cannot launch with them.  bf16 operands that the
+    wgmma kernel takes (``dense_matmul.matmul_path``) run on it with its
+    own 128 x 128 tiles and 64-wide K slices; the given tiles are still
+    checked."""
     m, k = x.shape
     n = w.shape[-1]
     t = tiles or matmul_tiles(m, k, n, x.element_size())

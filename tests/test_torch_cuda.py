@@ -1,13 +1,15 @@
 """The CUDA kernels on the card.  The lane kernel must equal the plain
 PyTorch version bitwise on every output channel, count its launches, and
 refuse CPU tensors; the compute kernels (dense matmul, block-sparse FC,
-FIR) must agree with their plain versions -- the FIR bitwise, the products
-within the tolerance of ``tests/test_kernels.py`` -- count only their own
+FIR) must agree with their plain versions -- the FIR bitwise, the f32
+products within the tolerance of ``tests/test_kernels.py``, the bf16 ones
+under ``chip_smoke.py``'s per-element rule -- count only their own
 launches, and send CPU tensors to the plain versions; so must the
 attention and SSD kernels, and the LM forward with the attention kernel
-must launch it once a layer and agree with the blockwise path.  Every
-test skips,
-from inside the test, where no card is visible; run them on the card with
+must launch it once a layer and agree with the blockwise path.  The bf16
+matmul and attention have two kernels each: each case checks which one
+its operands take and counts that one's launch.  Every test skips, from
+inside the test, where no card is visible; run them on the card with
 ``python -m pytest -m gpu``."""
 
 import dataclasses
@@ -163,13 +165,24 @@ def _cuda(a, dtype=torch.float32):
     return torch.tensor(np.asarray(a, np.float32)).to(dtype).cuda()
 
 
+def _bf16_matmul_holds(got, want):
+    """chip_smoke.py's bf16 rule: one rounding apart, sums reordered."""
+    w = want.float()
+    limit = 2.0 ** -7 * w.abs() + 2.0 ** -12 * w.square().mean().sqrt()
+    return bool(((got.float() - w).abs() <= limit).all())
+
+
 @pytest.mark.parametrize("shape,dtype,tiles", [
     ((13, 57, 31), torch.float32, None), ((1, 1, 1), torch.float32, None),
     ((64, 512, 384), torch.float32, (8, 128, 128)),
     ((64, 512, 384), torch.float32, (16, 256, 128)),
     ((300, 1000, 200), torch.float32, None),
     ((13, 57, 31), torch.bfloat16, None),
-    ((300, 1000, 200), torch.bfloat16, None)])
+    ((300, 1000, 200), torch.bfloat16, None),
+    ((128, 256, 192), torch.bfloat16, None),
+    ((200, 296, 104), torch.bfloat16, (16, 256, 128)),
+    ((64, 520, 136), torch.bfloat16, None),
+    ((1000, 1024, 512), torch.bfloat16, None)])
 def test_dense_matmul_kernel_equals_plain(shape, dtype, tiles):
     _need_card()
     from repro_torch.kernels import MatmulTiles, dense_matmul, ref
@@ -179,18 +192,45 @@ def test_dense_matmul_kernel_equals_plain(shape, dtype, tiles):
     x = _cuda(rng.normal(size=(m, k)), dtype)
     w = _cuda(rng.normal(size=(k, n)), dtype)
     mod = _kmod("dense_matmul")
+    path = mod.matmul_path(x, w)
+    assert path == ("wgmma" if dtype == torch.bfloat16 and k % 8 == 0
+                    and n % 8 == 0 else "simt")
     before = mod.matmul.launches
+    on_path = mod.matmul.launches_by_path[path]
     got = dense_matmul(x, w, tiles=tiles and MatmulTiles(*tiles))
     torch.cuda.synchronize()
     assert mod.matmul.launches == before + 1
+    assert mod.matmul.launches_by_path[path] == on_path + 1
     want = ref.matmul_ref(x, w)
     assert got.dtype == dtype and got.device == x.device
-    scale = float(want.float().abs().max())
-    diff = float((got.float() - want.float()).abs().max())
     if dtype == torch.float32:      # tests/test_kernels.py's tolerance
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     else:                           # one bf16 rounding of the output
-        assert diff <= 1e-2 * scale
+        assert _bf16_matmul_holds(got, want)
+
+
+def test_dense_matmul_kernels_side_by_side():
+    """Both kernels on operands the wgmma kernel takes agree with the
+    plain version; the wgmma kernel refuses operands TMA cannot read."""
+    _need_card()
+    from repro_torch.kernels import ref
+    mod = _kmod("dense_matmul")
+    rng = np.random.default_rng(9)
+    x = _cuda(rng.normal(size=(256, 512)), torch.bfloat16)
+    w = _cuda(rng.normal(size=(512, 384)), torch.bfloat16)
+    want = ref.matmul_ref(x, w)
+    for path in ("wgmma", "simt"):
+        assert _bf16_matmul_holds(mod.launch(x, w, path), want)
+    x_off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    x_off = x_off[1:].view(x.shape)                 # 2 bytes off 16
+    x_off.copy_(x)
+    assert mod.matmul_path(x_off, w) == "simt"
+    assert _bf16_matmul_holds(mod.matmul(x_off, w, bm=64, bk=64, bn=64),
+                              want)
+    with pytest.raises(ValueError, match="wgmma kernel does not take"):
+        mod.launch(x_off, w, "wgmma")
+    with pytest.raises(ValueError, match="wgmma kernel does not take"):
+        mod.launch(x.float(), w.float(), "wgmma")
 
 
 @pytest.mark.parametrize("batch,bn", [(1, 8), (7, 8), (17, 8), (33, 32),
@@ -281,7 +321,8 @@ def test_compute_kernels_refuse_what_they_do_not_take():
 @pytest.mark.parametrize("bh,sq,sk,d,group,causal", [
     (2, 37, 37, 64, 1, True), (4, 300, 300, 128, 2, True),
     (2, 1, 1, 128, 1, True), (4, 70, 130, 128, 2, False),
-    (2, 130, 70, 32, 1, True), (2, 65, 200, 100, 2, False)])
+    (2, 130, 70, 32, 1, True), (2, 65, 200, 100, 2, False),
+    (4, 700, 700, 128, 2, True), (2, 257, 129, 64, 2, False)])
 def test_flash_kernel_equals_plain(bh, sq, sk, d, group, causal, dtype):
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -290,12 +331,18 @@ def test_flash_kernel_equals_plain(bh, sq, sk, d, group, causal, dtype):
     q = _cuda(rng.normal(size=(bh, sq, d)), dtype)
     k = _cuda(rng.normal(size=(bh // group, sk, d)), dtype)
     v = _cuda(rng.normal(size=(bh // group, sk, d)), dtype)
+    path = mod.attention_path(q, k, v)
+    assert path == ("f32" if dtype == torch.float32 else
+                    "wgmma" if d in (64, 128) else "mma_sync")
     before = mod.flash_attention.launches
+    on_path = mod.flash_attention.launches_by_path[path]
     got = mod.flash_attention(q, k, v, causal=causal, group=group)
     torch.cuda.synchronize()
     assert mod.flash_attention.launches == before + 1
+    assert mod.flash_attention.launches_by_path[path] == on_path + 1
+    bq, bk = mod.kernel_tiles(path)
     want = mod.flash_attention_plain(q, k, v, causal=causal, group=group,
-                                     bq=mod.BLOCK_Q, bk=mod.BLOCK_K)
+                                     bq=bq, bk=bk)
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
     if dtype == torch.float32:      # tests/test_kernels.py's tolerance
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
@@ -304,6 +351,29 @@ def test_flash_kernel_equals_plain(bh, sq, sk, d, group, causal, dtype):
         limit = 2.0 ** -7 * w.abs() \
             + 2.0 ** -6 * w.square().mean(-1, keepdim=True).sqrt()
         assert bool(((got.float() - w).abs() <= limit).all())
+
+
+def test_flash_kernels_side_by_side():
+    """The wgmma and mma.sync kernels on the same bf16 operands each agree
+    with the plain version at their own tiles; the wgmma kernel refuses a
+    head width it does not take."""
+    _need_card()
+    mod = _kmod("flash_attention")
+    rng = np.random.default_rng(21)
+    q = _cuda(rng.normal(size=(4, 300, 128)), torch.bfloat16)
+    k, v = (_cuda(rng.normal(size=(2, 300, 128)), torch.bfloat16)
+            for _ in range(2))
+    for path in ("wgmma", "mma_sync"):
+        got = mod.launch(q, k, v, path, causal=True, group=2)
+        bq, bk = mod.kernel_tiles(path)
+        w = mod.flash_attention_plain(q, k, v, causal=True, group=2, bq=bq,
+                                      bk=bk).float()
+        limit = 2.0 ** -7 * w.abs() \
+            + 2.0 ** -6 * w.square().mean(-1, keepdim=True).sqrt()
+        assert bool(((got.float() - w).abs() <= limit).all()), path
+    with pytest.raises(ValueError, match="wgmma kernel does not take"):
+        mod.launch(q[..., :80].contiguous(), k[..., :80].contiguous(),
+                   v[..., :80].contiguous(), "wgmma", causal=True, group=2)
 
 
 @pytest.mark.parametrize("bc,h,q,p,n,steep", [

@@ -1,0 +1,213 @@
+"""How the port picks its Hopper kernels, and what rebuilds them, on the CPU.
+
+``dense_matmul.matmul_path`` and ``flash_attention.attention_path`` decide
+from the operands alone (dtype, contiguity, 16-byte alignment, K and N or
+d) which CUDA kernel a call on the card launches; each is tested here on
+every boundary with CPU tensors, which launch nothing.  ``_build`` names a
+library by a hash of its source, the shared headers and the flags, so an
+edited header rebuilds every source, and keeps each build's log beside
+its library.
+"""
+
+import importlib
+import sys
+
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _module(name):
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+def _at(shape, dtype=BF16, offset=0):
+    """A contiguous tensor of ``shape`` whose data starts ``offset``
+    elements into its storage (its own allocation is 64-byte aligned)."""
+    n = 1
+    for s in shape:
+        n *= s
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+# --------------------------------------------------------------------------
+# dense matmul: wgmma for bf16 that TMA reads, the CUDA-core kernel else
+# --------------------------------------------------------------------------
+
+_MATMUL_CASES = {
+    "aligned": ((128, 256, 192), {}, "wgmma"),
+    "ragged M": ((13, 64, 64), {}, "wgmma"),
+    "ragged K and N, multiples of 8": ((200, 296, 104), {}, "wgmma"),
+    "K tail of 8": ((64, 520, 136), {}, "wgmma"),
+    "K = N = 8": ((1, 8, 8), {}, "wgmma"),
+    "f32": ((128, 256, 192), {"dtype": F32}, "simt"),
+    "bf16 x, f32 w": ((128, 256, 192), {"w_dtype": F32}, "simt"),
+    "K = 60": ((64, 60, 64), {}, "simt"),
+    "N = 100": ((64, 64, 100), {}, "simt"),
+    "K = 4": ((64, 4, 64), {}, "simt"),
+    "odd everything": ((13, 57, 31), {}, "simt"),
+    "x 2 bytes off": ((64, 64, 64), {"x_offset": 1}, "simt"),
+    "w 8 bytes off": ((64, 64, 64), {"w_offset": 4}, "simt"),
+    "x 16 bytes off": ((64, 64, 64), {"x_offset": 8}, "wgmma"),
+    "w transposed view": ((64, 64, 64), {"w_transposed": True}, "simt"),
+    "M = 0": ((0, 64, 64), {}, "simt"),
+    "K = 0": ((64, 0, 64), {}, "simt"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MATMUL_CASES))
+def test_matmul_path_boundaries(case):
+    (m, k, n), kw, want = _MATMUL_CASES[case]
+    dtype = kw.get("dtype", BF16)
+    x = _at((m, k), dtype, kw.get("x_offset", 0))
+    if kw.get("w_transposed"):
+        w = _at((n, k), dtype).T
+    else:
+        w = _at((k, n), kw.get("w_dtype", dtype), kw.get("w_offset", 0))
+    assert _module("dense_matmul").matmul_path(x, w) == want
+
+
+def test_matmul_cpu_calls_launch_no_kernel():
+    """On CPU tensors the wrapper takes the plain version whatever the
+    path, and counts no launch on either kernel."""
+    mod = _module("dense_matmul")
+    before = dict(mod.matmul.launches_by_path)
+    x = torch.randn(128, 256).to(BF16)
+    w = torch.randn(256, 192).to(BF16)
+    assert mod.matmul_path(x, w) == "wgmma"
+    out = mod.matmul(x, w, bm=128, bk=64, bn=128)
+    assert torch.equal(out, _module("ref").matmul_ref(x, w))
+    assert mod.matmul.launches_by_path == before
+    assert set(before) == {"wgmma", "simt"}
+
+
+# --------------------------------------------------------------------------
+# flash attention: wgmma at d = 64 or 128, mma.sync at other bf16 d, f32
+# --------------------------------------------------------------------------
+
+_ATTN_CASES = {
+    "d = 128": (128, {}, "wgmma"),
+    "d = 64": (64, {}, "wgmma"),
+    "d = 80": (80, {}, "mma_sync"),
+    "d = 37": (37, {}, "mma_sync"),
+    "d = 16": (16, {}, "mma_sync"),
+    "d = 96": (96, {}, "mma_sync"),
+    "f32 d = 128": (128, {"dtype": F32}, "f32"),
+    "f32 d = 37": (37, {"dtype": F32}, "f32"),
+    "q 2 bytes off": (128, {"q_offset": 1}, "mma_sync"),
+    "k 8 bytes off": (64, {"k_offset": 4}, "mma_sync"),
+    "v 2 bytes off": (128, {"v_offset": 1}, "mma_sync"),
+    "q 16 bytes off": (128, {"q_offset": 8}, "wgmma"),
+    "v transposed view": (64, {"v_transposed": True}, "mma_sync"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ATTN_CASES))
+def test_attention_path_boundaries(case):
+    d, kw, want = _ATTN_CASES[case]
+    dtype = kw.get("dtype", BF16)
+    q = _at((4, 37, d), dtype, kw.get("q_offset", 0))
+    k = _at((2, 53, d), dtype, kw.get("k_offset", 0))
+    if kw.get("v_transposed"):
+        v = _at((2, d, 53), dtype).transpose(1, 2)
+    else:
+        v = _at((2, 53, d), dtype, kw.get("v_offset", 0))
+    mod = _module("flash_attention")
+    path = mod.attention_path(q, k, v)
+    assert path == want
+    assert mod.kernel_tiles(path) == ((128, 128) if path == "wgmma"
+                                      else (64, 64))
+
+
+def test_attention_tiles_are_the_kernels():
+    """The exported tiles: the wgmma kernel's 128 x 128, and the mma.sync
+    (and f32) kernels' 64 x 64 under their own names."""
+    mod = _module("flash_attention")
+    assert (mod.BLOCK_Q, mod.BLOCK_K) == (128, 128)
+    assert (mod.MMA_BLOCK_Q, mod.MMA_BLOCK_K) == (64, 64)
+    assert set(mod.flash_attention.launches_by_path) == {"wgmma", "mma_sync",
+                                                         "f32"}
+
+
+def test_launch_by_path_refuses_cpu_tensors():
+    """``launch`` names a kernel outright, so it checks what the entry
+    points check: CUDA tensors only, matching shapes; nothing launches."""
+    mm, fa = _module("dense_matmul"), _module("flash_attention")
+    before = (dict(mm.matmul.launches_by_path),
+              dict(fa.flash_attention.launches_by_path))
+    x, w = torch.zeros(64, 64, dtype=BF16), torch.zeros(64, 64, dtype=BF16)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        mm.launch(x, w, "wgmma")
+    with pytest.raises(ValueError, match="cannot multiply"):
+        mm.launch(x, torch.zeros(32, 64, dtype=BF16), "simt")
+    q = torch.zeros(2, 16, 64, dtype=BF16)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        fa.launch(q, q, q, "wgmma", causal=True)
+    assert (mm.matmul.launches_by_path,
+            fa.flash_attention.launches_by_path) == before
+
+
+# --------------------------------------------------------------------------
+# builds: a header edit renames every library
+# --------------------------------------------------------------------------
+
+def test_header_edit_changes_the_target(tmp_path, monkeypatch):
+    """The library's name hashes the shared headers too: changing only a
+    header changes it (so the library is rebuilt), and so does an added
+    header; restoring the header restores the name."""
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "k", _build.FMAD_FLAGS)
+    first = _build._target("k")
+    assert first == _build._target("k")
+    header.write_text("// v2\n")
+    second = _build._target("k")
+    assert second != first
+    (tmp_path / "more.cuh").write_text("// new\n")
+    assert _build._target("k") not in (first, second)
+    (tmp_path / "more.cuh").unlink()
+    header.write_text("// v1\n")
+    assert _build._target("k") == first
+
+
+def test_the_repo_headers_are_hashed():
+    """The port's sources include ``csrc/hopper.cuh``, which the hash
+    reads."""
+    headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
+    assert "hopper.cuh" in headers
+    for name in ("dense_matmul", "flash_attention"):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "hopper.cuh"' in text
+
+
+def test_a_reused_library_keeps_its_build_log(tmp_path, monkeypatch):
+    """The build log (ptxas's registers and spills) is kept beside the
+    library, so a library reused from an earlier build still reports it.
+    nvcc is stood in for by a script that writes the library and a ptxas
+    line; loading is stubbed out."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('not a library')\n"
+        "print('ptxas info    : Used 168 registers, used 1 barriers')\n")
+    fake.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// k\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "k", _build.FMAD_FLAGS)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: path)
+    first = _build.build("k")["k"]
+    assert first.seconds > 0 and "Used 168 registers" in first.log
+    again = _build.build("k")["k"]
+    assert again.seconds == 0.0 and again.path == first.path
+    assert again.log == first.log

@@ -477,18 +477,18 @@ def _chip_smoke():
     return mod
 
 
-@functools.lru_cache(maxsize=1)
-def _full_width_attention():
+@functools.lru_cache(maxsize=2)
+def _full_width_attention(bq, bk):
     """bf16 q (2, 4096, 128) over k, v (1, 4096, 128), causal: the length
     and head width of qwen3-0.6b's attention on the card, two q heads in
-    one GQA group; and the plain version's output at the kernel's tiles."""
+    one GQA group; and the plain version's output at a kernel's tiles
+    (bq, bk)."""
     rng = np.random.default_rng(11)
     q = _t(rng.normal(size=(2, 4096, 128)), torch.bfloat16)
     k, v = (_t(rng.normal(size=(1, 4096, 128)), torch.bfloat16)
             for _ in range(2))
-    mod = _module("flash_attention")
-    want = mod.flash_attention_plain(q, k, v, causal=True, group=2,
-                                     bq=mod.BLOCK_Q, bk=mod.BLOCK_K)
+    want = _module("flash_attention").flash_attention_plain(
+        q, k, v, causal=True, group=2, bq=bq, bk=bk)
     return q, k, v, want
 
 
@@ -538,14 +538,15 @@ _ATTN_OUTPUTS = {
 
 @pytest.mark.parametrize("case", sorted(_ATTN_OUTPUTS))
 def test_bf16_attention_rule_at_full_width(case):
-    """``chip_smoke.py``'s rule for the bf16 attention kernel at the
+    """``chip_smoke.py``'s rule for the bf16 attention kernels at the
     model's length (|d| <= 2^-7 |ref| + 2^-6 rms of ref's row, against the
-    plain version at the kernel's tiles) passes outputs that differ only by
-    rounding, and fails a kernel that drops the last KV tile, or only the
-    diagonal key, for the late rows, whose outputs are small (rms about
-    sqrt(e / n) over n keys)."""
+    plain version at the kernel's tiles, here the mma.sync kernel's 64 x
+    64) passes outputs that differ only by rounding, and fails a kernel
+    that drops the last KV tile, or only the diagonal key, for the late
+    rows, whose outputs are small (rms about sqrt(e / n) over n keys)."""
     cs = _chip_smoke()
-    q, k, v, want = _full_width_attention()
+    mod = _module("flash_attention")
+    q, k, v, want = _full_width_attention(mod.MMA_BLOCK_Q, mod.MMA_BLOCK_K)
     holds, make = _ATTN_OUTPUTS[case]
     got = make(q, k, v, want)
     ok, diff = cs.agree(torch, got, want, "attn_bf16")
@@ -556,6 +557,132 @@ def test_bf16_attention_rule_at_full_width(case):
         assert share < 0.8, share   # what rounding leaves is well inside
     else:
         assert share > 10.0, share  # and a fault far outside
+
+
+_ATTN_OUTPUTS_128 = {
+    # honest: no rounding of p at all; the plain version at the mma.sync
+    # kernel's 64 x 64 tiles (other running maxima); one bf16 unit off
+    "exact": _ATTN_OUTPUTS["exact"],
+    "plain at 64 x 64 tiles": (True, lambda q, k, v, w: _module(
+        "flash_attention").flash_attention_plain(q, k, v, causal=True,
+                                                 group=2, bq=64, bk=64)),
+    "one unit off": _ATTN_OUTPUTS["one unit off"],
+    # planted faults, in late rows only, at the wgmma kernel's 128-key tiles
+    "last 128-key tile dropped": (False, lambda q, k, v, w: _masked_attention(
+        q, k, v,
+        lambda i, j: (j <= i) & ~((i >= _HALF) & (j >= i // 128 * 128)))),
+    "diagonal key dropped": _ATTN_OUTPUTS["diagonal key dropped"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ATTN_OUTPUTS_128))
+def test_bf16_attention_rule_at_full_width_128_tiles(case):
+    """The same rule against the plain version at the wgmma kernel's 128 x
+    128 tiles, the tiles of qwen3-0.6b's attention on the card: rounding
+    passes well inside the limit, a kernel that drops the last 128-key
+    tile, or the diagonal key, of the late rows fails far outside it."""
+    cs = _chip_smoke()
+    mod = _module("flash_attention")
+    q, k, v, want = _full_width_attention(mod.BLOCK_Q, mod.BLOCK_K)
+    holds, make = _ATTN_OUTPUTS_128[case]
+    got = make(q, k, v, want)
+    ok, diff = cs.agree(torch, got, want, "attn_bf16")
+    share = cs.limit_share(torch, got, want, "attn_bf16")
+    assert ok is holds, (case, diff, share)
+    if holds:
+        assert share < 0.8, share
+    else:
+        assert share > 10.0, share
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (1, 2, 2, 200, 300, 64, True), (1, 4, 2, 300, 130, 64, True),
+    (2, 2, 1, 130, 257, 64, False), (1, 2, 2, 37, 300, 128, True),
+    (1, 2, 1, 300, 37, 128, False), (1, 2, 1, 256, 256, 64, True)])
+def test_flash_plain_at_wgmma_tiles_matches_jax(b, h, hkv, sq, sk, d,
+                                                causal):
+    """The plain version at the wgmma kernel's 128 x 128 tiles against the
+    Pallas kernel in interpret mode at the same tiles: ragged Sq and Sk
+    (one tile, several, a tile of one key), Sq != Sk, causal or not, GQA
+    (the JAX side takes k and v expanded over the group)."""
+    mod = _module("flash_attention")
+    rng = np.random.default_rng(sq * 17 + sk + d + h)
+    q = rng.normal(size=(b, h, sq, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, hkv, sk, d)).astype(np.float32)
+            for _ in range(2))
+    expand = functools.partial(np.repeat, repeats=h // hkv, axis=1)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(expand(k)),
+                                jnp.asarray(expand(v)), causal=causal,
+                                bq=mod.BLOCK_Q, bk=mod.BLOCK_K,
+                                interpret=True))
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                          bq=mod.BLOCK_Q, bk=mod.BLOCK_K)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@functools.lru_cache(maxsize=1)
+def _full_width_matmul():
+    """bf16 (512, 4096) @ (4096, 512): the depth of the 4096^3 product on
+    the card, at a width the CPU takes quickly; and the plain version's
+    output."""
+    rng = np.random.default_rng(13)
+    x = _t(rng.normal(size=(512, 4096)), torch.bfloat16)
+    w = _t(rng.normal(size=(4096, 512)), torch.bfloat16)
+    return x, w, ref.matmul_ref(x, w)
+
+
+def _k_sliced(x, w, width, reverse=False):
+    """x @ w summed in f32 over K slices of ``width`` (last slice first if
+    ``reverse``), rounded to bf16 once."""
+    starts = range(0, x.shape[1], width)
+    acc = torch.zeros(x.shape[0], w.shape[1])
+    for k0 in (reversed(starts) if reverse else starts):
+        acc += x[:, k0:k0 + width].float() @ w[k0:k0 + width].float()
+    return acc.to(torch.bfloat16)
+
+
+def _tile_missing(x, w, k0, width):
+    """The product with one 128 x 128 output tile (rows 128-255, columns
+    256-383) missing K values k0 .. k0 + width - 1."""
+    acc = x.float() @ w.float()
+    r, c = slice(128, 256), slice(256, 384)
+    acc[r, c] -= x[r, k0:k0 + width].float() @ w[k0:k0 + width, c].float()
+    return acc.to(torch.bfloat16)
+
+
+_MATMUL_OUTPUTS = {
+    # honest: other K slices (the wgmma kernel's 64, its 16-wide k-steps),
+    # a reversed K order, one bf16 unit off
+    "K slices of 64": (True, lambda x, w, want: _k_sliced(x, w, 64)),
+    "K steps of 16, reversed": (True, lambda x, w, want: _k_sliced(
+        x, w, 16, reverse=True)),
+    "one unit off": (True, lambda x, w, want: _one_unit_up(want)),
+    # planted faults in one output tile
+    "one 16-wide k-step dropped": (False, lambda x, w, want: _tile_missing(
+        x, w, 2048, 16)),
+    "one 64-wide stage dropped": (False, lambda x, w, want: _tile_missing(
+        x, w, 4032, 64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MATMUL_OUTPUTS))
+def test_bf16_matmul_rule_at_full_width(case):
+    """``chip_smoke.py``'s rule for the bf16 matmul kernels (|d| <= 2^-7
+    |ref| + 2^-12 rms(ref) per element) at K = 4096 passes sums taken in
+    another order, which differ from the plain version at most by one bf16
+    rounding, and fails a kernel that drops one 16-wide k-step, or one
+    64-wide stage, of one output tile, far outside the limit."""
+    cs = _chip_smoke()
+    x, w, want = _full_width_matmul()
+    holds, make = _MATMUL_OUTPUTS[case]
+    got = make(x, w, want)
+    ok, diff = cs.agree(torch, got, want, "bf16")
+    share = cs.limit_share(torch, got, want, "bf16")
+    assert ok is holds, (case, diff, share)
+    if holds:
+        assert share <= 1.0, share
+    else:
+        assert share > 10.0, share
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
