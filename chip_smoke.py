@@ -13,11 +13,13 @@ prints one JSON line per phase; any failure exits non-zero.
    power limit.  With no card visible the script exits non-zero at once.
 2. build   -- nvcc builds every kernel from the checkout's sources (one
    nvcc per source, all started together) and prints the ptxas register
-   and spill lines; for the two Hopper kernels (the bf16 matmul and
-   attention kernels on ``wgmma`` fed by TMA) it prints each one's
-   registers and spill bytes and, where the toolkit has ``cuobjdump``, the
-   HGMMA and UTMALDG instructions in its SASS, and fails if either count
-   is 0 (where ``cuobjdump`` is missing it says so on a line).
+   and spill lines; for the Hopper kernels (the bf16 matmul and attention
+   kernels and the block-sparse FC's bf16 and 3xTF32 kernels, on
+   ``wgmma`` fed by TMA) it prints each one's registers and spill bytes
+   and, where the toolkit has ``cuobjdump``, the HGMMA and UTMALDG
+   instructions in its SASS, and fails if either count is 0 or a spill
+   byte is reported (where ``cuobjdump`` is missing it says so on a
+   line).
 3. kernel_vs_plain -- small random networks (seeded numpy) through the
    entry points, covering the flag combinations the tests cover; every
    kernel launch's inputs are replayed through the plain PyTorch version
@@ -32,12 +34,18 @@ prints one JSON line per phase; any failure exits non-zero.
 5. (part of 4) har_first_lanes.
 6. kernels_vs_plain -- the ``repro_torch.kernels`` entry points
    (``dense_matmul``, ``BlockSparseFC``, ``fir_conv1d``) at small seeded
-   shapes (odd sizes, explicit tiles, f32 and bf16, an empty row-block,
-   batches off the batch tile, K = 1 and K = L), each output held against
-   its kernel's plain version on the card; each matmul case prints the
-   kernel that took it (``path``: ``wgmma`` for aligned bf16, also with
-   ragged M, N and K; ``simt`` for f32 and unaligned bf16) and fails if
-   it is not the one its shape calls for.
+   shapes (odd sizes, explicit tiles, f32, bf16 and both mixed pairs, an
+   empty row-block, batches off the batch tile, K = 1 and K = L), each
+   output held against its kernel's plain version on the card (the FIR
+   bitwise in both dtypes); each matmul and block-sparse case prints the
+   kernel that took it (``path``: for the matmul ``wgmma`` for aligned
+   bf16, also with ragged M, N and K, ``simt`` for f32, unaligned bf16
+   and mixed pairs; for the block-sparse FC ``wgmma`` for bf16 and
+   ``tf32x3`` for f32 and mixed pairs in 128-row blocks, ``simt`` for
+   other blocks and, named, for the 128-row ones too) and the largest
+   share of its limit, and fails if it is not the one its shape calls
+   for.  The block-sparse FC's f32 outputs are also held to the
+   ``tf32x3`` rule against the f64 product.
 7. kernels_full_width -- the same entry points at the repo's benchmark
    shapes, through ``mnist_net()`` at its published widths over a batch
    of 1024 inputs (convolutions composed from FIRs, fc1 pruned to 90 %
@@ -47,15 +55,18 @@ prints one JSON line per phase; any failure exits non-zero.
    version (and the MNIST logits against the plain chain and the numpy
    simulator), and the kernel, its plain version and one PyTorch library
    call computing the same function are timed, beside the bound.  The
-   4096^3 bf16 product must go through the wgmma kernel; it is timed
-   beside the CUDA-core kernel it replaced (``previous_ms``), at the same
-   shape in the same run.
+   4096^3 bf16 product must go through the wgmma kernel, and the 4096^2
+   block-sparse FC through the tf32x3 kernel in f32 and the wgmma one in
+   bf16 (and MNIST's fc1 through tf32x3); each is timed beside the
+   CUDA-core kernel it replaced (``previous_ms``), at the same shape in
+   the same run.  The FIR is timed in bf16 beside f32.
 8. lm_vs_plain -- the attention kernels (f32 and bf16, causal or not,
    Sq != Sk, S of 1, 37 and 300, d of 64 and 128 on the wgmma kernel in
    bf16, d of 80 on the mma.sync one, GQA group 2) and the SSD cell (the
-   tests' shapes, an overflowing decay, Q = 256) against their plain
-   versions on the card, attention's at the tiles of the kernel that took
-   it; each attention case prints that kernel (``path``).
+   tests' shapes, an overflowing decay, Q = 256, in f32 and bf16) against
+   their plain versions on the card, attention's at the tiles of the
+   kernel that took it; each attention case prints that kernel
+   (``path``).
 9. lm_full_width -- qwen3-0.6b as published (28 layers, bf16, attention
    through the kernel) over 2 x 4,096 tokens: the attention kernel's
    launches zeroed just before ``forward`` and read just after (one a
@@ -64,7 +75,8 @@ prints one JSON line per phase; any failure exits non-zero.
    same weights widened to f32, in f32; the forward timed and split
    (hidden states, LM head) beside its bound.  Then each kernel at its
    full-width shape (one layer's attention; the SSD cell at mamba2-370m's
-   widths, reached through the ``kernels`` entry point, launches counted)
+   widths, reached through the ``kernels`` entry point, launches counted,
+   then on bf16 inputs)
    against its plain version, timed beside its plain version, its bound
    and, for attention, ``scaled_dot_product_attention`` as a yardstick and
    the ``mma.sync`` kernel it replaced (``previous_ms``).
@@ -108,7 +120,8 @@ def emit(obj) -> None:
 #: The Hopper kernels (wgmma fed by TMA) by source: a substring of each
 #: kernel's mangled name.
 WGMMA_KERNELS = {"dense_matmul": "matmul_wgmma_kernel",
-                 "flash_attention": "flash_wgmma_kernel"}
+                 "flash_attention": "flash_wgmma_kernel",
+                 "sparse_fc": "block_sparse_fc_hopper_kernel"}
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -274,6 +287,8 @@ def replay_bound_ms(args, kw, out, torch) -> tuple[float, str, dict]:
 #: CUDA cores and bf16 on the tensor cores.
 PEAK_F32_OPS = 67e12
 PEAK_BF16_OPS = 989e12
+#: TF32 on the tensor cores (dense), the rate of each of 3xTF32's products.
+PEAK_TF32_OPS = 494.7e12
 
 #: Inputs of the MNIST phase, and the large shape of each compute kernel
 #: (matmul M = K = N; block-sparse FC weight edge and batch; FIR C = L).
@@ -341,6 +356,15 @@ TOLERANCES = {
             "inputs, against 2^-12 rms(ref) = 0.016 there; a kernel that "
             "drops one 16-wide k-step of a tile takes 550 times the limit, "
             "tests/test_torch_kernels.py)",
+    "tf32x3": "max |kernel - f64| <= 4 max |plain f32 - f64| + 2^-24 "
+              "max |f64|, the f64 product computed on the card from the "
+              "same operands, beside allclose against the plain version "
+              "(3xTF32 splits each operand into two tf32 parts and keeps "
+              "three of the four products, each exact in f32, so it stays "
+              "near f32; a one-pass TF32 product keeps 11 bits of each "
+              "operand and misses the rule by more than 100 times at K = "
+              "4096, as does a 3xTF32 one product short, "
+              "tests/test_torch_kernels.py)",
     "logits": "max |d| <= 1e-4 max |logit|",
     "ssd": "max |d| <= 1e-5 max |ref| per output (f32 sums over N then Q "
            "terms in another order than the plain version's cuBLAS "
@@ -387,6 +411,23 @@ def limit_share(torch, got, want, rule: str) -> float:
     limit = (bf16_limit if rule == "bf16" else attn_limit)(torch, w)
     return float(((got.float() - w).abs() / limit).max()) if w.numel() \
         else 0.0
+
+
+def allclose_share(torch, got, want) -> float:
+    """The largest share of its element's ``allclose`` limit that a
+    difference takes."""
+    w = want.float()
+    limit = 2e-4 + 2e-4 * w.abs()
+    return float(((got.float() - w).abs() / limit).max()) if w.numel() \
+        else 0.0
+
+
+def tf32x3_share(torch, got, plain, exact) -> float:
+    """max |got - exact| as a share of the ``tf32x3`` rule's limit, 4 max
+    |plain - exact| + 2^-24 max |exact| (``exact`` in f64)."""
+    limit = 4 * float((plain.double() - exact).abs().max()) \
+        + 2.0 ** -24 * float(exact.abs().max())
+    return float((got.double() - exact).abs().max()) / limit
 
 
 def agree(torch, got, want, rule: str) -> tuple[bool, float]:
@@ -489,11 +530,27 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         return lambda h: sparse_plain(h, *fc._bundle, fc.m, bm=fc.bm,
                                       bk=fc.bk)
 
+    def fc_exact(fc, h):
+        """h @ W^T in f64 from the layer's own bundle (the tf32x3 rule's
+        reference)."""
+        vals, row_ptr, col_idx = fc._bundle
+        nbr = row_ptr.numel() - 1
+        nbc = fc.padded_k // fc.bk
+        rows = torch.repeat_interleave(
+            torch.arange(nbr, device=vals.device), torch.diff(row_ptr.long()))
+        w = torch.zeros((nbr, nbc, fc.bm, fc.bk), dtype=torch.float64,
+                        device=vals.device)
+        w.index_put_((rows, col_idx.long()), vals.double(), accumulate=True)
+        w = w.permute(0, 2, 1, 3).reshape(nbr * fc.bm, nbc * fc.bk)
+        return h.double() @ w[:fc.m, :fc.k].T
+
     # ---- 6. every compute kernel against its plain version, small shapes
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     # (kernel, case, kernel output, plain output, rule, the kernel's path)
     checks = []
+    # block-sparse f32 outputs: (case, path, kernel, plain, f64 product)
+    tf32_checks = []
     for m, k, n, dtype, tiles, want_path in (
             (13, 57, 31, f32, None, "simt"), (1, 1, 1, f32, None, "simt"),
             (129, 1000, 70, f32, None, "simt"),
@@ -518,17 +575,29 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                        f"{m}x{k}x{n} {str(dtype)[6:]} tiles={tiles}",
                        dense_matmul(x, w, tiles=t), ref.matmul_ref(x, w),
                        "allclose" if dtype == f32 else "bf16", path))
+    # dense_matmul on a mixed pair: widened, the f32 kernel, x's dtype
+    for xdt, wdt in ((f32, bf16), (bf16, f32)):
+        x = dev(rng.normal(size=(200, 296)), xdt)
+        w = dev(rng.normal(size=(296, 104)), wdt)
+        path = mods["dense_matmul"].matmul_path(x.float(), w.float())
+        checks.append(("dense_matmul",
+                       f"200x296x104 {str(xdt)[6:]} x {str(wdt)[6:]}",
+                       dense_matmul(x, w), ref.matmul_ref(x, w),
+                       "allclose" if xdt == f32 else "bf16", path))
     w_empty = rng.normal(size=(512, 512)).astype(np.float32)
     w_empty[128:, :] = 0
     w_empty[:128, 256:] = 0
     w_ragged = rng.normal(size=(300, 200)).astype(np.float32)
     w_ragged[:, 60:] *= rng.random((300, 140)) < 0.05
     w_ragged[128:256] = 0
+    smod = mods["block_sparse_fc"]
     for w, batch, blocks in ((w_empty, 8, (128, 128, 8)),
                              (w_ragged, 1, (128, 128, 8)),
                              (w_ragged, 7, (128, 128, 8)),
                              (w_ragged, 17, (128, 128, 8)),
                              (w_ragged, 33, (128, 128, 32)),
+                             (w_ragged, 129, (128, 128, 8)),
+                             (w_ragged, 200, (128, 64, 8)),
                              (w_ragged, 9, (64, 48, 4)),
                              (w_ragged, 5, (40, 40, 1))):
         bm, bk, bn = blocks
@@ -536,18 +605,48 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         if w is w_empty and fc.vals.shape[0] != 5:
             raise SystemExit("kernels_vs_plain: the empty-row-block bundle "
                              f"holds {fc.vals.shape[0]} blocks, not 5")
-        x = dev(rng.normal(size=(batch, w.shape[1])))
-        checks.append(("block_sparse_fc",
-                       f"{w.shape} nnzb={fc.vals.shape[0]} batch={batch} "
-                       f"blocks={blocks}", fc(x), fc_plain(fc)(x),
-                       "allclose", None))
+        # the same bundle with bf16 values, given to the layer as a tensor
+        fc16 = BlockSparseFC.from_block_csr(
+            torch.from_numpy(fc.vals).to(bf16), fc.row_ptr, fc.col_idx,
+            fc.m, fc.k, bm, bk, bn)
+        tensor_cores = bm == 128 and bk % 64 == 0
+        for xdt, layer in ((f32, fc), (bf16, fc16), (bf16, fc), (f32, fc16)):
+            if xdt != layer._bundle[0].dtype and batch != 17:
+                continue                   # the mixed pairs: one batch
+            x = dev(rng.normal(size=(batch, w.shape[1])), xdt)
+            want_path = "simt" if not tensor_cores else \
+                "wgmma" if xdt == layer._bundle[0].dtype == bf16 \
+                else "tf32x3"
+            path = smod.fc_path(x, layer._bundle[0], bm, bk)
+            case = (f"{w.shape} nnzb={fc.vals.shape[0]} batch={batch} "
+                    f"blocks={blocks} x {str(xdt)[6:]} vals "
+                    f"{str(layer._bundle[0].dtype)[6:]}")
+            if path != want_path:
+                raise SystemExit(f"kernels_vs_plain: block_sparse_fc {case} "
+                                 f"takes the {path} kernel, not the "
+                                 f"{want_path} one")
+            want = fc_plain(layer)(x)
+            runs_ = [(path, layer(x))]
+            if path == "tf32x3" and xdt == layer._bundle[0].dtype:
+                # the CUDA-core kernel it replaced, on the same operands
+                runs_.append(("simt", smod.launch(
+                    x, *layer._bundle, layer.m, "simt", bm=bm, bk=bk,
+                    bn=bn)))
+            for p, got in runs_:
+                checks.append(("block_sparse_fc", case, got, want,
+                               "allclose" if xdt == f32 else "bf16", p))
+                if xdt == f32:
+                    tf32_checks.append((case, p, got, want,
+                                        fc_exact(layer, x)))
     for c, length, k in ((37, 101, 7), (5, 12, 1), (5, 12, 12), (1, 1, 1),
                          (3, 300, 70), (2, 600, 33), (4000, 28, 5)):
-        x = dev(rng.normal(size=(c, length)))
-        taps = dev(rng.normal(size=(c, k)))
-        checks.append(("fir_conv1d", f"C={c} L={length} K={k}",
-                       fir_conv1d(x, taps), ref.fir_conv1d_ref(x, taps),
-                       "bitwise", None))
+        for dtype in (f32, bf16):
+            x = dev(rng.normal(size=(c, length)), dtype)
+            taps = dev(rng.normal(size=(c, k)), dtype)
+            checks.append(("fir_conv1d",
+                           f"C={c} L={length} K={k} {str(dtype)[6:]}",
+                           fir_conv1d(x, taps), ref.fir_conv1d_ref(x, taps),
+                           "bitwise", None))
     torch.cuda.synchronize()
     small_err = {}
     for name, case, got, want, rule, path in checks:
@@ -559,13 +658,32 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                              f"({TOLERANCES[rule]}; max abs diff {diff})")
         if path is not None:
             line = {"phase": "kernels_vs_plain", "kernel": name,
-                    "case": case, "path": path, "max_abs_diff_vs_plain": diff}
-            if rule == "bf16":
-                line["limit_share"] = limit_share(torch, got, want, rule)
+                    "case": case, "path": path, "max_abs_diff_vs_plain": diff,
+                    "rule": rule, "limit_share": (
+                        limit_share(torch, got, want, rule) if rule == "bf16"
+                        else allclose_share(torch, got, want))}
             emit(line)
+    tf32_share = 0.0
+    for case, path, got, want, exact in tf32_checks:
+        share = tf32x3_share(torch, got, want, exact)
+        tf32_share = max(tf32_share, share)
+        emit({"phase": "kernels_vs_plain", "kernel": "block_sparse_fc",
+              "case": case, "path": path, "rule": "tf32x3",
+              "limit_share": share})
+        if share > 1.0:
+            raise SystemExit(f"kernels_vs_plain: block_sparse_fc {case} "
+                             f"({path}) misses the tf32x3 rule "
+                             f"({TOLERANCES['tf32x3']}; {share} of the "
+                             f"limit)")
     emit({"phase": "kernels_vs_plain", "cases": len(checks),
           "max_abs_diff_vs_plain": small_err, "all_agree": True,
+          "tf32x3_max_limit_share": tf32_share,
+          "tolerances": {"block_sparse_fc f32": [TOLERANCES["allclose"],
+                                                 TOLERANCES["tf32x3"]],
+                         "bf16 outputs": TOLERANCES["bf16"],
+                         "fir_conv1d": TOLERANCES["bitwise"]},
           "seconds": time.perf_counter() - t0})
+    del checks, tf32_checks
 
     # ---- 7. the entry points at full width, launches counted
     rng = np.random.default_rng(0)
@@ -573,13 +691,14 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
 
     def run(kernel, shape, out, kernel_fn, plain_fn, library_fn, flops,
             nbytes, peak, rule, headline, entry=None, previous_fn=None,
-            path=None):
+            path=None, exact_fn=None, hopper_source=None, bounds=None):
         runs.append(dict(kernel=kernel, shape=shape, out=out,
                          kernel_fn=kernel_fn, plain_fn=plain_fn,
                          library_fn=library_fn, flops=flops, bytes=nbytes,
                          peak=peak, rule=rule, headline=headline,
                          entry=entry or kernel, previous_fn=previous_fn,
-                         path=path))
+                         path=path, exact_fn=exact_fn,
+                         hopper_source=hopper_source, bounds=bounds))
 
     mmod = mods["dense_matmul"]
 
@@ -600,31 +719,61 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
             2.0 * m * n * k, size * (m * k + k * n + m * n),
             PEAK_F32_OPS if dtype == f32 else PEAK_BF16_OPS, rule, headline,
             entry=f"dense_matmul_{path}" if path == "wgmma" else None,
-            previous_fn=previous, path=path)
+            previous_fn=previous, path=path,
+            hopper_source=None if path == "simt" else "dense_matmul")
 
-    def sparse_run(w, batch, rule, headline=False):
+    smod = mods["block_sparse_fc"]
+
+    def sparse_run(w, batch, dtype, rule, want_path, headline=False):
+        """The layer on the dense-with-zeros weight ``w`` (bf16 values
+        given as a tensor) over ``batch`` inputs of ``dtype``; timed beside
+        the CUDA-core kernel it replaced and a dense ``torch.matmul`` of
+        the same dtype."""
         fc = BlockSparseFC(w)
-        x = dev(rng.normal(size=(batch, w.shape[1])))
-        wd = dev(w)
+        if dtype == bf16:
+            fc = BlockSparseFC.from_block_csr(
+                torch.from_numpy(fc.vals).to(bf16), fc.row_ptr, fc.col_idx,
+                fc.m, fc.k, fc.bm, fc.bk, fc.bn)
+        x = dev(rng.normal(size=(batch, w.shape[1])), dtype)
+        wd = dev(w, dtype)
+        path = smod.fc_path(x, fc._bundle[0], fc.bm, fc.bk)
+        if path != want_path:
+            raise SystemExit(f"kernels_full_width: block_sparse_fc "
+                             f"{w.shape} {dtype} takes the {path} kernel, "
+                             f"not the {want_path} one")
         nnzb = fc.vals.shape[0]
+        size = x.element_size()
+        flops = 2.0 * batch * nnzb * fc.bm * fc.bk
+        bounds = None
+        if path == "tf32x3":   # three tf32 products, or f32 on CUDA cores
+            bounds = {"tf32x3_tensor_cores_ms": 3 * flops / PEAK_TF32_OPS
+                      * 1e3, "cuda_cores_ms": flops / PEAK_F32_OPS * 1e3}
         run("block_sparse_fc",
             f"{w.shape[0]}x{w.shape[1]} density {fc.density:.2f} "
-            f"batch {batch}", fc(x), lambda: fc(x), lambda: fc_plain(fc)(x),
-            lambda: torch.matmul(x, wd.T),
-            2.0 * batch * nnzb * fc.bm * fc.bk,
-            4 * (x.numel() + fc.vals.size + fc.row_ptr.size
-                 + fc.col_idx.size + batch * fc.m), PEAK_F32_OPS, rule,
-            headline)
+            f"batch {batch} {str(dtype)[6:]}", fc(x), lambda: fc(x),
+            lambda: fc_plain(fc)(x), lambda: torch.matmul(x, wd.T),
+            3 * flops if path == "tf32x3" else flops,
+            size * (x.numel() + fc._bundle[0].numel() + batch * fc.m)
+            + 4 * (fc.row_ptr.size + fc.col_idx.size),
+            PEAK_TF32_OPS if path == "tf32x3" else PEAK_BF16_OPS
+            if path == "wgmma" else PEAK_F32_OPS, rule, headline,
+            entry="block_sparse_fc_wgmma" if path == "wgmma" else None,
+            previous_fn=lambda: smod.launch(x, *fc._bundle, fc.m, "simt",
+                                            bm=fc.bm, bk=fc.bk, bn=fc.bn),
+            path=path, exact_fn=(lambda: fc_exact(fc, x))
+            if dtype == f32 else None, hopper_source="sparse_fc",
+            bounds=bounds)
 
-    def fir_run(c, length, k, headline=False):
-        x = dev(rng.normal(size=(c, length)))
-        taps = dev(rng.normal(size=(c, k)))
+    def fir_run(c, length, k, dtype=f32, headline=False):
+        x = dev(rng.normal(size=(c, length)), dtype)
+        taps = dev(rng.normal(size=(c, k)), dtype)
         n_out = length - k + 1
-        run("fir_conv1d", f"C={c} L={length} K={k}", fir_conv1d(x, taps),
-            lambda: fir_conv1d(x, taps),
+        run("fir_conv1d", f"C={c} L={length} K={k} {str(dtype)[6:]}",
+            fir_conv1d(x, taps), lambda: fir_conv1d(x, taps),
             lambda: ref.fir_conv1d_ref(x, taps),
             lambda: F.conv1d(x[None], taps[:, None], groups=c),
-            2.0 * c * n_out * k, 4 * (c * length + c * k + c * n_out),
+            2.0 * c * n_out * k,
+            x.element_size() * (c * length + c * k + c * n_out),
             PEAK_F32_OPS, "bitwise", headline)
 
     net = mnist_net()
@@ -640,20 +789,27 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
     for name in wrappers:
         wrappers[name].launches = 0     # zero just before the path
     by_path = wrappers["dense_matmul"].launches_by_path
-    for p in by_path:
-        by_path[p] = 0
+    sparse_by_path = wrappers["block_sparse_fc"].launches_by_path
+    for counts in (by_path, sparse_by_path):
+        for p in counts:
+            counts[p] = 0
     t0 = time.perf_counter()
     # the repo's benchmark shapes (benchmarks/kernels_bench.py)
     matmul_run(512, 1024, 768, f32, "allclose")
-    sparse_run(checkerboard(np, rng, 512, 128), 16, "allclose")
+    sparse_run(checkerboard(np, rng, 512, 128), 16, f32, "allclose",
+               "tf32x3")
     fir_run(128, 512, 5)
     bench_launches = {n: w.launches for n, w in wrappers.items()}
+    tf32x3_before = sparse_by_path["tf32x3"]
     # MNIST at its published widths over a batch
     logits = mnist_chain(torch, params, x_mnist, fir_conv1d, sfc,
                          dense_matmul)
     torch.cuda.synchronize()
     mnist_launches = {n: w.launches - bench_launches[n]
                       for n, w in wrappers.items()}
+    if sparse_by_path["tf32x3"] != tf32x3_before + 1:
+        raise SystemExit("kernels_full_width: MNIST's fc1 did not go "
+                         "through the tf32x3 kernel")
     # one large shape per kernel
     n = LARGE_MATMUL
     matmul_run(n, n, n, f32, "k4096", headline=True)
@@ -662,12 +818,18 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
     if by_path["wgmma"] != wgmma_before + 1:
         raise SystemExit(f"kernels_full_width: the {n}^3 bf16 matmul did "
                          f"not go through the wgmma kernel")
-    sparse_run(checkerboard(np, rng, LARGE_SPARSE, 128), LARGE_SPARSE_BATCH,
-               "k4096", headline=True)
+    w_large = checkerboard(np, rng, LARGE_SPARSE, 128)
+    sparse_run(w_large, LARGE_SPARSE_BATCH, f32, "k4096", "tf32x3",
+               headline=True)
+    sparse_run(w_large, LARGE_SPARSE_BATCH, bf16, "bf16", "wgmma",
+               headline=True)
+    del w_large
     fir_run(LARGE_FIR, LARGE_FIR, 5, headline=True)
+    fir_run(LARGE_FIR, LARGE_FIR, 5, dtype=bf16)
     torch.cuda.synchronize()
     launches = {n: w.launches for n, w in wrappers.items()}   # read just after
     matmul_by_path = dict(by_path)
+    fc_by_path = dict(sparse_by_path)
     path_s = time.perf_counter() - t0
     for name, n in launches.items():
         if n <= 0:
@@ -676,6 +838,10 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         if n <= 0:
             raise SystemExit(f"kernels_full_width: the {path} matmul kernel "
                              f"never launched")
+    for path in ("tf32x3", "wgmma"):
+        if fc_by_path[path] <= 0:
+            raise SystemExit(f"kernels_full_width: the {path} block-sparse "
+                             f"kernel never launched")
 
     # the MNIST logits: against the plain chain on the card (all inputs)
     # and against the numpy simulator (first 8 inputs)
@@ -723,6 +889,14 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                              f"{diff})")
         share = limit_share(torch, r["out"], plain, "bf16") \
             if r["rule"] == "bf16" else None
+        tf32_share = None
+        if r["path"] == "tf32x3":
+            tf32_share = tf32x3_share(torch, r["out"], plain, r["exact_fn"]())
+            if tf32_share > 1.0:
+                raise SystemExit(f"kernels_full_width: {r['kernel']} "
+                                 f"{r['shape']} misses the tf32x3 rule "
+                                 f"({TOLERANCES['tf32x3']}; {tf32_share} "
+                                 f"of the limit)")
         del plain
         ms = median_ms(torch, r["kernel_fn"], inner=INNER)
         plain_ms = median_ms(torch, r["plain_fn"], reps=3)
@@ -737,26 +911,39 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                 "tolerance": TOLERANCES[r["rule"]]}
         if share is not None:
             line["limit_share"] = share
+        if tf32_share is not None:
+            line["tf32x3_limit_share"] = tf32_share
+            line["tf32x3_tolerance"] = TOLERANCES["tf32x3"]
+        if r["bounds"] is not None:
+            line["bounds_ms"] = r["bounds"]
         if r["previous_fn"] is not None:
             line["previous_ms"] = median_ms(torch, r["previous_fn"], reps=3,
                                             inner=INNER)
-            line["ptxas_and_sass"] = hopper["dense_matmul"]
+        if r["hopper_source"] is not None:
+            line["ptxas_and_sass"] = hopper[r["hopper_source"]]
         emit(line)
         if r["headline"]:
             entries[r["entry"]] = line
     emit({"phase": "kernels_full_width", "launches": launches,
           "matmul_launches_by_path": matmul_by_path,
+          "block_sparse_fc_launches_by_path": fc_by_path,
           "seconds_path": path_s, "all_agree": True})
 
     # dense_matmul is two kernels: the CUDA-core one (its f32 headline) and
-    # the wgmma one (bf16), each with its own launches
+    # the wgmma one (bf16); the block-sparse FC's main-path kernels are the
+    # tensor-core one in 3xTF32 (f32 headline) and in bf16; each with its
+    # own launches
     launches["dense_matmul"] = matmul_by_path["simt"]
     launches["dense_matmul_wgmma"] = matmul_by_path["wgmma"]
+    launches["block_sparse_fc"] = fc_by_path["tf32x3"]
+    launches["block_sparse_fc_wgmma"] = fc_by_path["wgmma"]
     out = []
     for name, _mod, _fn, replaces, replaces_fn in COMPUTE_KERNELS + (
-            ("dense_matmul_wgmma",) + COMPUTE_KERNELS[0][1:],):
+            ("dense_matmul_wgmma",) + COMPUTE_KERNELS[0][1:],
+            ("block_sparse_fc_wgmma",) + COMPUTE_KERNELS[1][1:]):
         e = entries[name]
         src = {"block_sparse_fc": "sparse_fc",
+               "block_sparse_fc_wgmma": "sparse_fc",
                "dense_matmul_wgmma": "dense_matmul"}.get(name, name)
         out.append({
             "name": name, "route": "cuda",
@@ -768,8 +955,10 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
             "library_ms": e["library_ms"], "shape": e["shape"],
+            "path": e["path"],
             **({"previous_ms": e["previous_ms"]} if "previous_ms" in e
-               else {})})
+               else {}),
+            **({"bounds_ms": e["bounds_ms"]} if "bounds_ms" in e else {})})
     return out
 
 
@@ -805,13 +994,13 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
         a = np.ascontiguousarray(a, np.float32)
         return torch.from_numpy(a).to(dtype).cuda()
 
-    def ssd_inputs(rng, bc, h, q, p, n, steep):
+    def ssd_inputs(rng, bc, h, q, p, n, steep, dtype=f32):
         step = rng.uniform(1.0, 4.0, (bc, h, q)) if steep else \
             rng.uniform(0.005, 1.0, (bc, h, q))
-        return (dev(rng.normal(size=(bc, h, q, p))),
-                dev(rng.normal(size=(bc, q, n))),
-                dev(rng.normal(size=(bc, q, n))),
-                dev(np.cumsum(-step, axis=-1)))
+        return (dev(rng.normal(size=(bc, h, q, p)), dtype),
+                dev(rng.normal(size=(bc, q, n)), dtype),
+                dev(rng.normal(size=(bc, q, n)), dtype),
+                dev(np.cumsum(-step, axis=-1), dtype))
 
     # ---- 8. both kernels against their plain versions, small shapes
     t0 = time.perf_counter()
@@ -847,10 +1036,15 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
     for shape in ((2, 3, 8, 4, 5, False), (1, 2, 4, 8, 3, False),
                   (1, 2, 64, 8, 6, True), (2, 4, SSD_Q, SSD_P, SSD_N, True),
                   (1, 2, 100, 70, 70, False)):
-        args = ssd_inputs(rng, *shape)
-        checks.append(("ssd_intra", f"(bc, h, q, p, n, steep)={shape}",
-                       list(ssd_intra(*args)), list(ref.ssd_intra_ref(*args)),
-                       "ssd", None))
+        for dtype in (f32, bf16):
+            args = ssd_inputs(rng, *shape, dtype=dtype)
+            got = list(ssd_intra(*args))
+            if any(g.dtype != f32 for g in got):
+                raise SystemExit(f"lm_vs_plain: ssd_intra on {dtype} "
+                                 f"inputs returns {[g.dtype for g in got]}")
+            checks.append(("ssd_intra", f"(bc, h, q, p, n, steep)={shape} "
+                           f"{str(dtype)[6:]}", got,
+                           list(ref.ssd_intra_ref(*args)), "ssd", None))
     torch.cuda.synchronize()
     small_err = {}
     for name, case, got, want, rule, path in checks:
@@ -1070,8 +1264,29 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
               f"{SSD_Q}, {SSD_N}) f32")
     ssd["bound_ms"], ssd["bound_by"] = bound(ssd_flops, ssd_bytes,
                                              PEAK_F32_OPS)
+    # the same cell on bf16 inputs (f32 outputs), timed beside it
+    args = [a.to(bf16) for a in args]
+    ssd16_diff = 0.0
+    for gt, wt in zip(ssd_intra(*args), ref.ssd_intra_ref(*args)):
+        ok, diff = agree(torch, gt, wt, "ssd")
+        ssd16_diff = max(ssd16_diff, diff)
+        if not ok or gt.dtype != f32:
+            raise SystemExit(f"lm_full_width: ssd_intra on bf16 inputs at "
+                             f"mamba2-370m's shape disagrees with the plain "
+                             f"version ({TOLERANCES['ssd']}; max abs diff "
+                             f"{diff}, {gt.dtype})")
+    ssd16_bytes = ssd_bytes - 2 * (cells * SSD_Q * SSD_P
+                                   + 2 * SSD_BC * SSD_Q * SSD_N + cells * SSD_Q)
+    ssd16 = dict(
+        ms=median_ms(torch, lambda: ssd_intra(*args), inner=INNER),
+        plain_ms=median_ms(torch, lambda: ref.ssd_intra_ref(*args), reps=3),
+        library_ms=None, max_abs_err=ssd16_diff, flops=ssd_flops,
+        bytes=ssd16_bytes, shape=ssd["shape"][:-3] + "bf16, outputs f32")
+    ssd16["bound_ms"], ssd16["bound_by"] = bound(ssd_flops, ssd16_bytes,
+                                                 PEAK_F32_OPS)
     del args
-    for name, r in (("flash_attention", flash), ("ssd_intra", ssd)):
+    for name, r in (("flash_attention", flash), ("ssd_intra", ssd),
+                    ("ssd_intra", ssd16)):
         emit({"phase": "lm_full_width", "kernel": name, **r,
               "of_bound": r["bound_ms"] / r["ms"]})
     emit({"phase": "lm_full_width", "launches": {
@@ -1166,6 +1381,9 @@ def main() -> int:
             if not (counts["HGMMA"] and counts["UTMALDG"]):
                 raise SystemExit(f"build: {mangled} has {counts} in its "
                                  f"SASS: no wgmma or no TMA load")
+        for mangled, r in regs.items():
+            if r.get("spill_stores", 0) or r.get("spill_loads", 0):
+                raise SystemExit(f"build: {mangled} spills registers: {r}")
         hopper[source] = {n: dict(regs[n], **sass.get(n, {})) for n in regs}
         emit({"phase": "build", "kernel": source, "hopper_kernels":
               hopper[source]})

@@ -95,7 +95,9 @@ _BSFC_FIELDS = _BSFC_ARRAYS + _BSFC_SIZES
 def block_sparse_fc_fields(fc) -> dict:
     """The numpy bundle and sizes of a ``BlockSparseFC`` (of either
     package): ``vals``, ``row_ptr``, ``col_idx``, ``m``, ``k``, ``bm``,
-    ``bk`` and ``bn``."""
+    ``bk`` and ``bn``.  ``vals`` keeps its dtype: a bf16 layer of the JAX
+    package gives its ``ml_dtypes`` bf16 array, which the port reads by
+    its 16-bit words."""
     out = {n: np.array(getattr(fc, n), copy=True) for n in _BSFC_ARRAYS}
     out.update({n: int(getattr(fc, n)) for n in _BSFC_SIZES})
     return out
@@ -104,7 +106,8 @@ def block_sparse_fc_fields(fc) -> dict:
 def block_sparse_fc_from_numpy(fields: dict,
                                device="cuda") -> BlockSparseFC:
     """Rebuild a port :class:`BlockSparseFC` on the bundle of
-    :func:`block_sparse_fc_fields`, placed on ``device``."""
+    :func:`block_sparse_fc_fields`, placed on ``device`` in the values'
+    own dtype (f32, or bf16 with the same 16-bit words)."""
     if set(fields) != set(_BSFC_FIELDS):
         raise ValueError(f"expected the fields {sorted(_BSFC_FIELDS)}, got "
                          f"{sorted(fields)}")

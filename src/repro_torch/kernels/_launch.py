@@ -23,8 +23,12 @@ def check_input(name: str, t, device: torch.device, dtypes, ndim: int):
 
 
 def stream(device: torch.device) -> int:
-    """The current CUDA stream of ``device`` as a pointer for ctypes."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as a pointer for ctypes.
+
+    Read through torch's raw accessor (the one its generated kernels
+    use): ``torch.cuda.current_stream`` builds a Stream object first,
+    several microseconds of host time a launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_status(err: int, kernel: str) -> None:

@@ -1,36 +1,50 @@
-// Hopper (sm_90a) machinery shared by the bf16 GEMM (dense_matmul.cu) and
-// the bf16 attention kernel (flash_attention.cu): TMA tensor maps on the
-// host; mbarrier rings, TMA loads, wgmma descriptors and products, and
-// setmaxnreg on the device.  Each device helper is one PTX instruction (or
-// a loop around one), named in the line above it.
+// Hopper (sm_90a) machinery shared by the bf16 GEMM (dense_matmul.cu), the
+// bf16 attention kernel (flash_attention.cu) and the block-sparse FC
+// (sparse_fc.cu, bf16 and 3xTF32 f32): TMA tensor maps on the host; mbarrier
+// rings, TMA loads, wgmma descriptors and products, named barriers and
+// setmaxnreg on the device.  Each device helper is one PTX instruction (or a
+// loop around one), named in the line above it.
 //
 // The layout rules that every tile in shared memory follows
 // ----------------------------------------------------------
 // A tile is loaded by TMA with the 128-byte swizzle: each row of the box is
-// 128 bytes (64 bf16), and the 16-byte chunk c of row r is stored at chunk
-// c ^ (r % 8).  TMA takes r from bits 7-9 of the shared-memory address, and
-// wgmma undoes the swizzle the same way, so:
+// 128 bytes (64 bf16, or 32 f32), and the 16-byte chunk c of row r is stored
+// at chunk c ^ (r % 8).  TMA takes r from bits 7-9 of the shared-memory
+// address, and wgmma undoes the swizzle the same way, so:
 //
 // * every tile starts on a 1024-byte boundary (8 rows of 128 bytes): the
 //   pattern then starts at row 0 and the descriptor's base offset (bits
 //   49-51) stays 0;
-// * an operand wider than 64 bf16 along its contiguous axis is stored as
-//   several 64-column chunks, one TMA box each, each a tile of its own.
+// * an operand wider than one 128-byte row along its contiguous axis is
+//   stored as several 128-byte-wide chunks, one TMA box each, each a tile
+//   of its own.
 //
 // The wgmma descriptor (desc_sw128) holds the start address, a leading
 // byte offset (LBO) and a stride byte offset (SBO), each in 16-byte units,
-// and the layout (1 = 128-byte swizzle).  For one k-step of 16 values:
+// and the layout (1 = 128-byte swizzle).  It says nothing of the element
+// type: one k-step is 32 bytes of K in both types (k16 for bf16, k8 for
+// tf32), so a K-major tile's rules are the same for 2- and 4-byte elements.
+// For one k-step:
 //
-// * K-major operand (rows along M or N, the 64 values of a row along K):
+// * K-major operand (rows along M or N, the 128 bytes of a row along K):
 //   SBO = 1024, the step from one group of 8 rows to the next; LBO is not
-//   used with this swizzle (16).  k-step i of a 64-column chunk starts at
-//   the chunk + 32 i bytes (16 bf16), i < 4: bits 7-9 stay 0, so the base
-//   offset stays 0 too.
+//   used with this swizzle (16).  k-step i of a 128-byte chunk starts at
+//   the chunk + 32 i bytes, i < 4 (16 bf16 or 8 f32 a step): bits 7-9 stay
+//   0, so the base offset stays 0 too.
 // * MN-major operand (rows along K, the 64 values of a row along M or N;
-//   the transpose bit set, which 16-bit types allow): SBO = 1024, the step
-//   from 8 K-rows to the next 8; LBO = the byte distance from one
+//   the transpose bit set, which only 16-bit types allow): SBO = 1024, the
+//   step from 8 K-rows to the next 8; LBO = the byte distance from one
 //   64-column chunk of M or N to the next.  k-step i starts at the tile +
 //   16 x 128 i = 2048 i bytes.
+//
+// tf32 (wgmma .tf32): both operands K-major from shared memory, each
+// element an f32 word of which the product takes the sign, the exponent and
+// the upper 10 mantissa bits.  What becomes of the lower 13 (dropped or
+// rounded) is not relied on here: the 3xTF32 kernel hands wgmma only words
+// whose lower 13 bits are 0, or whose loss it can afford (sparse_fc.cu).  A
+// row of 128 bytes is 32 f32, four k-steps of 8.  There is no transpose
+// bit, so an operand stored MN-major cannot be read; x (N, K) and a weight
+// block (bm, bk), both row-major, are K-major as stored.
 //
 // A tensor map is built on the host for each launch and passed by value as
 // a `const __grid_constant__ CUtensorMap` kernel parameter.
@@ -74,28 +88,31 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of a contiguous, row-major bf16 array of `rank` (2 or 3)
-// dimensions, dims[0] the contiguous one (so dims are innermost first), read
-// in boxes of box[0] x box[1] (x 1) elements with the 128-byte swizzle;
-// box[0] is 64 (one swizzle row).  Elements of a box outside the array are
-// filled with zeros.  The base must be 16-byte aligned and dims[0] a
-// multiple of 8 (16-byte row strides).  Returns 0, or a cudaError_t.
+// A tensor map of a contiguous, row-major bf16 (or, with `type`, f32) array
+// of `rank` (2 or 3) dimensions, dims[0] the contiguous one (so dims are
+// innermost first), read in boxes of box[0] x box[1] (x box[2]) elements
+// with the 128-byte swizzle; box[0] x the element size is 128 bytes (one
+// swizzle row).  Elements of a box outside the array are filled with zeros.
+// The base must be 16-byte aligned and dims[0] x the element size a
+// multiple of 16 (16-byte row strides).  Returns 0, or a cudaError_t.
 static int make_tensor_map(CUtensorMap* map, const void* base, int rank,
-                           const uint64_t* dims, const uint32_t* box) {
+                           const uint64_t* dims, const uint32_t* box,
+                           CUtensorMapDataType type =
+                               CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t gdim[3], gstride[2];
   cuuint32_t gbox[3], estride[3] = {1, 1, 1};
-  uint64_t bytes = 2;
+  uint64_t bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     gbox[i] = box[i];
     if (i > 0) gstride[i - 1] = bytes;
     bytes *= dims[i];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                  const_cast<void*>(base), gdim, gstride, gbox, estride,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), gdim,
+                  gstride, gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -155,6 +172,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// bar.sync id, count: the `count` threads (a multiple of 32) that name
+// barrier `id` (1-15; 0 is __syncthreads) wait for each other
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // device: TMA loads and the async-proxy fence
 // ---------------------------------------------------------------------------
@@ -185,8 +208,9 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 }
 
 // fence.proxy.async.shared::cta: order this thread's ordinary writes to
-// shared memory before later TMA or wgmma accesses of it (the kernels here
-// write their tiles only through TMA, which needs no such fence)
+// shared memory before later TMA or wgmma accesses of it (a tile written
+// only by TMA needs no such fence; the 3xTF32 block-sparse FC writes its
+// split operands back and fences them)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -328,6 +352,35 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
         "n"(TRANS_B));
+}
+
+// wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32, A and B from shared
+// memory, both K-major (tf32 has no transpose bit): d (64 x 128, f32) =
+// A (64 x 8) B (8 x 128) + (scale_d ? d : 0), each f32 element of A and B
+// read as tf32 (the rules at the top of this file).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace hopper

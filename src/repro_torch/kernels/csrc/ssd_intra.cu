@@ -25,7 +25,13 @@
 // Arithmetic: f32 throughout, on the CUDA cores, with FMAs; sums run in
 // another order than the plain version's.  The elementwise products
 // g * exp(.) and exp(.) * x dt are rounded once each, as in the Pallas
-// kernel.  Ragged Q, N and P are masked here.
+// kernel.  Ragged Q, N and P are masked here.  Each input may be f32 or
+// bf16 (one instantiation for each of the 16 mixes, so no load tests a
+// dtype at run time): bf16 is widened to f32 as it is read, and every
+// bf16 product is exact in f32.  With a bf16 cs the kernel rounds to bf16
+// where the JAX package's arithmetic does, whose differences of a bf16 cs
+// are bf16: cs_i - cs_j before its exponential, and cs_{Q-1} - cs_j and
+// the end-of-chunk decay exp(.) itself.  y and S are f32 either way.
 //
 // Layout of a block: 256 threads as 16 x 16; thread (ty, tx) owns rows
 // ty + 16 a and columns tx + 16 b (a, b < 4) of every 64 x 64 tile it
@@ -39,6 +45,7 @@
 // take far less).  The design stages through shared memory with one stage
 // and no copy / compute overlap.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define TILE 64          // rows and columns of a block's tiles
@@ -53,9 +60,33 @@
 
 static_assert(TILE * TILE <= UNION_FLOATS, "the S blocks' B tile fits");
 
+// An input array of f32, or of bf16 (BF16); an element is read as f32
+template <bool BF16>
+struct In {
+  static constexpr bool bf16 = BF16;
+  const unsigned char* base;
+  __device__ __forceinline__ float operator[](long long i) const {
+    if constexpr (BF16)
+      return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(base)[i]);
+    else
+      return reinterpret_cast<const float*>(base)[i];
+  }
+  __device__ __forceinline__ In operator+(long long i) const {
+    return In{base + (BF16 ? 2 : 4) * i};
+  }
+};
+
+// v rounded to bf16 (round to nearest even) if `round`, else v
+__device__ __forceinline__ float as_cs(float v, bool round) {
+  return round ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// MASK: bit 0 xdt, 1 bb, 2 cc, 3 cs bf16 (one instantiation each, so no
+// load tests a dtype at run time)
+template <int MASK>
 __global__ void __launch_bounds__(THREADS)
-    ssd_kernel(const float* __restrict__ xdt, const float* __restrict__ bb,
-               const float* __restrict__ cc, const float* __restrict__ cs,
+    ssd_kernel(const In<MASK & 1> xdt, const In<(MASK >> 1) & 1> bb,
+               const In<(MASK >> 2) & 1> cc, const In<(MASK >> 3) & 1> cs,
                float* __restrict__ y, float* __restrict__ s_out, int h, int q,
                int n, int p, int y_tiles) {
   __shared__ __align__(16) float u[UNION_FLOATS];
@@ -66,10 +97,10 @@ __global__ void __launch_bounds__(THREADS)
   const long long cell = blockIdx.x;                 // bc * h + head
   const long long bc = cell / h;
   const int p0 = blockIdx.z * TILE;
-  const float* xc = xdt + cell * q * p;              // (Q, P)
-  const float* bcell = bb + bc * q * n;              // (Q, N)
-  const float* ccell = cc + bc * q * n;              // (Q, N)
-  const float* csc = cs + cell * q;                  // (Q,)
+  const auto xc = xdt + cell * q * p;                // (Q, P)
+  const auto bcell = bb + bc * q * n;                // (Q, N)
+  const auto ccell = cc + bc * q * n;                // (Q, N)
+  const auto csc = cs + cell * q;                    // (Q,)
 
   float acc[4][4];
 #pragma unroll
@@ -130,7 +161,8 @@ __global__ void __launch_bounds__(THREADS)
           // the decay only where j <= i: above the diagonal it overflows
           ms[(ty + 16 * a) * LDM + tx + 16 * b] =
               (j <= i && i < q)
-                  ? g[a][b] * expf(cs_i[ty + 16 * a] - cs_j[tx + 16 * b])
+                  ? g[a][b] * expf(as_cs(cs_i[ty + 16 * a] -
+                                             cs_j[tx + 16 * b], cs.bf16))
                   : 0.0f;
         }
       }
@@ -173,7 +205,8 @@ __global__ void __launch_bounds__(THREADS)
       bs[e] = (row_ok && n0 + c < n)
                   ? bcell[(long long)(j0 + r) * n + n0 + c] : 0.0f;
       xs[e] = (row_ok && p0 + c < p)
-                  ? expf(cs_last - csc[j0 + r]) *
+                  ? as_cs(expf(as_cs(cs_last - csc[j0 + r], cs.bf16)),
+                          cs.bf16) *
                         xc[(long long)(j0 + r) * p + p0 + c]
                   : 0.0f;
     }
@@ -203,27 +236,46 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <int MASK>
+static int launch(const void* xdt, const void* bb, const void* cc,
+                  const void* cs, void* y, void* s, dim3 grid, int h, int q,
+                  int n, int p, int y_tiles, cudaStream_t stream) {
+  auto in = [](const void* a) {
+    return static_cast<const unsigned char*>(a);
+  };
+  ssd_kernel<MASK><<<grid, THREADS, 0, stream>>>(
+      {in(xdt)}, {in(bb)}, {in(cc)}, {in(cs)}, static_cast<float*>(y),
+      static_cast<float*>(s), h, q, n, p, y_tiles);
+  return (int)cudaGetLastError();
+}
+
+typedef int (*Launch)(const void*, const void*, const void*, const void*,
+                      void*, void*, dim3, int, int, int, int, int,
+                      cudaStream_t);
+static const Launch kLaunch[16] = {
+    launch<0>, launch<1>, launch<2>,  launch<3>,  launch<4>,  launch<5>,
+    launch<6>, launch<7>, launch<8>,  launch<9>,  launch<10>, launch<11>,
+    launch<12>, launch<13>, launch<14>, launch<15>};
+
 extern "C" {
 
 // The tile edge; the wrapper checks it.
 int ssd_intra_tile() { return TILE; }
 
-// y (bc * h, q, p) and s (bc * h, n, p) from xdt (bc * h, q, p), bb and cc
-// (bc, q, n) and cs (bc * h, q), all f32, row-major and contiguous.
+// y (bc * h, q, p) and s (bc * h, n, p), f32, from xdt (bc * h, q, p), bb
+// and cc (bc, q, n) and cs (bc * h, q), row-major and contiguous, each f32
+// or bf16 as bit 0 (xdt), 1 (bb), 2 (cc) and 3 (cs) of bf16_mask say.
 // q, n, p >= 1; the grid (bc * h, ceil(q / 64) + ceil(n / 64), ceil(p / 64))
 // must fit (y <= 65535, z <= 65535); the wrapper checks them.  Returns
 // cudaGetLastError() after the launch (0 on success).
 int ssd_intra_launch(const void* xdt, const void* bb, const void* cc,
                      const void* cs, void* y, void* s, long long bc, int h,
-                     int q, int n, int p, void* stream) {
+                     int q, int n, int p, int bf16_mask, void* stream) {
   const int y_tiles = (q + TILE - 1) / TILE;
   const dim3 grid((unsigned)(bc * h), y_tiles + (n + TILE - 1) / TILE,
                   (p + TILE - 1) / TILE);
-  ssd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(xdt), static_cast<const float*>(bb),
-      static_cast<const float*>(cc), static_cast<const float*>(cs),
-      static_cast<float*>(y), static_cast<float*>(s), h, q, n, p, y_tiles);
-  return (int)cudaGetLastError();
+  return kLaunch[bf16_mask & 15](xdt, bb, cc, cs, y, s, grid, h, q, n, p,
+                                 y_tiles, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,10 @@ Two kernels, chosen from the operands before the launch by
 :func:`matmul_path`: ``"wgmma"``, bf16 on the tensor cores with its own
 128 x 128 tiles fed by a TMA ring, for operands TMA can read; ``"simt"``,
 the CUDA-core kernel at the caller's tiles, for everything else (f32, or
-bf16 that is misaligned or has K or N off a multiple of 8).
+bf16 that is misaligned or has K or N off a multiple of 8).  A pair of
+one f32 and one bf16 operand is computed as the JAX package computes it,
+in f32: the bf16 operand is widened, the f32 kernel runs, and the output
+is returned in x's dtype.
 """
 
 from __future__ import annotations
@@ -95,7 +98,7 @@ def _check_operands(x, w, bm: int, bk: int, bn: int) -> None:
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"cannot multiply {tuple(x.shape)} by "
                          f"{tuple(w.shape)}")
-    check_tiles(bm, bk, bn, x.element_size())
+    check_tiles(bm, bk, bn, max(x.element_size(), w.element_size()))
     if w.device != x.device:
         raise ValueError(f"x is on {x.device} but w on {w.device}")
 
@@ -107,13 +110,19 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int, bk: int,
     CPU tensors take the plain version (:func:`~.ref.matmul_ref`, which
     has no tiles); CUDA tensors, f32 or bf16, launch the kernel that
     :func:`matmul_path` names on the current stream: the wgmma kernel with
-    its own tiles, or the CUDA-core kernel with (bm, bk, bn).  Launches
-    are counted in ``matmul.launches`` and, by kernel, in
-    ``matmul.launches_by_path``.  Tiles the CUDA-core kernel cannot take
+    its own tiles, or the CUDA-core kernel with (bm, bk, bn).  A pair of
+    one f32 and one bf16 operand runs the f32 kernel on the bf16 one
+    widened, its output rounded once to x's dtype.  Launches are counted
+    in ``matmul.launches`` and, by kernel, in ``matmul.launches_by_path``.
+    Tiles the CUDA-core kernel cannot take (at the wider operand's size)
     raise ``ValueError`` on either device and on either path."""
     _check_operands(x, w, bm, bk, bn)
     if x.device.type == "cpu":
         return matmul_ref(x, w)
+    if x.dtype != w.dtype and {x.dtype, w.dtype} <= set(DTYPES):
+        x32, w32 = x.float(), w.float()
+        return launch(x32, w32, matmul_path(x32, w32), bm=bm, bk=bk,
+                      bn=bn).to(x.dtype)
     return launch(x, w, matmul_path(x, w), bm=bm, bk=bk, bn=bn)
 
 

@@ -9,7 +9,9 @@ a block of channels x output positions, so rows are tiled too
 (:func:`~.calibrate.fir_tiles` and :func:`~.calibrate.fir_width`).  The
 taps are summed in order t = 0 .. K-1 with one rounding per multiply and
 per add, so the kernel is bitwise equal to its plain version,
-:func:`~.ref.fir_conv1d_ref`.
+:func:`~.ref.fir_conv1d_ref`.  As in the JAX package, x and the taps may be
+f32 or bf16: the kernel widens bf16 as it reads it and rounds a bf16
+output once.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from . import _launch
 from .calibrate import FIR_TAP_SLICE, FIR_THREADS, fir_width
 from .ref import fir_conv1d_ref
 
-F32 = torch.float32
+F32, BF16 = torch.float32, torch.bfloat16
+DTYPES = (F32, BF16)
 _INT_MAX = 2**31 - 1
 _GRID_Y_MAX = 65535
 
@@ -41,8 +44,8 @@ def _library():
                            "slice than calibrate.py's")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fir_conv1d_launch.restype = i
-    lib.fir_conv1d_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i, i,
-                                      i, p]
+    lib.fir_conv1d_launch.argtypes = [p, p, p, ctypes.c_longlong] + \
+        [i] * 6 + [p]
     lib._bound = True
     return lib
 
@@ -52,10 +55,10 @@ def fir_conv1d(x: torch.Tensor, taps: torch.Tensor, *,
     """Depthwise 'valid' FIR: x (C, L), taps (C, K) -> (C, L-K+1), in x's
     dtype.
 
-    CPU tensors take the plain version; CUDA tensors (f32) launch the
-    kernel on the current stream with blocks of ``cb`` channels x
-    :func:`~.calibrate.fir_width` positions, and count the launch in
-    ``fir_conv1d.launches``."""
+    CPU tensors take the plain version; CUDA tensors (f32 or bf16, each
+    of x and the taps) launch the kernel on the current stream with blocks
+    of ``cb`` channels x :func:`~.calibrate.fir_width` positions, and count
+    the launch in ``fir_conv1d.launches``."""
     if x.dim() != 2 or taps.dim() != 2 or x.shape[0] != taps.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} and taps {tuple(taps.shape)} "
                          f"must be (C, L) and (C, K)")
@@ -75,19 +78,21 @@ def fir_conv1d(x: torch.Tensor, taps: torch.Tensor, *,
     if device.type != "cuda":
         raise ValueError(f"fir_conv1d runs on CUDA or CPU tensors, got "
                          f"{device}")
-    _launch.check_input("x", x, device, (F32,), 2)
-    _launch.check_input("taps", taps, device, (F32,), 2)
+    _launch.check_input("x", x, device, DTYPES, 2)
+    _launch.check_input("taps", taps, device, DTYPES, 2)
     out_len = length - k + 1
     if length > _INT_MAX or -(-out_len // tw) > _GRID_Y_MAX \
             or -(-c // cb) > _INT_MAX:
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's grid")
-    out = torch.empty((c, out_len), dtype=F32, device=device)
+    out = torch.empty((c, out_len), dtype=x.dtype, device=device)
     if out.numel() == 0:
         return out
     lib = _library()
     with torch.cuda.device(device):
         err = lib.fir_conv1d_launch(x.data_ptr(), taps.data_ptr(),
                                     out.data_ptr(), c, length, k, cb, tw,
+                                    int(x.dtype == BF16),
+                                    int(taps.dtype == BF16),
                                     _launch.stream(device))
     _launch.check_status(err, "fir_conv1d")
     _wrapper.launches += 1

@@ -32,20 +32,43 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor,
     ``ValueError`` if it cannot launch with them.  bf16 operands that the
     wgmma kernel takes (``dense_matmul.matmul_path``) run on it with its
     own 128 x 128 tiles and 64-wide K slices; the given tiles are still
-    checked."""
+    checked.  A pair of one f32 and one bf16 operand is computed in f32,
+    as the JAX package promotes it, and returned in x's dtype."""
     m, k = x.shape
     n = w.shape[-1]
-    t = tiles or matmul_tiles(m, k, n, x.element_size())
+    t = tiles or matmul_tiles(m, k, n, max(x.element_size(),
+                                           w.element_size()))
     return _matmul(x, w, bm=t.bm, bk=t.bk, bn=t.bn)
+
+
+def _values(vals) -> torch.Tensor:
+    """A bundle's values as a CPU tensor in their own dtype, f32 or bf16.
+
+    numpy has no bf16 of its own: the JAX package's is ``ml_dtypes``'s,
+    which the port does not import, so such an array is recognised by its
+    dtype's name and read bit for bit through its 16-bit words.  A torch
+    tensor is taken as it is; any other float array becomes f32."""
+    if torch.is_tensor(vals):
+        if vals.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"block values must be f32 or bf16, got "
+                            f"{vals.dtype}")
+        return vals
+    vals = np.ascontiguousarray(vals)
+    if vals.dtype.name == "bfloat16":
+        bits = torch.from_numpy(vals.view(np.uint16).copy())
+        return bits.view(torch.bfloat16)
+    return torch.as_tensor(vals, dtype=torch.float32)
 
 
 class BlockSparseFC:
     """Pruned FC layer compiled to the block-CSR kernel.
 
     Build once from the dense-with-zeros master weight (M, K); call on
-    activations (N, K) -> (N, M).  ``vals``, ``row_ptr`` and ``col_idx``
-    are the numpy bundle (the JAX package's, bit for bit); the layer keeps
-    a copy of it on ``device`` (default the card) and takes inputs there.
+    activations (N, K) -> (N, M), in the activations' dtype.  ``vals``,
+    ``row_ptr`` and ``col_idx`` are the numpy bundle (the JAX package's,
+    bit for bit); the layer keeps a copy of it on ``device`` (default the
+    card) in the weight's own dtype, f32 or bf16 (any other float becomes
+    f32), and takes inputs there.
     """
 
     def __init__(self, w_dense, bm: int = 128, bk: int = 128, bn: int = 8,
@@ -62,9 +85,12 @@ class BlockSparseFC:
                        bm: int, bk: int, bn: int = 8,
                        device="cuda") -> "BlockSparseFC":
         """A layer from a bundle already made (for example the JAX
-        package's, carried across as numpy by ``repro_torch.convert``)."""
+        package's, carried across as numpy by ``repro_torch.convert``);
+        ``vals`` may also be a torch tensor, f32 or bf16, kept as it is."""
         fc = cls.__new__(cls)
-        fc._set(np.array(vals, copy=True), np.array(row_ptr, np.int32),
+        vals = vals.detach().clone() if torch.is_tensor(vals) \
+            else np.array(vals, copy=True)
+        fc._set(vals, np.array(row_ptr, np.int32),
                 np.array(col_idx, np.int32), m, k, bm, bk, bn, device)
         return fc
 
@@ -72,7 +98,8 @@ class BlockSparseFC:
         check_tiles(bm, bk, bn)
         nbr = -(-m // bm)
         nnzb = vals.shape[0]
-        if vals.shape[1:] != (bm, bk) or row_ptr.shape != (nbr + 1,) \
+        if tuple(vals.shape[1:]) != (bm, bk) \
+                or row_ptr.shape != (nbr + 1,) \
                 or col_idx.shape != (nnzb,) or row_ptr[0] != 0 \
                 or row_ptr[-1] != nnzb or np.any(np.diff(row_ptr) < 0) \
                 or np.any(col_idx < 0) \
@@ -85,7 +112,7 @@ class BlockSparseFC:
         self.vals, self.row_ptr, self.col_idx = vals, row_ptr, col_idx
         dev = resolve_device(device)
         self._bundle = (
-            torch.as_tensor(vals, dtype=torch.float32, device=dev),
+            _values(vals).to(dev),
             torch.as_tensor(row_ptr, device=dev),
             torch.as_tensor(col_idx, device=dev))
         self.device = self._bundle[0].device      # with its index

@@ -72,15 +72,29 @@ def ssd_intra_ref(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
     s (BC, H, N, P): ``G = C B^T``, ``M = G * exp(cs_i - cs_j)`` for
     j <= i (else 0), ``y = M xdt``, ``s = B^T (exp(cs_Q - cs) * xdt)``.
     The exponential of a masked pair may overflow; ``torch.where`` drops
-    it without touching the kept entries, as ``jnp.where`` does."""
+    it without touching the kept entries, as ``jnp.where`` does.
+
+    bf16 inputs are widened (every bf16 product is exact in f32).  A bf16
+    cs is rounded to bf16 where the JAX kernel's arithmetic rounds it: its
+    differences of a bf16 cs are bf16 arrays, so ``cs_i - cs_j`` and
+    ``cs_Q - cs`` are rounded before their exponentials, and the
+    end-of-chunk decay ``exp(cs_Q - cs)`` after its own (the decay of G
+    feeds an f32 product at once and stays f32 there; measured against
+    the Pallas kernel in interpret mode)."""
+    if cs.dtype == torch.bfloat16:
+        def in_cs(t):
+            return t.to(torch.bfloat16).to(F32)
+    else:
+        def in_cs(t):
+            return t
     xdt, bb, cc, cs = xdt.to(F32), bb.to(F32), cc.to(F32), cs.to(F32)
     q = xdt.shape[2]
     g = torch.matmul(cc, bb.transpose(-1, -2))[:, None]       # (BC,1,Q,Q)
-    l_log = cs[..., :, None] - cs[..., None, :]                # (BC,H,Q,Q)
+    l_log = in_cs(cs[..., :, None] - cs[..., None, :])         # (BC,H,Q,Q)
     causal = torch.ones((q, q), dtype=torch.bool, device=xdt.device).tril()
     m = torch.where(causal, g * torch.exp(l_log), 0.0)
     y = torch.matmul(m, xdt)
-    decay_end = torch.exp(cs[..., -1:] - cs)                   # (BC,H,Q)
+    decay_end = in_cs(torch.exp(in_cs(cs[..., -1:] - cs)))     # (BC,H,Q)
     s = torch.matmul(bb.transpose(-1, -2)[:, None],
                      decay_end[..., None] * xdt)
     return y, s

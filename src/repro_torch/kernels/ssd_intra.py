@@ -8,7 +8,8 @@ The counterpart of the JAX package's Pallas kernel
 with the (Q, Q) decay matrix kept out of HBM.  On the card a cell is cut
 into 64-row tiles of y and of S, one thread block each (see the source),
 and the exponential of a masked pair, which overflows at realistic chunk
-lengths, is never evaluated.  No model of either package calls it: it is
+lengths, is never evaluated.  Each input may be f32 or bf16, as in the
+JAX package; y and S are f32.  No model of either package calls it: it is
 reached through the ``kernels`` entry point.
 """
 
@@ -21,7 +22,8 @@ import torch
 from . import _launch
 from .ref import ssd_intra_ref
 
-F32 = torch.float32
+F32, BF16 = torch.float32, torch.bfloat16
+DTYPES = (F32, BF16)
 #: The kernel's tile edge (rows of y and S a block owns, columns of P).
 TILE = 64
 _INT_MAX = 2**31 - 1
@@ -42,15 +44,16 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ssd_intra_launch.restype = i
     lib.ssd_intra_launch.argtypes = [p] * 6 + [ctypes.c_longlong] + \
-        [i] * 4 + [p]
+        [i] * 5 + [p]
     lib._bound = True
     return lib
 
 
 def ssd_intra(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
               cs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """xdt (BC, H, Q, P), bb/cc (BC, Q, N), cs (BC, H, Q), all f32 ->
-    (y (BC, H, Q, P), s (BC, H, N, P)) in f32.
+    """xdt (BC, H, Q, P), bb/cc (BC, Q, N), cs (BC, H, Q), each f32 or
+    bf16 -> (y (BC, H, Q, P), s (BC, H, N, P)) in f32, rounded as
+    :func:`~.ref.ssd_intra_ref` says for a bf16 cs.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream and count the launch in ``ssd_intra.launches``.
@@ -76,10 +79,10 @@ def ssd_intra(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
     if device.type != "cuda":
         raise ValueError(f"ssd_intra runs on CUDA or CPU tensors, got "
                          f"{device}")
-    _launch.check_input("xdt", xdt, device, (F32,), 4)
-    _launch.check_input("bb", bb, device, (F32,), 3)
-    _launch.check_input("cc", cc, device, (F32,), 3)
-    _launch.check_input("cs", cs, device, (F32,), 3)
+    _launch.check_input("xdt", xdt, device, DTYPES, 4)
+    _launch.check_input("bb", bb, device, DTYPES, 3)
+    _launch.check_input("cc", cc, device, DTYPES, 3)
+    _launch.check_input("cs", cs, device, DTYPES, 3)
     if bc * h > _INT_MAX or max(q * p, q * n, n * p) > _INT_MAX \
             or -(-q // TILE) + -(-n // TILE) > _GRID_YZ_MAX \
             or -(-p // TILE) > _GRID_YZ_MAX:
@@ -94,6 +97,8 @@ def ssd_intra(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
         err = lib.ssd_intra_launch(xdt.data_ptr(), bb.data_ptr(),
                                    cc.data_ptr(), cs.data_ptr(), y.data_ptr(),
                                    s.data_ptr(), bc, h, q, n, p,
+                                   sum(int(t.dtype == BF16) << i for i, t in
+                                       enumerate((xdt, bb, cc, cs))),
                                    _launch.stream(device))
     _launch.check_status(err, "ssd_intra")
     _wrapper.launches += 1

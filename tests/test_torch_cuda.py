@@ -7,8 +7,11 @@ under ``chip_smoke.py``'s per-element rule -- count only their own
 launches, and send CPU tensors to the plain versions; so must the
 attention and SSD kernels, and the LM forward with the attention kernel
 must launch it once a layer and agree with the blockwise path.  The bf16
-matmul and attention have two kernels each: each case checks which one
-its operands take and counts that one's launch.  Every test skips, from
+matmul and attention have two kernels each, the block-sparse FC three
+(bf16 and 3xTF32 on the tensor cores, f32 on the CUDA cores): each case
+checks which one its operands take and counts that one's launch.  The
+3xTF32 outputs are also held to ``chip_smoke.py``'s ``tf32x3`` rule
+against the f64 product.  Every test skips, from
 inside the test, where no card is visible; run them on the card with
 ``python -m pytest -m gpu``."""
 
@@ -172,6 +175,17 @@ def _bf16_matmul_holds(got, want):
     return bool(((got.float() - w).abs() <= limit).all())
 
 
+def _tf32x3_holds(got, plain, exact):
+    """chip_smoke.py's tf32x3 rule: max |got - f64| <= 4 max |plain - f64|
+    + 2^-24 max |f64|."""
+    limit = 4 * float((plain.double() - exact).abs().max()) \
+        + 2.0 ** -24 * float(exact.abs().max())
+    return float((got.double() - exact).abs().max()) <= limit
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
 @pytest.mark.parametrize("shape,dtype,tiles", [
     ((13, 57, 31), torch.float32, None), ((1, 1, 1), torch.float32, None),
     ((64, 512, 384), torch.float32, (8, 128, 128)),
@@ -182,19 +196,23 @@ def _bf16_matmul_holds(got, want):
     ((128, 256, 192), torch.bfloat16, None),
     ((200, 296, 104), torch.bfloat16, (16, 256, 128)),
     ((64, 520, 136), torch.bfloat16, None),
-    ((1000, 1024, 512), torch.bfloat16, None)])
+    ((1000, 1024, 512), torch.bfloat16, None),
+    # a mixed pair: the f32 kernel on the bf16 operand widened
+    ((200, 296, 104), (torch.float32, torch.bfloat16), None),
+    ((13, 57, 31), (torch.bfloat16, torch.float32), None)])
 def test_dense_matmul_kernel_equals_plain(shape, dtype, tiles):
     _need_card()
     from repro_torch.kernels import MatmulTiles, dense_matmul, ref
     torch.backends.cuda.matmul.allow_tf32 = False
     m, k, n = shape
     rng = np.random.default_rng(m + k + n)
-    x = _cuda(rng.normal(size=(m, k)), dtype)
-    w = _cuda(rng.normal(size=(k, n)), dtype)
+    x_dtype, w_dtype = dtype if isinstance(dtype, tuple) else (dtype, dtype)
+    x = _cuda(rng.normal(size=(m, k)), x_dtype)
+    w = _cuda(rng.normal(size=(k, n)), w_dtype)
     mod = _kmod("dense_matmul")
     path = mod.matmul_path(x, w)
-    assert path == ("wgmma" if dtype == torch.bfloat16 and k % 8 == 0
-                    and n % 8 == 0 else "simt")
+    assert path == ("wgmma" if x_dtype == w_dtype == torch.bfloat16
+                    and k % 8 == 0 and n % 8 == 0 else "simt")
     before = mod.matmul.launches
     on_path = mod.matmul.launches_by_path[path]
     got = dense_matmul(x, w, tiles=tiles and MatmulTiles(*tiles))
@@ -202,8 +220,8 @@ def test_dense_matmul_kernel_equals_plain(shape, dtype, tiles):
     assert mod.matmul.launches == before + 1
     assert mod.matmul.launches_by_path[path] == on_path + 1
     want = ref.matmul_ref(x, w)
-    assert got.dtype == dtype and got.device == x.device
-    if dtype == torch.float32:      # tests/test_kernels.py's tolerance
+    assert got.dtype == x_dtype and got.device == x.device
+    if x_dtype == torch.float32:    # tests/test_kernels.py's tolerance
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     else:                           # one bf16 rounding of the output
         assert _bf16_matmul_holds(got, want)
@@ -233,41 +251,119 @@ def test_dense_matmul_kernels_side_by_side():
         mod.launch(x.float(), w.float(), "wgmma")
 
 
-@pytest.mark.parametrize("batch,bn", [(1, 8), (7, 8), (17, 8), (33, 32),
-                                      (5, 1)])
-def test_block_sparse_kernel_equals_plain(batch, bn):
+def _fc_exact(fc, x):
+    """x @ W^T in f64 from the layer's own bundle."""
+    vals, row_ptr, col_idx = fc._bundle
+    nbr = row_ptr.numel() - 1
+    nbc = fc.padded_k // fc.bk
+    rows = torch.repeat_interleave(torch.arange(nbr, device=x.device),
+                                   torch.diff(row_ptr.long()))
+    w = torch.zeros((nbr, nbc, fc.bm, fc.bk), dtype=torch.float64,
+                    device=x.device)
+    w.index_put_((rows, col_idx.long()), vals.double(), accumulate=True)
+    w = w.permute(0, 2, 1, 3).reshape(nbr * fc.bm, nbc * fc.bk)
+    return x.double() @ w[:fc.m, :fc.k].T
+
+
+@pytest.mark.parametrize("batch,bn,blocks,x_dtype,w_dtype,path", [
+    (1, 8, (128, 128), F32, F32, "tf32x3"),
+    (7, 8, (128, 128), F32, F32, "tf32x3"),
+    (17, 8, (128, 128), F32, F32, "tf32x3"),
+    (33, 32, (128, 128), F32, F32, "tf32x3"),
+    (5, 1, (128, 128), F32, F32, "tf32x3"),
+    (129, 8, (128, 128), F32, F32, "tf32x3"),
+    (200, 8, (128, 64), F32, F32, "tf32x3"),
+    (1, 8, (128, 128), BF16, BF16, "wgmma"),
+    (17, 8, (128, 128), BF16, BF16, "wgmma"),
+    (129, 8, (128, 128), BF16, BF16, "wgmma"),
+    (200, 8, (128, 64), BF16, BF16, "wgmma"),
+    (9, 4, (64, 48), F32, F32, "simt"),
+    (9, 4, (64, 48), BF16, BF16, "simt"),
+    (17, 8, (128, 128), BF16, F32, "tf32x3"),
+    (17, 8, (128, 128), F32, BF16, "tf32x3")])
+def test_block_sparse_kernel_equals_plain(batch, bn, blocks, x_dtype, w_dtype,
+                                          path):
+    """Each kernel on the ragged weight with an empty row-block: f32
+    outputs within tests/test_kernels.py's tolerance (and, from 3xTF32,
+    the tf32x3 rule), bf16 ones within chip_smoke.py's bf16 rule."""
     _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import BlockSparseFC
     rng = np.random.default_rng(batch)
     w = rng.normal(size=(300, 200)).astype(np.float32)
     w[128:256] = 0                                  # an empty row-block
     w[:, 60:] *= rng.random((300, 140)) < 0.05
-    fc = BlockSparseFC(w, bn=bn)
-    x = _cuda(rng.normal(size=(batch, 200)))
+    bm, bk = blocks
+    fc = BlockSparseFC(w, bm=bm, bk=bk, bn=bn)
+    if w_dtype == BF16:
+        fc = BlockSparseFC.from_block_csr(
+            torch.from_numpy(fc.vals).to(BF16), fc.row_ptr, fc.col_idx,
+            300, 200, bm, bk, bn)
+    x = _cuda(rng.normal(size=(batch, 200)), x_dtype)
     mod = _kmod("sparse_fc")
+    assert mod.fc_path(x, fc._bundle[0], bm, bk) == path
     before = mod.block_sparse_matvec.launches
+    on_path = mod.block_sparse_matvec.launches_by_path[path]
     got = fc(x)
     torch.cuda.synchronize()
     assert mod.block_sparse_matvec.launches == before + 1
+    assert mod.block_sparse_matvec.launches_by_path[path] == on_path + 1
     want = mod.block_sparse_matvec_plain(x, *fc._bundle, fc.m, bm=fc.bm,
                                          bk=fc.bk)
-    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert got.dtype == x_dtype
+    if x_dtype == F32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        if path == "tf32x3":
+            assert _tf32x3_holds(got, want, _fc_exact(fc, x))
+    else:
+        assert _bf16_matmul_holds(got, want)
 
 
+def test_block_sparse_kernels_side_by_side():
+    """The tensor-core and CUDA-core kernels on the same f32 operands each
+    agree with the plain version; the tensor-core kernels refuse what TMA
+    or their tiles cannot take, and nothing falls back."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import BlockSparseFC
+    mod = _kmod("sparse_fc")
+    rng = np.random.default_rng(11)
+    w = rng.normal(size=(512, 512)).astype(np.float32)
+    w[:128, 256:] = 0
+    fc = BlockSparseFC(w)
+    x = _cuda(rng.normal(size=(64, 512)))
+    want = mod.block_sparse_matvec_plain(x, *fc._bundle, fc.m, bm=128,
+                                         bk=128)
+    for path in ("tf32x3", "simt"):
+        got = mod.launch(x, *fc._bundle, fc.m, path, bm=128, bk=128)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    x_off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    x_off = x_off[1:].view(x.shape)                 # 4 bytes off 16
+    x_off.copy_(x)
+    assert mod.fc_path(x_off, fc._bundle[0], 128, 128) == "simt"
+    torch.testing.assert_close(fc(x_off), want, rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="tf32x3 kernel does not take"):
+        mod.launch(x_off, *fc._bundle, fc.m, "tf32x3", bm=128, bk=128)
+    with pytest.raises(ValueError, match="wgmma kernel does not take"):
+        mod.launch(x, *fc._bundle, fc.m, "wgmma", bm=128, bk=128)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("c,length,k", [(37, 101, 7), (5, 12, 1),
                                         (5, 12, 12), (3, 300, 70),
                                         (4000, 28, 5), (2, 9000, 5)])
-def test_fir_kernel_bitwise_equals_plain(c, length, k):
+def test_fir_kernel_bitwise_equals_plain(c, length, k, dtype):
     _need_card()
     from repro_torch.kernels import fir_conv1d, ref
     rng = np.random.default_rng(c + length + k)
-    x = _cuda(rng.normal(size=(c, length)))
-    taps = _cuda(rng.normal(size=(c, k)))
+    x = _cuda(rng.normal(size=(c, length)), dtype)
+    taps = _cuda(rng.normal(size=(c, k)), dtype)
     mod = _kmod("fir_conv1d")
     before = mod.fir_conv1d.launches
     got = fir_conv1d(x, taps)
     torch.cuda.synchronize()
     assert mod.fir_conv1d.launches == before + 1
+    assert got.dtype == dtype
     assert torch.equal(got, ref.fir_conv1d_ref(x, taps))
 
 
@@ -299,9 +395,13 @@ def test_compute_kernels_refuse_what_they_do_not_take():
     x = torch.randn(16, 32, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         dense_matmul(x, torch.randn(16, 32, device="cuda").T)
+    # a mixed pair is computed (in f32, as JAX promotes it), not refused
+    w16 = torch.randn(32, 8, device="cuda", dtype=torch.bfloat16)
+    from repro_torch.kernels import ref
+    torch.testing.assert_close(dense_matmul(x, w16), ref.matmul_ref(x, w16),
+                               rtol=2e-4, atol=2e-4)
     with pytest.raises(TypeError, match="w must be"):
-        dense_matmul(x, torch.randn(32, 8, device="cuda",
-                                    dtype=torch.bfloat16))
+        dense_matmul(x, torch.randn(32, 8, device="cuda").half())
     with pytest.raises(ValueError, match="but w on"):
         dense_matmul(x, torch.randn(32, 8))
     with pytest.raises(TypeError, match="x must be"):
@@ -376,28 +476,30 @@ def test_flash_kernels_side_by_side():
                    v[..., :80].contiguous(), "wgmma", causal=True, group=2)
 
 
+@pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("bc,h,q,p,n,steep", [
     (2, 3, 8, 4, 5, False), (1, 2, 64, 8, 6, True), (2, 4, 256, 64, 128, True),
     (1, 2, 100, 70, 70, False)])
-def test_ssd_kernel_equals_plain(bc, h, q, p, n, steep):
-    """Against the plain version, max |d| <= 1e-5 max |ref| per output; the
-    steep cases overflow exp(cs_i - cs_j) above the diagonal."""
+def test_ssd_kernel_equals_plain(bc, h, q, p, n, steep, dtype):
+    """Against the plain version, max |d| <= 1e-5 max |ref| per output, in
+    f32 from f32 or bf16 inputs; the steep cases overflow exp(cs_i - cs_j)
+    above the diagonal."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import ref, ssd_intra
     mod = _kmod("ssd_intra")
     rng = np.random.default_rng(q + n)
-    xdt = _cuda(rng.normal(size=(bc, h, q, p)))
-    bb, cc = (_cuda(rng.normal(size=(bc, q, n))) for _ in range(2))
+    xdt = _cuda(rng.normal(size=(bc, h, q, p)), dtype)
+    bb, cc = (_cuda(rng.normal(size=(bc, q, n)), dtype) for _ in range(2))
     step = rng.uniform(1.0, 4.0, (bc, h, q)) if steep else \
         rng.uniform(0.005, 1.0, (bc, h, q))
-    cs = _cuda(np.cumsum(-step, axis=-1))
+    cs = _cuda(np.cumsum(-step, axis=-1), dtype)
     before = mod.ssd_intra.launches
     y, s = ssd_intra(xdt, bb, cc, cs)
     torch.cuda.synchronize()
     assert mod.ssd_intra.launches == before + 1
     for got, want in zip((y, s), ref.ssd_intra_ref(xdt, bb, cc, cs)):
-        assert torch.isfinite(got).all()
+        assert got.dtype == F32 and torch.isfinite(got).all()
         diff = float((got - want).abs().max())
         assert diff <= 1e-5 * float(want.abs().max())
 

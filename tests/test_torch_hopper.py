@@ -1,9 +1,10 @@
 """How the port picks its Hopper kernels, and what rebuilds them, on the CPU.
 
-``dense_matmul.matmul_path`` and ``flash_attention.attention_path`` decide
-from the operands alone (dtype, contiguity, 16-byte alignment, K and N or
-d) which CUDA kernel a call on the card launches; each is tested here on
-every boundary with CPU tensors, which launch nothing.  ``_build`` names a
+``dense_matmul.matmul_path``, ``flash_attention.attention_path`` and
+``sparse_fc.fc_path`` decide from the operands alone (dtype, contiguity,
+16-byte alignment, K and N, d, or the block shape) which CUDA kernel a
+call on the card launches; each is tested here on every boundary with CPU
+tensors, which launch nothing.  ``_build`` names a
 library by a hash of its source, the shared headers and the flags, so an
 edited header rebuilds every source, and keeps each build's log beside
 its library.
@@ -148,6 +149,91 @@ def test_launch_by_path_refuses_cpu_tensors():
         fa.launch(q, q, q, "wgmma", causal=True)
     assert (mm.matmul.launches_by_path,
             fa.flash_attention.launches_by_path) == before
+
+
+# --------------------------------------------------------------------------
+# block-sparse FC: bf16 and 3xTF32 on the tensor cores, the CUDA-core kernel
+# --------------------------------------------------------------------------
+
+#: case: (batch, K, (bm, bk), nnzb, x dtype, vals dtype, options, path);
+#: the cases chip_smoke.py runs on each path, then every boundary.
+_FC_CASES = {
+    "f32, 128 x 128 blocks": (17, 200, (128, 128), 5, F32, F32, {},
+                              "tf32x3"),
+    "f32, batch 1": (1, 200, (128, 128), 5, F32, F32, {}, "tf32x3"),
+    "f32, batch 129": (129, 200, (128, 128), 5, F32, F32, {}, "tf32x3"),
+    "f32, 128 x 64 blocks": (200, 200, (128, 64), 9, F32, F32, {},
+                             "tf32x3"),
+    "f32, 4096^2 checkerboard": (512, 4096, (128, 128), 512, F32, F32, {},
+                                 "tf32x3"),
+    "MNIST fc1": (1024, 1600, (128, 128), 26, F32, F32, {}, "tf32x3"),
+    "bf16, 128 x 128 blocks": (17, 200, (128, 128), 5, BF16, BF16, {},
+                               "wgmma"),
+    "bf16, 128 x 64 blocks": (200, 200, (128, 64), 9, BF16, BF16, {},
+                              "wgmma"),
+    "bf16, 4096^2 checkerboard": (512, 4096, (128, 128), 512, BF16, BF16,
+                                  {}, "wgmma"),
+    "bf16 x, f32 vals": (17, 200, (128, 128), 5, BF16, F32, {}, "tf32x3"),
+    "f32 x, bf16 vals": (17, 200, (128, 128), 5, F32, BF16, {}, "tf32x3"),
+    "f32, 64 x 48 blocks": (9, 200, (64, 48), 17, F32, F32, {}, "simt"),
+    "bf16, 64 x 48 blocks": (9, 200, (64, 48), 17, BF16, BF16, {}, "simt"),
+    "f32, 40 x 40 blocks": (5, 200, (40, 40), 32, F32, F32, {}, "simt"),
+    "bf16, bk 32 (half a bf16 slice)": (8, 256, (128, 32), 4, BF16, BF16,
+                                        {}, "simt"),
+    "f32, bk 32": (8, 256, (128, 32), 4, F32, F32, {}, "tf32x3"),
+    "f32, bk 48": (8, 192, (128, 48), 4, F32, F32, {}, "simt"),
+    "f32, bm 256": (8, 256, (256, 128), 2, F32, F32, {}, "simt"),
+    "f32, K = 202 (rows of 808 bytes)": (8, 202, (128, 128), 2, F32, F32,
+                                         {}, "simt"),
+    "bf16, K = 204 (rows of 408 bytes)": (8, 204, (128, 128), 2, BF16, BF16,
+                                          {}, "simt"),
+    "bf16 x widened, K = 204": (8, 204, (128, 128), 2, BF16, F32, {},
+                                "tf32x3"),
+    "f32, x 4 bytes off": (8, 256, (128, 128), 2, F32, F32,
+                           {"x_offset": 1}, "simt"),
+    "f32, x 16 bytes off": (8, 256, (128, 128), 2, F32, F32,
+                            {"x_offset": 4}, "tf32x3"),
+    "bf16 x 2 bytes off, widened": (8, 256, (128, 128), 2, BF16, F32,
+                                    {"x_offset": 1}, "tf32x3"),
+    "f32, vals 4 bytes off": (8, 256, (128, 128), 2, F32, F32,
+                              {"vals_offset": 1}, "simt"),
+    "f32, x a transposed view": (8, 256, (128, 128), 2, F32, F32,
+                                 {"x_transposed": True}, "simt"),
+    "f32, batch 0": (0, 256, (128, 128), 2, F32, F32, {}, "simt"),
+    "f32, no blocks": (8, 256, (128, 128), 0, F32, F32, {}, "simt"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FC_CASES))
+def test_fc_path_boundaries(case):
+    n, k, (bm, bk), nnzb, xdt, vdt, kw, want = _FC_CASES[case]
+    if kw.get("x_transposed"):
+        x = _at((k, n), xdt).T
+    else:
+        x = _at((n, k), xdt, kw.get("x_offset", 0))
+    vals = _at((nnzb, bm, bk), vdt, kw.get("vals_offset", 0))
+    assert _module("sparse_fc").fc_path(x, vals, bm, bk) == want
+
+
+def test_fc_cpu_calls_launch_no_kernel():
+    """On CPU tensors the layer takes the plain version whatever the path,
+    and counts no launch on any kernel; ``launch`` refuses CPU tensors and
+    unknown kernels."""
+    import numpy as np
+    from repro_torch.kernels import BlockSparseFC
+    mod = _module("sparse_fc")
+    before = dict(mod.block_sparse_matvec.launches_by_path)
+    assert set(before) == {"wgmma", "tf32x3", "simt"}
+    fc = BlockSparseFC(np.ones((256, 256), np.float32), device="cpu")
+    x = torch.randn(8, 256)
+    assert mod.fc_path(x, fc._bundle[0], 128, 128) == "tf32x3"
+    fc(x)
+    fc(x.to(BF16))
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        mod.launch(x, *fc._bundle, 256, "tf32x3", bm=128, bk=128)
+    assert mod.block_sparse_matvec.launches_by_path == before
+    assert (mod.HOPPER_BM, mod.HOPPER_ROWS) == (128, 128)
+    assert mod.SLICE == {F32: 32, BF16: 64}
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor the JAX
-package ``repro``, in any module."""
+package ``repro``, nor ``ml_dtypes`` (which JAX brings; an install of the
+port without JAX need not have it), in any module."""
 
 import os
 import re
@@ -13,14 +14,16 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 PORT_FILES = sorted(p.relative_to(SRC).as_posix()
                     for p in (SRC / "repro_torch").rglob("*.py"))
 
-#: An import statement naming jax, jaxlib or repro (not repro_torch).
+#: An import statement naming jax, jaxlib, ml_dtypes or repro (not
+#: repro_torch).
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)", re.M)
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|ml_dtypes|repro)(?:\.|\s|$)",
+    re.M)
 
 
 def test_import_loads_no_jax_and_no_repro():
     """Importing the package and every module of the slice loads no
-    ``jax*`` and no ``repro``/``repro.*`` module."""
+    ``jax*``, no ``ml_dtypes`` and no ``repro``/``repro.*`` module."""
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.device\n"
@@ -41,7 +44,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.compress, repro_torch.compress.prune\n"
         "import repro_torch.models, repro_torch.runtime\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,

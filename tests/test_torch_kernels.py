@@ -7,8 +7,10 @@ tests do.  Inputs are made by numpy from a seed and handed to both.
 Tolerances: the f32 products and attention are those of
 ``tests/test_kernels.py`` (rtol = atol = 2e-4: the sums are taken in
 another order); bf16 that test's 3e-2, one bf16 rounding of an O(1) output;
-the SSD cell that test's rtol 3e-4, atol 3e-5; the block-CSR bundles, the
-pruning and the FIR against its own plain oracle are exact.
+the block-sparse FC with a bf16 output one bf16 unit (both sum in f32 and
+round once); the SSD cell that test's rtol 3e-4, atol 3e-5, and with bf16
+inputs max |d| <= 1e-5 max |ref|; the block-CSR bundles, the pruning and
+the FIR (also in bf16) are exact.
 """
 
 import functools
@@ -18,6 +20,7 @@ import math
 from pathlib import Path
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -45,6 +48,10 @@ from repro_torch.kernels.sparse_fc import (block_sparse_matvec_plain,
                                            to_block_csr)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
+#: numpy's bf16 (the JAX package's, from ml_dtypes) and the test's names
+#: for the two dtypes on each side.
+NP_BF16 = ml_dtypes.bfloat16
+DTYPES = {"f32": (np.float32, torch.float32), "bf16": (NP_BF16, torch.bfloat16)}
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 CPU = torch.device("cpu")
 
@@ -115,6 +122,24 @@ def test_dense_matmul_bf16(shape):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [("f32", "bf16"), ("bf16", "f32")])
+@pytest.mark.parametrize("shape", [(13, 57, 31), (128, 256, 192)])
+def test_dense_matmul_mixed_dtypes_match_jax(shape, x_dtype, w_dtype):
+    """One f32 and one bf16 operand: computed in f32, as JAX promotes the
+    pair, and returned in x's dtype, as the Pallas kernel's output."""
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + n)
+    (xn, xt), (wn, wt) = DTYPES[x_dtype], DTYPES[w_dtype]
+    x = rng.normal(size=(m, k)).astype(np.float32).astype(xn)
+    w = rng.normal(size=(k, n)).astype(np.float32).astype(wn)
+    want = np.asarray(jax_dense_matmul(jnp.asarray(x), jnp.asarray(w),
+                                       interpret=True))
+    got = dense_matmul(_t(x, xt), _t(w, wt))
+    assert got.dtype == xt and want.dtype == xn
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               **(TOL if x_dtype == "f32" else BF16_TOL))
 
 
 @pytest.mark.parametrize("tiles", [(12, 64, 64), (8, 0, 8), (256, 32, 128),
@@ -220,6 +245,70 @@ def test_block_sparse_refuses_bad_layers():
                                      10, 10, 128, 128, device="cpu")
 
 
+def _bf16_units(got, want):
+    """|got - want| in units of the last place of bf16 at ``want``."""
+    w = np.abs(np.asarray(want, np.float32))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(w, 2.0 ** -100))) - 7)
+    return np.abs(np.asarray(got, np.float32) - want.astype(np.float32)) / ulp
+
+
+@pytest.mark.parametrize("case", ["ragged", "small-blocks"])
+@pytest.mark.parametrize("x_dtype,w_dtype", [("bf16", "f32"), ("f32", "bf16"),
+                                             ("bf16", "bf16")])
+def test_block_sparse_bf16_matches_jax(case, x_dtype, w_dtype):
+    """A bf16 activation, a bf16 master weight, or both: the output has the
+    JAX package's dtype (x's), the layer keeps its weight's dtype, and the
+    values agree with the Pallas kernel in interpret mode within one bf16
+    unit (a bf16 output) or at the f32 tolerance."""
+    w, bm, bk = _bundles(8)[case]
+    (xn, xt), (wn, wt) = DTYPES[x_dtype], DTYPES[w_dtype]
+    x = np.random.default_rng(2).normal(size=(17, w.shape[1])).astype(
+        np.float32)
+    jfc = JaxBlockSparseFC(w.astype(wn), bm=bm, bk=bk)
+    want = np.asarray(jfc(jnp.asarray(x.astype(xn)), interpret=True))
+    tfc = BlockSparseFC(w.astype(wn), bm=bm, bk=bk, device="cpu")
+    assert tfc._bundle[0].dtype == wt and tfc.vals.dtype == wn
+    got = tfc(_t(x, xt))
+    assert got.dtype == xt and want.dtype == xn and got.shape == want.shape
+    if x_dtype == "bf16":
+        assert _bf16_units(got.float().numpy(), want).max() <= 1.0
+    else:
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_convert_carries_a_jax_bf16_block_sparse_fc():
+    """A JAX layer on a bf16 master weight reaches the port with the same
+    16-bit words, read without ``ml_dtypes``, and computes in bf16."""
+    w, bm, bk = _bundles(9)["ragged"]
+    jfc = JaxBlockSparseFC(w.astype(NP_BF16), bm=bm, bk=bk)
+    fields = block_sparse_fc_fields(jfc)
+    assert fields["vals"].dtype.name == "bfloat16"
+    tfc = block_sparse_fc_from_numpy(fields, device="cpu")
+    vals = tfc._bundle[0]
+    assert vals.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        vals.view(torch.int16).numpy().view(np.uint16),
+        np.asarray(jfc.vals).view(np.uint16))
+    x = np.random.default_rng(3).normal(size=(5, 200)).astype(np.float32)
+    want = np.asarray(jfc(jnp.asarray(x.astype(NP_BF16)), interpret=True))
+    got = tfc(_t(x, torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    assert _bf16_units(got.float().numpy(), want).max() <= 1.0
+
+
+def test_block_sparse_takes_torch_bf16_values_as_they_are():
+    """A bundle whose values are a torch bf16 tensor keeps them bf16."""
+    w, bm, bk = _bundles(10)["ragged"]
+    ref_fc = BlockSparseFC(w.astype(NP_BF16), bm=bm, bk=bk, device="cpu")
+    vals = ref_fc._bundle[0].clone()
+    fc = BlockSparseFC.from_block_csr(vals, ref_fc.row_ptr, ref_fc.col_idx,
+                                      300, 200, bm, bk, device="cpu")
+    assert fc._bundle[0].dtype == torch.bfloat16
+    assert torch.equal(fc._bundle[0], vals)
+    x = _t(np.random.default_rng(4).normal(size=(3, 200)), torch.bfloat16)
+    assert torch.equal(fc(x), ref_fc(x))
+
+
 # --------------------------------------------------------------------------
 # FIR conv1d
 # --------------------------------------------------------------------------
@@ -239,6 +328,37 @@ def test_fir_conv1d_matches_jax(c, length, k):
     # the same order of operations as the JAX package's numpy oracle
     np.testing.assert_array_equal(got.numpy(),
                                   jref.fir_conv1d_ref(x, taps))
+
+
+@pytest.mark.parametrize("x_dtype,taps_dtype", [("bf16", "bf16"),
+                                                ("bf16", "f32"),
+                                                ("f32", "bf16")])
+@pytest.mark.parametrize("c,length,k", [(37, 101, 7), (5, 12, 1),
+                                        (5, 12, 12), (3, 300, 70),
+                                        (1, 1, 1)])
+def test_fir_conv1d_bf16_matches_jax_bitwise(c, length, k, x_dtype,
+                                             taps_dtype):
+    """bf16 x and/or taps: widened, summed in f32 in tap order, rounded
+    once to x's dtype.  A bf16 output is bit for bit the Pallas kernel's;
+    an f32 one is within the f32 tolerance of it (its CPU backend may fuse
+    a multiply and an add) and bit for bit the JAX package's numpy oracle,
+    as in ``test_fir_conv1d_matches_jax``."""
+    rng = np.random.default_rng(c * 37 + length + k)
+    (xn, xt), (tn, tt) = DTYPES[x_dtype], DTYPES[taps_dtype]
+    x = rng.normal(size=(c, length)).astype(np.float32).astype(xn)
+    taps = rng.normal(size=(c, k)).astype(np.float32).astype(tn)
+    want = np.asarray(jax_fir(jnp.asarray(x), jnp.asarray(taps),
+                              interpret=True))
+    got = fir_conv1d(_t(x, xt), _t(taps, tt))
+    assert got.dtype == xt and want.dtype == xn
+    if x_dtype == "bf16":
+        np.testing.assert_array_equal(
+            got.view(torch.int16).numpy().view(np.uint16),
+            want.view(np.uint16))
+    else:
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_array_equal(got.numpy(),
+                                      jref.fir_conv1d_ref(x, taps))
 
 
 def _conv_by_fir(fir, x, filt):
@@ -685,6 +805,66 @@ def test_bf16_matmul_rule_at_full_width(case):
         assert share > 10.0, share
 
 
+def _tf32(a, rounded=False):
+    """a (f32) as tf32: its lower 13 mantissa bits cleared, or rounded to
+    nearest first (``rounded``)."""
+    bits = a.view(torch.int32)
+    if rounded:
+        bits = bits + 0x1000
+    return (bits & -8192).view(torch.float32)
+
+
+def _split_products(x, w, rounded=True):
+    """x @ w.T as 3xTF32: a = hi + lo with hi = tf32(a), lo = tf32(a - hi),
+    both rounded to nearest as the kernel splits them (or both truncated);
+    x_hi w_hi + x_hi w_lo + x_lo w_hi, each product summed in f32."""
+    xh, wh = _tf32(x, rounded), _tf32(w, rounded)
+    xl, wl = _tf32(x - xh, rounded), _tf32(w - wh, rounded)
+    return xh @ wh.T + xh @ wl.T + xl @ wh.T
+
+
+@functools.lru_cache(maxsize=1)
+def _tf32x3_operands():
+    """f32 x (256, 4096) and a weight (256, 4096): K = 4096, the depth of
+    the 4096^2 block-sparse product on the card; the plain f32 product and
+    the f64 one."""
+    rng = np.random.default_rng(14)
+    x = _t(rng.normal(size=(256, 4096)))
+    w = _t(rng.normal(size=(256, 4096)))
+    return x, w, x @ w.T, x.double() @ w.double().T
+
+
+_TF32X3_OUTPUTS = {
+    # 3xTF32, split as the kernel splits (rounded) or truncated: near f32
+    "3xTF32, split rounded": (True, lambda x, w: _split_products(x, w)),
+    "3xTF32, split truncated": (True, lambda x, w: _split_products(
+        x, w, rounded=False)),
+    # one tf32 product, truncated or rounded; two of the three products
+    "one-pass TF32, truncated": (False, lambda x, w: _tf32(x) @ _tf32(w).T),
+    "one-pass TF32, rounded": (False, lambda x, w: _tf32(x, True)
+                               @ _tf32(w, True).T),
+    "x_lo w_hi left out": (False, lambda x, w: _tf32(x, True)
+                           @ _tf32(w, True).T + _tf32(x, True)
+                           @ _tf32(w - _tf32(w, True), True).T),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_TF32X3_OUTPUTS))
+def test_tf32x3_rule_at_full_width(case):
+    """``chip_smoke.py``'s ``tf32x3`` rule (max |kernel - f64| <= 4 max
+    |plain f32 - f64| + 2^-24 max |f64|) at K = 4096 passes a plain-PyTorch
+    emulation of 3xTF32 and fails a one-pass TF32 product, or one product
+    short, by more than 100 times the limit."""
+    cs = _chip_smoke()
+    x, w, plain, exact = _tf32x3_operands()
+    holds, make = _TF32X3_OUTPUTS[case]
+    share = cs.tf32x3_share(torch, make(x, w), plain, exact)
+    if holds:
+        assert share <= 0.5, share
+    else:
+        assert share > 100.0, share
+
+
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_attention_block_gqa_matches_jax(use_kernel):
     """GQA (8 query heads over 2 kv heads) through the port's
@@ -779,6 +959,32 @@ def test_ssd_intra_masked_decay_overflow_stays_out():
                                atol=3e-5)
     np.testing.assert_allclose(s.numpy(), np.asarray(s_want), rtol=3e-4,
                                atol=3e-5)
+
+
+@pytest.mark.parametrize("bf16", ["all", "xdt, bb, cc", "cs", "xdt"])
+@pytest.mark.parametrize("b,h,q,p,n,seed,steep", [
+    (2, 3, 8, 4, 5, 7, False), (1, 2, 37, 9, 11, 3, False),
+    (1, 2, 64, 8, 6, 21, True)])
+def test_ssd_intra_bf16_matches_jax(b, h, q, p, n, seed, steep, bf16):
+    """bf16 inputs (all, some or one) against the Pallas kernel in
+    interpret mode: f32 outputs within 1e-5 max |ref| of each; a bf16 cs is
+    rounded where JAX rounds it (``ref.ssd_intra_ref``)."""
+    kw = dict(dt_range=(1.0, 2.0), a_range=(1.0, 2.0), chunks=1) if steep \
+        else {}
+    args = _ssd_inputs(b, h, q, p, n, seed, **kw)
+    names = ("xdt", "bb", "cc", "cs")
+    narrow = names if bf16 == "all" else bf16.split(", ")
+    args = [a.astype(NP_BF16) if nm in narrow else a
+            for nm, a in zip(names, args)]
+    y_want, s_want = jax_ssd(*(jnp.asarray(a) for a in args),
+                             interpret=True)
+    got = ssd_intra(*(_t(a, torch.bfloat16 if nm in narrow else
+                         torch.float32) for nm, a in zip(names, args)))
+    for g, w in zip(got, (y_want, s_want)):
+        w = np.asarray(w)
+        assert g.dtype == torch.float32 and w.dtype == np.float32
+        assert torch.isfinite(g).all()
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
 
 
 def test_ssd_intra_refuses_bad_shapes():
