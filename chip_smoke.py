@@ -13,9 +13,10 @@ prints one JSON line per phase; any failure exits non-zero.
    power limit.  With no card visible the script exits non-zero at once.
 2. build   -- nvcc builds every kernel from the checkout's sources (one
    nvcc per source, all started together) and prints the ptxas register
-   and spill lines; for the Hopper kernels (the bf16 matmul and attention
-   kernels and the block-sparse FC's bf16 and 3xTF32 kernels, on
-   ``wgmma`` fed by TMA) it prints each one's registers and spill bytes
+   and spill lines; for the Hopper kernels (the matmul's bf16 and 3xTF32
+   kernels, the bf16 attention kernel and the block-sparse FC's bf16 and
+   3xTF32 kernels, on ``wgmma`` fed by TMA) it prints each one's
+   registers and spill bytes
    and, where the toolkit has ``cuobjdump``, the HGMMA and UTMALDG
    instructions in its SASS, and fails if either count is 0 or a spill
    byte is reported (where ``cuobjdump`` is missing it says so on a
@@ -39,13 +40,16 @@ prints one JSON line per phase; any failure exits non-zero.
    output held against its kernel's plain version on the card (the FIR
    bitwise in both dtypes); each matmul and block-sparse case prints the
    kernel that took it (``path``: for the matmul ``wgmma`` for aligned
-   bf16, also with ragged M, N and K, ``simt`` for f32, unaligned bf16
-   and mixed pairs; for the block-sparse FC ``wgmma`` for bf16 and
-   ``tf32x3`` for f32 and mixed pairs in 128-row blocks, ``simt`` for
+   bf16 and ``tf32x3`` for aligned f32 and mixed pairs, also with ragged
+   M, N and K and K split over 2 or 4 CTAs, ``simt`` for the rest and,
+   named, at explicit tiles; for the block-sparse FC ``wgmma`` for bf16
+   and ``tf32x3`` for f32 and mixed pairs in 128-row blocks, ``simt`` for
    other blocks and, named, for the 128-row ones too) and the largest
    share of its limit, and fails if it is not the one its shape calls
-   for.  The block-sparse FC's f32 outputs are also held to the
-   ``tf32x3`` rule against the f64 product.
+   for.  The f32 outputs of the tensor-core kernels (and of the
+   block-sparse CUDA-core kernel run beside them) are also held to the
+   ``tf32x3`` rule against the f64 product, and each ``tf32x3`` matmul is
+   run twice and must give the same bits.
 7. kernels_full_width -- the same entry points at the repo's benchmark
    shapes, through ``mnist_net()`` at its published widths over a batch
    of 1024 inputs (convolutions composed from FIRs, fc1 pruned to 90 %
@@ -55,11 +59,17 @@ prints one JSON line per phase; any failure exits non-zero.
    version (and the MNIST logits against the plain chain and the numpy
    simulator), and the kernel, its plain version and one PyTorch library
    call computing the same function are timed, beside the bound.  The
-   4096^3 bf16 product must go through the wgmma kernel, and the 4096^2
-   block-sparse FC through the tf32x3 kernel in f32 and the wgmma one in
-   bf16 (and MNIST's fc1 through tf32x3); each is timed beside the
-   CUDA-core kernel it replaced (``previous_ms``), at the same shape in
-   the same run.  The FIR is timed in bf16 beside f32.
+   4096^3 and 512 x 1024 x 768 f32 products and MNIST's fc2 must go
+   through the tf32x3 kernel (each prints its tiles and split, and gives
+   the same bits when run again), the 4096^3 bf16 product through the
+   wgmma kernel, MNIST's fc3 (N = 10) through the CUDA-core one (also
+   timed alone at that shape), and the 4096^2 block-sparse FC through the
+   tf32x3 kernel in f32 and the wgmma one in bf16 (and MNIST's fc1
+   through tf32x3); each tensor-core run is timed beside the CUDA-core
+   kernel it replaced (``previous_ms``), at the same shape in the same
+   run.  Each matmul and its library call are also timed replayed from a
+   CUDA graph (``graph_ms``, ``library_graph_ms``): the device's time
+   without the host's.  The FIR is timed in bf16 beside f32.
 8. lm_vs_plain -- the attention kernels (f32 and bf16, causal or not,
    Sq != Sk, S of 1, 37 and 300, d of 64 and 128 on the wgmma kernel in
    bf16, d of 80 on the mma.sync one, GQA group 2) and the SSD cell (the
@@ -119,9 +129,10 @@ def emit(obj) -> None:
 
 #: The Hopper kernels (wgmma fed by TMA) by source: a substring of each
 #: kernel's mangled name.
-WGMMA_KERNELS = {"dense_matmul": "matmul_wgmma_kernel",
-                 "flash_attention": "flash_wgmma_kernel",
-                 "sparse_fc": "block_sparse_fc_hopper_kernel"}
+WGMMA_KERNELS = {"dense_matmul": ("matmul_wgmma_kernel",
+                                  "matmul_tf32x3_kernel"),
+                 "flash_attention": ("flash_wgmma_kernel",),
+                 "sparse_fc": ("block_sparse_fc_hopper_kernel",)}
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -332,6 +343,34 @@ def median_ms(torch, fn, reps: int = 5, inner: int = 1) -> float:
         ev1.record()
         torch.cuda.synchronize()
         times.append(ev0.elapsed_time(ev1) / inner)
+    return sorted(times)[len(times) // 2]
+
+
+def graph_ms(torch, fn, reps: int = 5, inner: int = INNER) -> float:
+    """The device's time for one ``fn`` call with no host time in it:
+    ``inner`` calls captured in a CUDA graph, the median over ``reps``
+    replays between two CUDA events, per call (after a warm-up call on
+    the capturing stream)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(inner):
+            fn()
+    times = []
+    for _ in range(reps):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        graph.replay()
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1) / inner)
+    del graph
     return sorted(times)[len(times) // 2]
 
 
@@ -549,13 +588,22 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
     rng = np.random.default_rng(0)
     # (kernel, case, kernel output, plain output, rule, the kernel's path)
     checks = []
-    # block-sparse f32 outputs: (case, path, kernel, plain, f64 product)
+    # f32 outputs under the tf32x3 rule: (kernel, case, path, kernel
+    # output, plain, f64 product)
     tf32_checks = []
     for m, k, n, dtype, tiles, want_path in (
             (13, 57, 31, f32, None, "simt"), (1, 1, 1, f32, None, "simt"),
             (129, 1000, 70, f32, None, "simt"),
-            (64, 512, 384, f32, (8, 128, 128), "simt"),
-            (64, 512, 384, f32, (16, 256, 128), "simt"),
+            # f32 that TMA reads: explicit tiles (the CUDA-core kernel's,
+            # run on it too below); ragged M, N and K (a K tail of 12);
+            # K = 4; K split 2 ways (one slice each, and 3 + 2) and 4
+            (64, 512, 384, f32, (8, 128, 128), "tf32x3"),
+            (64, 512, 384, f32, (16, 256, 128), "tf32x3"),
+            (200, 300, 100, f32, None, "tf32x3"),
+            (13, 4, 36, f32, None, "tf32x3"),
+            (64, 60, 64, f32, None, "tf32x3"),
+            (512, 160, 768, f32, None, "tf32x3"),
+            (128, 1024, 256, f32, None, "tf32x3"),
             # bf16: aligned; ragged M, N and K with aligned strides (a K
             # tail of 40, then of 8); unaligned strides on the CUDA cores
             (128, 256, 192, bf16, None, "wgmma"),
@@ -571,19 +619,39 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                              f"{dtype} takes the {path} kernel, not the "
                              f"{want_path} one")
         t = tiles and MatmulTiles(*tiles)
-        checks.append(("dense_matmul",
-                       f"{m}x{k}x{n} {str(dtype)[6:]} tiles={tiles}",
-                       dense_matmul(x, w, tiles=t), ref.matmul_ref(x, w),
-                       "allclose" if dtype == f32 else "bf16", path))
+        case = f"{m}x{k}x{n} {str(dtype)[6:]} tiles={tiles}"
+        got, want = dense_matmul(x, w, tiles=t), ref.matmul_ref(x, w)
+        runs_ = [(path, got)]
+        if path == "tf32x3":
+            case += f" split={mods['dense_matmul'].tf32x3_plan(m, k, n).split}"
+            if not torch.equal(dense_matmul(x, w, tiles=t), got):
+                raise SystemExit(f"kernels_vs_plain: dense_matmul {case} "
+                                 f"(tf32x3) differs from run to run")
+            if tiles:
+                # the CUDA-core kernel at these tiles, on the same operands
+                runs_.append(("simt", mods["dense_matmul"].launch(
+                    x, w, "simt", bm=tiles[0], bk=tiles[1], bn=tiles[2])))
+        for p, out in runs_:
+            checks.append(("dense_matmul", case, out, want,
+                           "allclose" if dtype == f32 else "bf16", p))
+            if p == "tf32x3":
+                tf32_checks.append(("dense_matmul", case, p, out, want,
+                                    x.double() @ w.double()))
     # dense_matmul on a mixed pair: widened, the f32 kernel, x's dtype
     for xdt, wdt in ((f32, bf16), (bf16, f32)):
         x = dev(rng.normal(size=(200, 296)), xdt)
         w = dev(rng.normal(size=(296, 104)), wdt)
         path = mods["dense_matmul"].matmul_path(x.float(), w.float())
-        checks.append(("dense_matmul",
-                       f"200x296x104 {str(xdt)[6:]} x {str(wdt)[6:]}",
-                       dense_matmul(x, w), ref.matmul_ref(x, w),
+        if path != "tf32x3":
+            raise SystemExit(f"kernels_vs_plain: dense_matmul on a mixed "
+                             f"pair takes the {path} kernel, not tf32x3")
+        case = f"200x296x104 {str(xdt)[6:]} x {str(wdt)[6:]}"
+        got, want = dense_matmul(x, w), ref.matmul_ref(x, w)
+        checks.append(("dense_matmul", case, got, want,
                        "allclose" if xdt == f32 else "bf16", path))
+        if xdt == f32:
+            tf32_checks.append(("dense_matmul", case, path, got, want,
+                                x.double() @ w.double()))
     w_empty = rng.normal(size=(512, 512)).astype(np.float32)
     w_empty[128:, :] = 0
     w_empty[:128, 256:] = 0
@@ -636,8 +704,8 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                 checks.append(("block_sparse_fc", case, got, want,
                                "allclose" if xdt == f32 else "bf16", p))
                 if xdt == f32:
-                    tf32_checks.append((case, p, got, want,
-                                        fc_exact(layer, x)))
+                    tf32_checks.append(("block_sparse_fc", case, p, got,
+                                        want, fc_exact(layer, x)))
     for c, length, k in ((37, 101, 7), (5, 12, 1), (5, 12, 12), (1, 1, 1),
                          (3, 300, 70), (2, 600, 33), (4000, 28, 5)):
         for dtype in (f32, bf16):
@@ -664,22 +732,22 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                         else allclose_share(torch, got, want))}
             emit(line)
     tf32_share = 0.0
-    for case, path, got, want, exact in tf32_checks:
+    for name, case, path, got, want, exact in tf32_checks:
         share = tf32x3_share(torch, got, want, exact)
         tf32_share = max(tf32_share, share)
-        emit({"phase": "kernels_vs_plain", "kernel": "block_sparse_fc",
+        emit({"phase": "kernels_vs_plain", "kernel": name,
               "case": case, "path": path, "rule": "tf32x3",
               "limit_share": share})
         if share > 1.0:
-            raise SystemExit(f"kernels_vs_plain: block_sparse_fc {case} "
+            raise SystemExit(f"kernels_vs_plain: {name} {case} "
                              f"({path}) misses the tf32x3 rule "
                              f"({TOLERANCES['tf32x3']}; {share} of the "
                              f"limit)")
     emit({"phase": "kernels_vs_plain", "cases": len(checks),
           "max_abs_diff_vs_plain": small_err, "all_agree": True,
           "tf32x3_max_limit_share": tf32_share,
-          "tolerances": {"block_sparse_fc f32": [TOLERANCES["allclose"],
-                                                 TOLERANCES["tf32x3"]],
+          "tolerances": {"f32 outputs": [TOLERANCES["allclose"],
+                                         TOLERANCES["tf32x3"]],
                          "bf16 outputs": TOLERANCES["bf16"],
                          "fir_conv1d": TOLERANCES["bitwise"]},
           "seconds": time.perf_counter() - t0})
@@ -691,36 +759,54 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
 
     def run(kernel, shape, out, kernel_fn, plain_fn, library_fn, flops,
             nbytes, peak, rule, headline, entry=None, previous_fn=None,
-            path=None, exact_fn=None, hopper_source=None, bounds=None):
+            path=None, exact_fn=None, hopper_source=None, bounds=None,
+            plan=None):
         runs.append(dict(kernel=kernel, shape=shape, out=out,
                          kernel_fn=kernel_fn, plain_fn=plain_fn,
                          library_fn=library_fn, flops=flops, bytes=nbytes,
                          peak=peak, rule=rule, headline=headline,
                          entry=entry or kernel, previous_fn=previous_fn,
                          path=path, exact_fn=exact_fn,
-                         hopper_source=hopper_source, bounds=bounds))
+                         hopper_source=hopper_source, bounds=bounds,
+                         plan=plan))
 
     mmod = mods["dense_matmul"]
 
-    def matmul_run(m, k, n, dtype, rule, headline=False):
-        """One product through the entry point; a bf16 one the wgmma
-        kernel takes is also timed on the CUDA-core kernel it replaced,
-        at the tiles the entry point gives that kernel."""
+    def matmul_run(m, k, n, dtype, rule, want_path, headline=False):
+        """One product through the entry point; one that a tensor-core
+        kernel takes is also timed on the CUDA-core kernel it replaced, at
+        the tiles the entry point gives that kernel."""
         x = dev(rng.normal(size=(m, k)), dtype)
         w = dev(rng.normal(size=(k, n)), dtype)
         size = x.element_size()
         path = mmod.matmul_path(x, w)
+        if path != want_path:
+            raise SystemExit(f"kernels_full_width: dense_matmul {m}x{k}x{n} "
+                             f"{dtype} takes the {path} kernel, not the "
+                             f"{want_path} one")
         t = matmul_tiles(m, k, n, size)
         previous = None if path == "simt" else (
             lambda: mmod.launch(x, w, "simt", bm=t.bm, bk=t.bk, bn=t.bn))
+        flops = 2.0 * m * n * k
+        bounds = plan = None
+        if path == "tf32x3":   # three tf32 products, or f32 on CUDA cores
+            bounds = {"tf32x3_tensor_cores_ms": 3 * flops / PEAK_TF32_OPS
+                      * 1e3, "cuda_cores_ms": flops / PEAK_F32_OPS * 1e3}
+            p = mmod.tf32x3_plan(m, k, n)
+            plan = dict(p._asdict(), ctas=p.ctas(m, n))
         run("dense_matmul", f"{m}x{k}x{n} {str(dtype)[6:]}",
             dense_matmul(x, w), lambda: dense_matmul(x, w),
             lambda: ref.matmul_ref(x, w), lambda: torch.matmul(x, w),
-            2.0 * m * n * k, size * (m * k + k * n + m * n),
-            PEAK_F32_OPS if dtype == f32 else PEAK_BF16_OPS, rule, headline,
-            entry=f"dense_matmul_{path}" if path == "wgmma" else None,
+            3 * flops if path == "tf32x3" else flops,
+            size * (m * k + k * n + m * n),
+            {"simt": PEAK_F32_OPS, "tf32x3": PEAK_TF32_OPS,
+             "wgmma": PEAK_BF16_OPS}[path], rule, headline,
+            entry=None if path == "simt" else f"dense_matmul_{path}",
             previous_fn=previous, path=path,
-            hopper_source=None if path == "simt" else "dense_matmul")
+            exact_fn=(lambda: x.double() @ w.double())
+            if path == "tf32x3" else None,
+            hopper_source=None if path == "simt" else "dense_matmul",
+            bounds=bounds, plan=plan)
 
     smod = mods["block_sparse_fc"]
 
@@ -795,12 +881,13 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
             counts[p] = 0
     t0 = time.perf_counter()
     # the repo's benchmark shapes (benchmarks/kernels_bench.py)
-    matmul_run(512, 1024, 768, f32, "allclose")
+    matmul_run(512, 1024, 768, f32, "allclose", "tf32x3")
     sparse_run(checkerboard(np, rng, 512, 128), 16, f32, "allclose",
                "tf32x3")
     fir_run(128, 512, 5)
     bench_launches = {n: w.launches for n, w in wrappers.items()}
     tf32x3_before = sparse_by_path["tf32x3"]
+    matmul_before = dict(by_path)
     # MNIST at its published widths over a batch
     logits = mnist_chain(torch, params, x_mnist, fir_conv1d, sfc,
                          dense_matmul)
@@ -810,14 +897,18 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
     if sparse_by_path["tf32x3"] != tf32x3_before + 1:
         raise SystemExit("kernels_full_width: MNIST's fc1 did not go "
                          "through the tf32x3 kernel")
+    if {p: by_path[p] - matmul_before[p] for p in by_path} != \
+            {"wgmma": 0, "tf32x3": 1, "simt": 1}:
+        raise SystemExit("kernels_full_width: MNIST's fc2 did not go "
+                         "through the tf32x3 matmul kernel, or fc3 (N = "
+                         "10) not through the CUDA-core one")
+    # the CUDA-core kernel at MNIST's fc3 shape, where the main path runs it
+    matmul_run(MNIST_BATCH, fc3.w.shape[1], fc3.w.shape[0], f32, "allclose",
+               "simt", headline=True)
     # one large shape per kernel
     n = LARGE_MATMUL
-    matmul_run(n, n, n, f32, "k4096", headline=True)
-    wgmma_before = by_path["wgmma"]
-    matmul_run(n, n, n, bf16, "bf16", headline=True)
-    if by_path["wgmma"] != wgmma_before + 1:
-        raise SystemExit(f"kernels_full_width: the {n}^3 bf16 matmul did "
-                         f"not go through the wgmma kernel")
+    matmul_run(n, n, n, f32, "k4096", "tf32x3", headline=True)
+    matmul_run(n, n, n, bf16, "bf16", "wgmma", headline=True)
     w_large = checkerboard(np, rng, LARGE_SPARSE, 128)
     sparse_run(w_large, LARGE_SPARSE_BATCH, f32, "k4096", "tf32x3",
                headline=True)
@@ -887,6 +978,11 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                              f"{r['shape']} disagrees with the plain version "
                              f"({TOLERANCES[r['rule']]}; max abs diff "
                              f"{diff})")
+        if r["plan"] is not None and not torch.equal(r["kernel_fn"](),
+                                                      r["out"]):
+            raise SystemExit(f"kernels_full_width: {r['kernel']} "
+                             f"{r['shape']} ({r['path']}) differs from run "
+                             f"to run")
         share = limit_share(torch, r["out"], plain, "bf16") \
             if r["rule"] == "bf16" else None
         tf32_share = None
@@ -916,9 +1012,18 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
             line["tf32x3_tolerance"] = TOLERANCES["tf32x3"]
         if r["bounds"] is not None:
             line["bounds_ms"] = r["bounds"]
+        if r["plan"] is not None:
+            line["tf32x3_plan"] = r["plan"]
+            line["bitwise_rerun"] = True
         if r["previous_fn"] is not None:
             line["previous_ms"] = median_ms(torch, r["previous_fn"], reps=3,
                                             inner=INNER)
+        if r["kernel"] == "dense_matmul":
+            # the same calls replayed from a CUDA graph: device time alone,
+            # for the calls whose host time (checks, tensor maps, a ctypes
+            # launch) is longer than their kernel
+            line["graph_ms"] = graph_ms(torch, r["kernel_fn"])
+            line["library_graph_ms"] = graph_ms(torch, r["library_fn"])
         if r["hopper_source"] is not None:
             line["ptxas_and_sass"] = hopper[r["hopper_source"]]
         emit(line)
@@ -929,22 +1034,25 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
           "block_sparse_fc_launches_by_path": fc_by_path,
           "seconds_path": path_s, "all_agree": True})
 
-    # dense_matmul is two kernels: the CUDA-core one (its f32 headline) and
-    # the wgmma one (bf16); the block-sparse FC's main-path kernels are the
-    # tensor-core one in 3xTF32 (f32 headline) and in bf16; each with its
-    # own launches
+    # dense_matmul is three kernels: the CUDA-core one (its headline at
+    # MNIST's fc3), the wgmma one (bf16) and the 3xTF32 one (f32); the
+    # block-sparse FC's main-path kernels are the tensor-core one in 3xTF32
+    # (f32 headline) and in bf16; each with its own launches
     launches["dense_matmul"] = matmul_by_path["simt"]
     launches["dense_matmul_wgmma"] = matmul_by_path["wgmma"]
+    launches["dense_matmul_tf32x3"] = matmul_by_path["tf32x3"]
     launches["block_sparse_fc"] = fc_by_path["tf32x3"]
     launches["block_sparse_fc_wgmma"] = fc_by_path["wgmma"]
     out = []
     for name, _mod, _fn, replaces, replaces_fn in COMPUTE_KERNELS + (
             ("dense_matmul_wgmma",) + COMPUTE_KERNELS[0][1:],
+            ("dense_matmul_tf32x3",) + COMPUTE_KERNELS[0][1:],
             ("block_sparse_fc_wgmma",) + COMPUTE_KERNELS[1][1:]):
         e = entries[name]
         src = {"block_sparse_fc": "sparse_fc",
                "block_sparse_fc_wgmma": "sparse_fc",
-               "dense_matmul_wgmma": "dense_matmul"}.get(name, name)
+               "dense_matmul_wgmma": "dense_matmul",
+               "dense_matmul_tf32x3": "dense_matmul"}.get(name, name)
         out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -958,7 +1066,10 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
             "path": e["path"],
             **({"previous_ms": e["previous_ms"]} if "previous_ms" in e
                else {}),
-            **({"bounds_ms": e["bounds_ms"]} if "bounds_ms" in e else {})})
+            **({"bounds_ms": e["bounds_ms"]} if "bounds_ms" in e else {}),
+            **({"tf32x3_plan": e["tf32x3_plan"]} if "tf32x3_plan" in e
+               else {}),
+            **{k: e[k] for k in ("graph_ms", "library_graph_ms") if k in e}})
     return out
 
 
@@ -1366,17 +1477,19 @@ def main() -> int:
         emit({"phase": "build", "sass": "cuobjdump is not in the toolkit: "
               "the HGMMA and UTMALDG counts are not checked"})
     hopper = {}
-    for source, kernel in WGMMA_KERNELS.items():
+    for source, kernels in WGMMA_KERNELS.items():
         regs = {n: r for n, r in ptxas_by_kernel(built[source].log).items()
-                if kernel in n}
+                if any(k in n for k in kernels)}
         sass = {} if cuobjdump is None else {
             n: c for n, c in sass_counts(cuobjdump, built[source].path
-                                         ).items() if kernel in n}
-        if not regs:
-            raise SystemExit(f"build: no ptxas report of {kernel} in "
-                             f"{source}'s build log")
-        if cuobjdump is not None and not sass:
-            raise SystemExit(f"build: no {kernel} in {source}'s SASS")
+                                         ).items()
+            if any(k in n for k in kernels)}
+        for kernel in kernels:
+            if not any(kernel in n for n in regs):
+                raise SystemExit(f"build: no ptxas report of {kernel} in "
+                                 f"{source}'s build log")
+            if cuobjdump is not None and not any(kernel in n for n in sass):
+                raise SystemExit(f"build: no {kernel} in {source}'s SASS")
         for mangled, counts in sass.items():
             if not (counts["HGMMA"] and counts["UTMALDG"]):
                 raise SystemExit(f"build: {mangled} has {counts} in its "

@@ -14,11 +14,13 @@ The alignment is the kernels' own granularity, not the TPU's 8 x 128:
 micro-tile of the output (:data:`TILE`), so its bm and bn are multiples of
 8 and a 128 x 128 tile takes its 256 threads; ``csrc/fir_conv1d.cu`` runs
 256 threads over a block of channels x output positions.  The tiles
-returned here are the ones those kernels launch with.  The bf16 wgmma
-matmul kernel runs its own tiles (128 x 128 outputs, 64-wide K slices in a
-4-stage ring of 128 KB), so :func:`matmul_tiles` does not size it; the
-tiles are still checked when it runs.  This is the one module of the port
-whose numbers differ from the JAX package's by design.
+returned here are the ones those kernels launch with.  The matmul's
+tensor-core kernels run their own tiles (128 x 128 outputs fed by a
+4-stage ring: 64-wide K slices for bf16 on wgmma, 32-wide for f32 as
+3xTF32, whose split over K ``dense_matmul.tf32x3_plan`` chooses), so
+:func:`matmul_tiles` does not size them; the tiles are still checked when
+they run.  This is the one module of the port whose numbers differ from
+the JAX package's by design.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@
 // output tile in a f32 VMEM accumulator and commits it once.  Here one
 // thread block owns one output tile and loops over K itself, the
 // accumulators in registers.  Ragged M, N and K are handled here, so the
-// caller pads nothing.  Two kernels, chosen by the wrapper from the
+// caller pads nothing.  Three kernels, chosen by the wrapper from the
 // operands before the launch (dense_matmul.py:matmul_path):
 //
 // * matmul_wgmma_kernel: bf16 on the tensor cores, for contiguous,
@@ -25,8 +25,31 @@
 //   The f32 accumulators are rounded to bf16 once (round to nearest
 //   even), as _matmul_kernel's single astype does.  Layout rules of the
 //   tiles and descriptors: hopper.cuh.
-// * matmul_kernel: f32, and bf16 operands the wgmma kernel does not take,
-//   on the CUDA cores.  The tiles (bm, bk, bn) are the caller's; the
+// * matmul_tf32x3_kernel: f32 on the tensor cores as 3xTF32, for the f32
+//   operands TMA can read (contiguous, 16-byte aligned, K and N multiples
+//   of 4).  The same shape of kernel as the bf16 one (128 x 128 output
+//   tiles, a producer warpgroup feeding a 4-stage TMA ring, two consumer
+//   warpgroups on wgmma m64n128) with block_sparse_fc_hopper_kernel's
+//   arithmetic (sparse_fc.cu): each operand split into two tf32 parts
+//   rounded to nearest, three of the four products, a partial accumulator
+//   a 32-wide K slice added on the CUDA cores, the two small products in
+//   an accumulator of their own.  Two things differ:
+//   - w is MN-major and tf32 wgmma has no transpose bit, so the split
+//     transposes it: w's slice lands as four 32 x 32 boxes, and the
+//     consumers write its hi and lo parts K-major into a set of split
+//     tiles (x's hi stays in place and its lo goes to the same set).  Two
+//     sets, and a barrier that keeps a warpgroup from refilling one before
+//     the other's products have read it, fit beside the 4 stages (225 KB).
+//   - To fill the card when the tiles are few (24 at 512 x 1024 x 768),
+//     K is split over a cluster of 1, 2 or 4 CTAs (the wrapper chooses,
+//     dense_matmul.py:tf32x3_plan).  Each sums its share of the slices;
+//     then each writes its partial tile to its shared memory, and CTA r of
+//     the cluster adds rows r * 128 / split .. of all of them, read through
+//     distributed shared memory in rank order, and stores them.  The sum
+//     has the same order in every run (no atomics), so the output is the
+//     same bit for bit.
+// * matmul_kernel: f32 and bf16 operands that neither tensor-core kernel
+//   takes, on the CUDA cores.  The tiles (bm, bk, bn) are the caller's; the
 //   accumulators are an 8 x 8 micro-tile per thread, so a block has
 //   (bm / 8) * (bn / 8) threads.  Each K slice of x (stored transposed,
 //   rows padded by one against bank conflicts) and of w is staged in
@@ -37,13 +60,16 @@
 //   rounded to bf16 once.
 //
 // What bounds it on an H100: a large product is bound by operations, 2MNK
-// over 989 TFLOP/s for bf16 on the tensor cores and over 67 TFLOP/s for f32
-// on the CUDA cores.  The wgmma kernel keeps the tensor cores fed from a
-// TMA ring that no thread spends instructions on; what it leaves to later
-// work is a persistent grid (one tile's epilogue over the next one's
-// loads), clusters with TMA multicast, and a TMA store of the output.  The
-// f32 kernel feeds its FMAs from shared memory with scalar loads, 16 loads
-// for 64 FMAs, with one stage and no copy/compute overlap.
+// over 989 TFLOP/s for bf16 on the tensor cores, three times that over
+// 494.7 TFLOP/s for 3xTF32, and 2MNK over 67 TFLOP/s for f32 on the CUDA
+// cores.  The wgmma kernels keep the tensor cores fed from a TMA ring that
+// no thread spends instructions on; the 3xTF32 one also spends shared-
+// memory bandwidth on its split, and waits each slice for its partial sum.
+// What they leave to later work is a persistent grid (one tile's epilogue
+// over the next one's loads), clusters with TMA multicast, and a TMA store
+// of the output.  The CUDA-core kernel feeds its FMAs from shared memory
+// with scalar loads, 16 loads for 64 FMAs, with one stage and no
+// copy/compute overlap.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -269,6 +295,276 @@ static int launch_wgmma(const void* x, const void* w, void* out, int m, int k,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32 on the tensor cores: 3xTF32 wgmma fed by a TMA ring, K split over a
+// cluster
+// ---------------------------------------------------------------------------
+
+#define TF_BM 128                  // output rows of a CTA (two warpgroups)
+#define TF_BN 128                  // output columns of a CTA
+#define TF_BK 32                   // K slice: one 128-byte swizzle row of f32
+#define TF_STAGES 4                // raw slices in flight
+#define TF_SETS 2                  // split slices (x lo, w hi, w lo)
+#define TF_MAX_SPLIT 4             // CTAs of a cluster that share one tile
+#define TF_LD 136                  // row of the exchanged partial tile, f32
+
+constexpr uint32_t TF_X_BYTES = TF_BM * 128;              // x box, 16 KB
+constexpr uint32_t TF_W_BOX = TF_BK * 128;                // 32 k x 32 n, 4 KB
+constexpr uint32_t TF_STAGE = TF_X_BYTES + 4 * TF_W_BOX;  // 32 KB
+constexpr uint32_t TF_TILE = 128 * 128;                   // 128 K-major rows
+constexpr uint32_t TF_SET = 3 * TF_TILE;                  // 48 KB
+constexpr size_t TF_SMEM = 1024 + TF_STAGES * TF_STAGE + TF_SETS * TF_SET +
+                           2 * TF_STAGES * 8;
+
+static_assert(TF_BM == 2 * 64 && TF_BN == 4 * 32 && TF_BK == 32,
+              "two warpgroups of 64 rows, wgmma m64n128, four 32-column w "
+              "boxes, a 128-byte K row of f32");
+static_assert(TF_SMEM <= 232448, "more shared memory than a CTA can have");
+static_assert(TF_BM * TF_LD * 4 <= TF_STAGES * TF_STAGE,
+              "the partial tile is exchanged in the ring's place");
+
+// out (m, n) = x (m, k) @ w (k, n), f32, as 3xTF32 (sparse_fc.cu gives the
+// arithmetic and why it stays near f32).  A cluster of gridDim.z CTAs shares
+// one 128 x 128 output tile; CTA z sums K slices z per .. z per + per - 1.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    matmul_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         float* __restrict__ out, int m, int k, int n,
+                         int per) {
+  using namespace hopper;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // stage s at tiles + s TF_STAGE (tiles: smem rounded up to 1024 bytes):
+  // x's box (128 rows of 128 bytes), then w's four boxes (32 k rows of 32
+  // n); split set q at sets + q TF_SET: x lo (same layout as x's box), w
+  // hi and w lo (128 n rows of 32 k, K-major)
+  const uint32_t smem0 = smem_addr(smem);
+  const uint32_t tiles = (smem0 + 1023) & ~1023u;
+  const uint32_t sets = tiles + TF_STAGES * TF_STAGE;
+  const uint32_t bars = sets + TF_SETS * TF_SET;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (TF_STAGES + s); };
+  unsigned char* const gtiles = smem + (tiles - smem0);
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.y * TF_BM, n0 = blockIdx.x * TF_BN;
+  const int rank = blockIdx.z, split = gridDim.z;   // the cluster is (1, 1, split)
+  const int first = rank * per;
+  const int n_slices = max(0, min((k + TF_BK - 1) / TF_BK, first + per) -
+                                  first);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TF_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WG_CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full, then the warpgroup joins
+    // the cluster's two barriers of the exchange
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int it = 0; it < n_slices; ++it) {
+        const int s = it % TF_STAGES;
+        const int k0 = (first + it) * TF_BK;
+        mbar_wait(empty(s), ((it / TF_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(s), TF_STAGE);
+        const uint32_t t = tiles + s * TF_STAGE;
+        tma_load_2d(t, &xmap, full(s), k0, m0);
+        for (int b = 0; b < 4; ++b)
+          tma_load_2d(t + TF_X_BYTES + b * TF_W_BOX, &wmap, full(s),
+                      n0 + 32 * b, k0);
+      }
+    }
+    __syncwarp();
+    cluster_sync();
+    cluster_sync();
+    return;
+  }
+
+  // consumers: warpgroup c owns output rows m0 + 64 c .. + 63
+  setmaxnreg_inc<232>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x & 127, u = threadIdx.x - 128;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  float acc[64], part[64], small[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    acc[j] = 0.0f;
+    small[j] = 0.0f;
+  }
+  // Wait for slice it and split it into set it % TF_SETS, both warpgroups
+  // together: x's 128 rows (this warpgroup's 64, 512 float4: hi in place, lo
+  // to the set's x lo at the same offset), and w's 32 x 128, transposed on
+  // the way (tf32 wgmma has no transpose bit).  w's split: 512 pieces of 4 k
+  // x 2 n, two a thread; a piece is read as 4 float2 (4 k rows of a raw box,
+  // row k's 16-byte chunk cc stored at chunk cc ^ (k % 8)) and written as
+  // 2 float4 to w hi and 2 to w lo (n row's chunk kg stored at kg ^ (n %
+  // 8)).  Warp w's pieces in round r lie in box b = (w + 8 r) / 4; lane t
+  // takes the n pair e = t % 2 of chunk cc = t / 2 % 8 and k group kg below,
+  // so that each half-warp's float2 reads and each quarter-warp's float4
+  // writes meet 16 different bank groups (8 for the writes): no conflicts.
+  // The first barrier keeps a warpgroup from overwriting the set before the
+  // other's products of slice it - TF_SETS have read it.
+  auto split_slice = [&](int it) {
+    const int s = it % TF_STAGES;
+    named_barrier_sync(2, 256);
+    mbar_wait(full(s), (it / TF_STAGES) & 1);
+    unsigned char* raw = gtiles + s * TF_STAGE;
+    unsigned char* set = gtiles + (sets - tiles) + (it % TF_SETS) * TF_SET;
+    // one piece at a time (no unrolling): part, small and acc hold 192 of
+    // the consumers' 232 registers while slice it - 1's products run
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j)
+      split_tf32(reinterpret_cast<float4*>(raw),
+                 reinterpret_cast<float4*>(set), c * 512 + tid + 128 * j);
+    const int e = lane & 1, cc = (lane >> 1) & 7;
+#pragma unroll 1
+    for (int r = 0; r < 2; ++r) {
+      const int wr = (u >> 5) + 8 * r, b = wr >> 2, p = wr & 3;
+      const int kg = ((lane >> 4) | (p << 1)) ^ (cc & 1) ^ ((cc & 2) << 1);
+      const unsigned char* box = raw + TF_X_BYTES + b * TF_W_BOX;
+      float2 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kk = 4 * kg + i;
+        v[i] = *reinterpret_cast<const float2*>(
+            box + kk * 128 + ((cc ^ (kk & 7)) << 4) + 8 * e);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int nn = 32 * b + 4 * cc + 2 * e + jj;
+        const float4 a = jj ? make_float4(v[0].y, v[1].y, v[2].y, v[3].y)
+                            : make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
+        float4 h, l;
+        split_tf32(a, h, l);
+        const int off = nn * 128 + ((kg ^ (nn & 7)) << 4);
+        *reinterpret_cast<float4*>(set + TF_TILE + off) = h;
+        *reinterpret_cast<float4*>(set + 2 * TF_TILE + off) = l;
+      }
+    }
+    fence_proxy_async();
+    named_barrier_sync(1, 256);
+  };
+  // As in sparse_fc.cu: a slice's x_hi w_hi products sum into part, which
+  // the CUDA cores add to acc (the tensor cores sum 32 K terms of it at a
+  // time); the small products x_hi w_lo + x_lo w_hi sum over the CTA's K
+  // into small.
+  if (n_slices > 0) split_slice(0);
+  for (int it = 0; it < n_slices; ++it) {
+    const int s = it % TF_STAGES;
+    const uint32_t set = sets + (it % TF_SETS) * TF_SET;
+    const uint32_t ah = tiles + s * TF_STAGE + c * 64 * 128;  // x hi rows
+    const uint32_t al = set + c * 64 * 128;                   // x lo rows
+    const uint32_t bh = set + TF_TILE, bl = set + 2 * TF_TILE;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      // all K-major: k-step ks is 32 bytes (8 f32) into each row
+      const uint64_t dah = desc_sw128(ah + 32 * ks, 16, 1024);
+      const uint64_t dal = desc_sw128(al + 32 * ks, 16, 1024);
+      const uint64_t dbh = desc_sw128(bh + 32 * ks, 16, 1024);
+      const uint64_t dbl = desc_sw128(bl + 32 * ks, 16, 1024);
+      wgmma_m64n128k8_tf32_ss(small, dah, dbl, 1);
+      wgmma_m64n128k8_tf32_ss(small, dal, dbh, 1);
+      wgmma_m64n128k8_tf32_ss(part, dah, dbh, ks > 0);
+    }
+    wgmma_commit();
+    fence_regs(part);
+    fence_regs(small);
+    if (it + 1 < n_slices) split_slice(it + 1);   // beside slice it's products
+    wgmma_wait<0>();
+    fence_regs(part);
+    fence_regs(small);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] += part[j];
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] += small[j];
+
+  // The CTA's partial tile goes to shared memory in the ring's place, rows
+  // of TF_LD f32 (8 banks apart, so each half-warp's float2 stores meet 16
+  // different bank pairs); CTA rank then sums rows rank * 128 / split ..
+  // of every CTA's tile in rank order (the same order in every run) and
+  // stores them, a warp a 512-byte row.
+  // acc[j]: row r (+ 8 if j & 2), columns 8 (j / 4) + 2 (lane % 4) + (j & 1)
+  named_barrier_sync(1, 256);     // both warpgroups' products are done
+  float* ptile = reinterpret_cast<float*>(gtiles);
+  const int r0 = c * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 64; j += 2)
+    *reinterpret_cast<float2*>(ptile + (r0 + ((j & 2) ? 8 : 0)) * TF_LD +
+                               (j >> 2) * 8 + (lane & 3) * 2) =
+        make_float2(acc[j], acc[j + 1]);
+  cluster_sync();
+  const int rows = TF_BM / split;
+  for (int e = u; e < rows * 32; e += 256) {
+    const int row = rank * rows + (e >> 5), col = 4 * (e & 31);
+    const uint32_t addr = tiles + 4 * (row * TF_LD + col);
+    float4 sum = ld_cluster_f4(addr, 0);
+    for (int q = 1; q < split; ++q) {
+      const float4 v = ld_cluster_f4(addr, q);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const long long grow = m0 + row;
+    const int gcol = n0 + col;
+    if (grow < m && gcol < n)       // n is a multiple of 4: gcol + 3 < n
+      *reinterpret_cast<float4*>(out + grow * n + gcol) = sum;
+  }
+  cluster_sync();                 // no CTA leaves while its tile is read
+}
+
+static int launch_tf32x3(const void* x, const void* w, float* out, int m,
+                         int k, int n, int split, cudaStream_t stream) {
+  if (split < 1 || split > TF_MAX_SPLIT || TF_BM % split)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[2] = {(uint64_t)k, (uint64_t)m};   // innermost first
+  const uint32_t xbox[2] = {TF_BK, TF_BM};
+  const uint64_t wdims[2] = {(uint64_t)n, (uint64_t)k};
+  const uint32_t wbox[2] = {32, TF_BK};
+  int err = hopper::make_tensor_map(&xmap, x, 2, xdims, xbox,
+                                    CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (err == 0)
+    err = hopper::make_tensor_map(&wmap, w, 2, wdims, wbox,
+                                  CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (err != 0) return err;
+  // the shared-memory opt-in, once a device (a call costs microseconds)
+  static bool opted_in[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !opted_in[dev]) {
+    e = cudaFuncSetAttribute(matmul_tf32x3_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)TF_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) opted_in[dev] = true;
+  }
+  const int slices = (k + TF_BK - 1) / TF_BK;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + TF_BN - 1) / TF_BN, (m + TF_BM - 1) / TF_BM, split);
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = TF_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = split;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, matmul_tf32x3_kernel, xmap, wmap, out, m, k,
+                         n, (slices + split - 1) / split);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // The micro-tile edge and the most threads a block may have; the wrapper
@@ -277,6 +573,11 @@ int dense_matmul_tile() { return TILE; }
 int dense_matmul_max_threads() { return MAX_THREADS; }
 // The wgmma kernel's output tile edge (BM = BN).
 int dense_matmul_wgmma_tile() { return WG_BM; }
+// The tf32x3 kernel's output tile edge (BM = BN), its K slice and the most
+// CTAs that split one tile's K.
+int dense_matmul_tf32x3_tile() { return TF_BM; }
+int dense_matmul_tf32x3_slice() { return TF_BK; }
+int dense_matmul_tf32x3_max_split() { return TF_MAX_SPLIT; }
 
 // out (m, n) = x (m, k) @ w (k, n), all row-major and contiguous, f32
 // (bf16 = 0) or bf16 (bf16 = 1).  bm and bn are multiples of TILE with
@@ -297,6 +598,17 @@ int dense_matmul_launch(const void* x, const void* w, void* out, int m,
 int dense_matmul_wgmma_launch(const void* x, const void* w, void* out, int m,
                               int k, int n, void* stream) {
   return launch_wgmma(x, w, out, m, k, n, (cudaStream_t)stream);
+}
+
+// out (m, n) = x (m, k) @ w (k, n) on the tf32x3 kernel: f32, row-major and
+// contiguous, x and w 16-byte aligned, k and n multiples of 4, m, k, n >= 1,
+// (m + 127) / 128 <= 65535; K split over `split` CTAs (1, 2 or 4) of a
+// cluster; the wrapper checks them.  Returns 0 on success, else a
+// cudaError_t (from building a tensor map or from the launch).
+int dense_matmul_tf32x3_launch(const void* x, const void* w, void* out,
+                               int m, int k, int n, int split, void* stream) {
+  return launch_tf32x3(x, w, static_cast<float*>(out), m, k, n, split,
+                       (cudaStream_t)stream);
 }
 
 }  // extern "C"

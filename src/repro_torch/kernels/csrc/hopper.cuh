@@ -1,9 +1,11 @@
-// Hopper (sm_90a) machinery shared by the bf16 GEMM (dense_matmul.cu), the
-// bf16 attention kernel (flash_attention.cu) and the block-sparse FC
-// (sparse_fc.cu, bf16 and 3xTF32 f32): TMA tensor maps on the host; mbarrier
-// rings, TMA loads, wgmma descriptors and products, named barriers and
-// setmaxnreg on the device.  Each device helper is one PTX instruction (or a
-// loop around one), named in the line above it.
+// Hopper (sm_90a) machinery shared by the GEMMs (dense_matmul.cu: bf16, and
+// f32 as 3xTF32), the bf16 attention kernel (flash_attention.cu) and the
+// block-sparse FC (sparse_fc.cu, bf16 and 3xTF32 f32): TMA tensor maps on
+// the host; mbarrier rings, TMA loads, wgmma descriptors and products, named
+// and cluster barriers, loads from another CTA's shared memory, setmaxnreg
+// and the 3xTF32 split on the device.  Each device helper is one PTX
+// instruction (or a loop around one, or the pair a barrier needs), named in
+// the line above it.
 //
 // The layout rules that every tile in shared memory follows
 // ----------------------------------------------------------
@@ -40,11 +42,12 @@
 // tf32 (wgmma .tf32): both operands K-major from shared memory, each
 // element an f32 word of which the product takes the sign, the exponent and
 // the upper 10 mantissa bits.  What becomes of the lower 13 (dropped or
-// rounded) is not relied on here: the 3xTF32 kernel hands wgmma only words
-// whose lower 13 bits are 0, or whose loss it can afford (sparse_fc.cu).  A
-// row of 128 bytes is 32 f32, four k-steps of 8.  There is no transpose
-// bit, so an operand stored MN-major cannot be read; x (N, K) and a weight
-// block (bm, bk), both row-major, are K-major as stored.
+// rounded) is not relied on here: the 3xTF32 kernels hand wgmma only words
+// whose lower 13 bits are 0 (split_tf32 below).  A row of 128 bytes is 32
+// f32, four k-steps of 8.  There is no transpose bit, so an operand stored
+// MN-major cannot be read: x (N, K) and a weight block (bm, bk), both
+// row-major, are K-major as stored, but w (K, N) of a dense product is not,
+// and dense_matmul.cu writes its tf32 parts out K-major as it splits it.
 //
 // A tensor map is built on the host for each launch and passed by value as
 // a `const __grid_constant__ CUtensorMap` kernel parameter.
@@ -381,6 +384,63 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64],
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// device: thread block clusters
+// ---------------------------------------------------------------------------
+
+// barrier.cluster.arrive + barrier.cluster.wait (release, then acquire):
+// every thread of every CTA of the cluster waits for all the others, and
+// what each wrote to shared memory before is seen by reads after it from any
+// CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" :::
+                   "memory");
+}
+
+// mapa.shared::cluster.u32 + ld.shared::cluster.v4.f32: the four f32 at
+// shared address `addr` (a CTA-local address, the same in every CTA of the
+// kernel) of the cluster's CTA `rank`
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t remote;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// device: the 3xTF32 split (sparse_fc.cu, dense_matmul.cu)
+// ---------------------------------------------------------------------------
+
+// a rounded to tf32 (11 significant bits, ties away from zero): its lower
+// 13 mantissa bits rounded off into the bits above and cleared
+__device__ __forceinline__ float tf32_rn(float a) {
+  return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xFFFFE000u);
+}
+
+// The two tf32 parts of the four words a: hi = tf32(a), lo = tf32(a - hi)
+__device__ __forceinline__ void split_tf32(const float4& a, float4& hi,
+                                           float4& lo) {
+  hi = make_float4(tf32_rn(a.x), tf32_rn(a.y), tf32_rn(a.z), tf32_rn(a.w));
+  lo = make_float4(tf32_rn(a.x - hi.x), tf32_rn(a.y - hi.y),
+                   tf32_rn(a.z - hi.z), tf32_rn(a.w - hi.w));
+}
+
+// Split the four words at raw[i]: hi = tf32(a) back in place, lo =
+// tf32(a - hi) to lo[i]
+__device__ __forceinline__ void split_tf32(float4* raw, float4* lo, int i) {
+  float4 h, l;
+  split_tf32(raw[i], h, l);
+  lo[i] = l;
+  raw[i] = h;
 }
 
 }  // namespace hopper

@@ -184,23 +184,6 @@ constexpr size_t hopper_smem() {
          2 * HopperTiles<TF32>::STAGES * 8;
 }
 
-// a rounded to tf32 (11 significant bits, ties away from zero): its lower
-// 13 mantissa bits rounded off into the bits above and cleared
-__device__ __forceinline__ float tf32_rn(float a) {
-  return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xFFFFE000u);
-}
-
-// Split the four words at raw[i]: hi = tf32(a) back in place, lo =
-// tf32(a - hi) to lo[i]
-__device__ __forceinline__ void split_tf32(float4* raw, float4* lo, int i) {
-  const float4 a = raw[i];
-  const float4 h = make_float4(tf32_rn(a.x), tf32_rn(a.y), tf32_rn(a.z),
-                               tf32_rn(a.w));
-  lo[i] = make_float4(tf32_rn(a.x - h.x), tf32_rn(a.y - h.y),
-                      tf32_rn(a.z - h.z), tf32_rn(a.w - h.w));
-  raw[i] = h;
-}
-
 template <bool TF32>
 __global__ void __launch_bounds__(HP_THREADS, 1)
     block_sparse_fc_hopper_kernel(const __grid_constant__ CUtensorMap xmap,

@@ -10,19 +10,26 @@ one thread block owns one output tile and loops over K itself, with the
 accumulators in registers.  The kernels handle ragged edges, so unlike the
 Pallas kernel they take any M, K and N.
 
-Two kernels, chosen from the operands before the launch by
+Three kernels, chosen from the operands before the launch by
 :func:`matmul_path`: ``"wgmma"``, bf16 on the tensor cores with its own
-128 x 128 tiles fed by a TMA ring, for operands TMA can read; ``"simt"``,
-the CUDA-core kernel at the caller's tiles, for everything else (f32, or
-bf16 that is misaligned or has K or N off a multiple of 8).  A pair of
-one f32 and one bf16 operand is computed as the JAX package computes it,
-in f32: the bf16 operand is widened, the f32 kernel runs, and the output
-is returned in x's dtype.
+128 x 128 tiles fed by a TMA ring, and ``"tf32x3"``, f32 on the tensor
+cores as 3xTF32 (each operand split into two tf32 parts, three products)
+with the same tiles and K split over a cluster of CTAs where the tiles
+are too few to fill the card (:func:`tf32x3_plan`), each for operands TMA
+can read; ``"simt"``, the CUDA-core kernel at the caller's tiles, for
+everything else (operands that are misaligned, not contiguous, or have K
+or N off a multiple of 8 for bf16 or of 4 for f32).  A pair of one f32
+and one bf16 operand is computed as the JAX package computes it, in f32:
+the bf16 operand is widened, an f32 kernel runs, and the output is
+returned in x's dtype.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +41,14 @@ from .ref import matmul_ref
 DTYPES = (torch.float32, torch.bfloat16)
 #: The wgmma kernel's output tile edge (BM = BN).
 WGMMA_TILE = 128
+#: The tf32x3 kernel's output tile edge (BM = BN), its K slice (one
+#: 128-byte row of f32) and the most CTAs of a cluster that split one
+#: tile's K between them.
+TF32X3_TILE = 128
+TF32X3_SLICE = 32
+TF32X3_MAX_SPLIT = 4
+#: SMs of an H100 SXM: the grid that the tf32x3 kernel's split over K fills.
+SMS = 132
 _INT_MAX = 2**31 - 1
 _GRID_Y_MAX = 65535
 
@@ -51,34 +66,84 @@ def _library():
             (TILE, MATMUL_MAX_THREADS):
         raise RuntimeError("csrc/dense_matmul.cu was built for another "
                            "micro-tile than calibrate.py's")
-    lib.dense_matmul_wgmma_tile.restype = ctypes.c_int
-    lib.dense_matmul_wgmma_tile.argtypes = []
+    for fn in (lib.dense_matmul_wgmma_tile, lib.dense_matmul_tf32x3_tile,
+               lib.dense_matmul_tf32x3_slice,
+               lib.dense_matmul_tf32x3_max_split):
+        fn.restype, fn.argtypes = ctypes.c_int, []
     if lib.dense_matmul_wgmma_tile() != WGMMA_TILE:
         raise RuntimeError("csrc/dense_matmul.cu was built for another "
                            "wgmma tile than dense_matmul.py's")
+    if (lib.dense_matmul_tf32x3_tile(), lib.dense_matmul_tf32x3_slice(),
+            lib.dense_matmul_tf32x3_max_split()) != \
+            (TF32X3_TILE, TF32X3_SLICE, TF32X3_MAX_SPLIT):
+        raise RuntimeError("csrc/dense_matmul.cu was built for another "
+                           "tf32x3 tile, slice or split than "
+                           "dense_matmul.py's")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dense_matmul_launch.restype = i
     lib.dense_matmul_launch.argtypes = [p, p, p] + [i] * 7 + [p]
     lib.dense_matmul_wgmma_launch.restype = i
     lib.dense_matmul_wgmma_launch.argtypes = [p, p, p] + [i] * 3 + [p]
+    lib.dense_matmul_tf32x3_launch.restype = i
+    lib.dense_matmul_tf32x3_launch.argtypes = [p, p, p] + [i] * 4 + [p]
     lib._bound = True
     return lib
 
 
+#: The tensor-core kernel of each dtype, and the multiple of 16 bytes that
+#: K and N must be in that dtype.
+_TMA_PATHS = {torch.bfloat16: ("wgmma", 8), torch.float32: ("tf32x3", 4)}
+
+
 def matmul_path(x: torch.Tensor, w: torch.Tensor) -> str:
-    """Which kernel takes x @ w on the card: ``"wgmma"`` when both are bf16,
-    contiguous and 16-byte aligned with K and N multiples of 8 and no
-    dimension 0 (what a TMA tensor map reads), else ``"simt"``.  Decided
-    from the operands alone, before any launch."""
+    """Which kernel takes x @ w on the card: ``"wgmma"`` when both are bf16
+    and ``"tf32x3"`` when both are f32, each only if both are contiguous
+    and 16-byte aligned with K and N spanning a multiple of 16 bytes (8
+    bf16, 4 f32) and no dimension 0 (what a TMA tensor map reads); else
+    ``"simt"``.  Decided from the operands alone, before any launch."""
+    path, mult = _TMA_PATHS.get(x.dtype, ("simt", 0))
     m, k = x.shape
     n = w.shape[1]
-    tma = all(t.dtype == torch.bfloat16 and t.is_contiguous()
-              and t.data_ptr() % 16 == 0 for t in (x, w))
-    if tma and min(m, k, n) > 0 and k % 8 == 0 and n % 8 == 0:
-        return "wgmma"
+    if mult and w.dtype == x.dtype and m and k and n \
+            and k % mult == 0 and n % mult == 0 \
+            and x.is_contiguous() and w.is_contiguous() \
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0:
+        return path
     return "simt"
 
 
+class Tf32x3Plan(NamedTuple):
+    """How the tf32x3 kernel covers a product: (bm, bn) output tiles, and
+    K split over ``split`` CTAs of a cluster for each tile."""
+    bm: int
+    bn: int
+    split: int
+
+    def ctas(self, m: int, n: int) -> int:
+        return -(-m // self.bm) * -(-n // self.bn) * self.split
+
+
+@functools.lru_cache(maxsize=256)
+def tf32x3_plan(m: int, k: int, n: int) -> Tf32x3Plan:
+    """The tf32x3 kernel's tiles and split for (m, k) @ (k, n), from the
+    shape alone: 128 x 128 output tiles, and K split the most ways of 4,
+    2 and 1 that keeps the grid within one wave of :data:`SMS` CTAs (one
+    CTA an SM) and leaves every CTA a 32-wide K slice.  At 512 x 1024 x 768
+    the 24 tiles take a split of 4 (96 CTAs); at 4096^3 the 1,024 tiles
+    take none."""
+    plan = Tf32x3Plan(TF32X3_TILE, TF32X3_TILE, 1)
+    slices = -(-k // TF32X3_SLICE)
+    split = TF32X3_MAX_SPLIT
+    while split > 1:
+        per = -(-slices // split)
+        if plan._replace(split=split).ctas(m, n) <= SMS \
+                and (split - 1) * per < slices:
+            return plan._replace(split=split)
+        split //= 2
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
 def check_tiles(bm: int, bk: int, bn: int, bytes_per_el: int) -> None:
     """Raise ``ValueError`` unless the kernel can launch with these tiles."""
     t = MatmulTiles(bm, bk, bn)
@@ -109,55 +174,75 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int, bk: int,
 
     CPU tensors take the plain version (:func:`~.ref.matmul_ref`, which
     has no tiles); CUDA tensors, f32 or bf16, launch the kernel that
-    :func:`matmul_path` names on the current stream: the wgmma kernel with
-    its own tiles, or the CUDA-core kernel with (bm, bk, bn).  A pair of
-    one f32 and one bf16 operand runs the f32 kernel on the bf16 one
-    widened, its output rounded once to x's dtype.  Launches are counted
-    in ``matmul.launches`` and, by kernel, in ``matmul.launches_by_path``.
+    :func:`matmul_path` names on the current stream: a tensor-core kernel
+    with its own tiles (the tf32x3 one split as :func:`tf32x3_plan` says),
+    or the CUDA-core kernel with (bm, bk, bn).  A pair of one f32 and one
+    bf16 operand runs an f32 kernel on the bf16 one widened, its output
+    rounded once to x's dtype.  Launches are counted in
+    ``matmul.launches`` and, by kernel, in ``matmul.launches_by_path``.
     Tiles the CUDA-core kernel cannot take (at the wider operand's size)
-    raise ``ValueError`` on either device and on either path."""
+    raise ``ValueError`` on either device and on every path."""
     _check_operands(x, w, bm, bk, bn)
     if x.device.type == "cpu":
         return matmul_ref(x, w)
+    _check_cuda(x)
     if x.dtype != w.dtype and {x.dtype, w.dtype} <= set(DTYPES):
         x32, w32 = x.float(), w.float()
-        return launch(x32, w32, matmul_path(x32, w32), bm=bm, bk=bk,
-                      bn=bn).to(x.dtype)
-    return launch(x, w, matmul_path(x, w), bm=bm, bk=bk, bn=bn)
+        return _run(x32, w32, matmul_path(x32, w32), bm, bk, bn).to(x.dtype)
+    return _run(x, w, matmul_path(x, w), bm, bk, bn)
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, path: str, *, bm: int = 128,
            bk: int = 64, bn: int = 128) -> torch.Tensor:
-    """Launch kernel ``path`` (``"wgmma"`` or ``"simt"``) on CUDA tensors
-    and count it.  :func:`matmul` takes the path from :func:`matmul_path`;
-    naming ``"simt"`` for operands the wgmma kernel takes runs the
-    CUDA-core kernel on them, as timing the two side by side needs."""
+    """Launch kernel ``path`` (``"wgmma"``, ``"tf32x3"`` or ``"simt"``) on
+    CUDA tensors and count it.  :func:`matmul` takes the path from
+    :func:`matmul_path`; naming ``"simt"`` for operands a tensor-core
+    kernel takes runs the CUDA-core kernel on them, as timing the two side
+    by side needs."""
     _check_operands(x, w, bm, bk, bn)
-    device = x.device
-    if device.type != "cuda":
-        raise ValueError(f"matmul runs on CUDA or CPU tensors, got {device}")
-    _launch.check_input("x", x, device, DTYPES, 2)
-    _launch.check_input("w", w, device, (x.dtype,), 2)
+    _check_cuda(x)
     if path not in _wrapper.launches_by_path:
         raise ValueError(f"no matmul kernel {path!r}")
-    if path == "wgmma" and matmul_path(x, w) != "wgmma":
-        raise ValueError(f"the wgmma kernel does not take {x.dtype} "
+    if path != "simt" and matmul_path(x, w) != path:
+        raise ValueError(f"the {path} kernel does not take {x.dtype} "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    return _run(x, w, path, bm, bk, bn)
+
+
+def _check_cuda(x) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul runs on CUDA or CPU tensors, got "
+                         f"{x.device}")
+
+
+def _run(x, w, path: str, bm: int, bk: int, bn: int) -> torch.Tensor:
+    """Launch kernel ``path`` on CUDA operands whose shapes and tiles are
+    checked and that it takes, once dtypes and layouts are checked too."""
+    device = x.device
+    _launch.check_input("x", x, device, DTYPES, 2)
+    _launch.check_input("w", w, device, (x.dtype,), 2)
     m, k = x.shape
     n = w.shape[1]
-    rows = WGMMA_TILE if path == "wgmma" else bm
+    rows = {"wgmma": WGMMA_TILE, "tf32x3": TF32X3_TILE}.get(path, bm)
     if max(m, k, n) > _INT_MAX or -(-m // rows) > _GRID_Y_MAX:
         raise ValueError(f"({m}, {k}) @ ({k}, {n}) exceeds the kernel's "
                          f"grid")
-    out = torch.empty((m, n), dtype=x.dtype, device=device)
+    out = x.new_empty((m, n))
     if out.numel() == 0:
         return out
     lib = _library()
-    with torch.cuda.device(device):
+    # torch.cuda.device costs microseconds a call: enter it only to switch
+    with contextlib.nullcontext() \
+            if device.index == torch._C._cuda_getDevice() \
+            else torch.cuda.device(device):
         if path == "wgmma":
             err = lib.dense_matmul_wgmma_launch(
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
                 _launch.stream(device))
+        elif path == "tf32x3":
+            err = lib.dense_matmul_tf32x3_launch(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
+                tf32x3_plan(m, k, n).split, _launch.stream(device))
         else:
             err = lib.dense_matmul_launch(
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, bm, bk,
@@ -174,4 +259,4 @@ def launch(x: torch.Tensor, w: torch.Tensor, path: str, *, bm: int = 128,
 #: ``matmul`` still reads the counts off the original.
 _wrapper = matmul
 matmul.launches = 0
-matmul.launches_by_path = {"wgmma": 0, "simt": 0}
+matmul.launches_by_path = {"wgmma": 0, "tf32x3": 0, "simt": 0}

@@ -29,9 +29,11 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor,
     """x (M, K) @ w (K, N) through the tiled kernels.  ``tiles`` (by
     default :func:`~.calibrate.matmul_tiles`'s) are the CUDA-core kernel's:
     it honours them as given on the card, and they are refused with
-    ``ValueError`` if it cannot launch with them.  bf16 operands that the
-    wgmma kernel takes (``dense_matmul.matmul_path``) run on it with its
-    own 128 x 128 tiles and 64-wide K slices; the given tiles are still
+    ``ValueError`` if it cannot launch with them.  Operands that a
+    tensor-core kernel takes (``dense_matmul.matmul_path``) run on it with
+    its own 128 x 128 tiles: bf16 on the wgmma kernel (64-wide K slices),
+    f32 on the 3xTF32 one (32-wide K slices, K split over a cluster as
+    ``dense_matmul.tf32x3_plan`` chooses); the given tiles are still
     checked.  A pair of one f32 and one bf16 operand is computed in f32,
     as the JAX package promotes it, and returned in x's dtype."""
     m, k = x.shape

@@ -21,13 +21,13 @@ from typing import Callable
 from . import transformer
 from .config import ModelConfig, SUBQUADRATIC, ShapeCell
 
-#: ROADMAP.md Queue 4 items of the LM stack that the port does not run yet.
+#: ROADMAP.md Queue 1 items of the LM stack that the port does not run yet.
 NOT_PORTED = {
-    "decode_step": "ROADMAP.md Queue 4 item 2 (decode_step / init_cache)",
-    "init_cache": "ROADMAP.md Queue 4 item 2 (decode_step / init_cache)",
+    "decode_step": "ROADMAP.md Queue 1 item 13 (decode_step / init_cache)",
+    "init_cache": "ROADMAP.md Queue 1 item 13 (decode_step / init_cache)",
     "moe": transformer.MOE_ITEM,
-    "loss_fn": "ROADMAP.md Queue 4 item 5 (the losses and training)",
-    "families": "ROADMAP.md Queue 4 item 6 (the ssm, hybrid, encdec and "
+    "loss_fn": "ROADMAP.md Queue 1 item 16 (the losses and training)",
+    "families": "ROADMAP.md Queue 1 item 17 (the ssm, hybrid, encdec and "
                 "vlm families)",
 }
 

@@ -21,7 +21,7 @@ from .layers import (F32, attn_param_shapes, attention_block, dt,
                      init_from_shapes, mlp_block, mlp_param_shapes, rms_norm)
 
 #: Where the MoE block waits in ``ROADMAP.md``.
-MOE_ITEM = "ROADMAP.md Queue 4 item 4 (the MoE block)"
+MOE_ITEM = "ROADMAP.md Queue 1 item 15 (the MoE block)"
 
 
 def _refuse_moe(cfg: ModelConfig) -> None:

@@ -7,11 +7,12 @@ under ``chip_smoke.py``'s per-element rule -- count only their own
 launches, and send CPU tensors to the plain versions; so must the
 attention and SSD kernels, and the LM forward with the attention kernel
 must launch it once a layer and agree with the blockwise path.  The bf16
-matmul and attention have two kernels each, the block-sparse FC three
-(bf16 and 3xTF32 on the tensor cores, f32 on the CUDA cores): each case
-checks which one its operands take and counts that one's launch.  The
-3xTF32 outputs are also held to ``chip_smoke.py``'s ``tf32x3`` rule
-against the f64 product.  Every test skips, from
+attention has two kernels, the matmul and the block-sparse FC three each
+(bf16 and 3xTF32 on the tensor cores, the rest on the CUDA cores): each
+case checks which one its operands take and counts that one's launch.
+The 3xTF32 outputs are also held to ``chip_smoke.py``'s ``tf32x3`` rule
+against the f64 product, and the matmul's are run twice to show they are
+the same bit for bit.  Every test skips, from
 inside the test, where no card is visible; run them on the card with
 ``python -m pytest -m gpu``."""
 
@@ -210,9 +211,12 @@ def test_dense_matmul_kernel_equals_plain(shape, dtype, tiles):
     x = _cuda(rng.normal(size=(m, k)), x_dtype)
     w = _cuda(rng.normal(size=(k, n)), w_dtype)
     mod = _kmod("dense_matmul")
-    path = mod.matmul_path(x, w)
+    path = mod.matmul_path(x.float(), w.float()) if x_dtype != w_dtype \
+        else mod.matmul_path(x, w)
     assert path == ("wgmma" if x_dtype == w_dtype == torch.bfloat16
-                    and k % 8 == 0 and n % 8 == 0 else "simt")
+                    and k % 8 == 0 and n % 8 == 0 else "tf32x3"
+                    if torch.float32 in (x_dtype, w_dtype)
+                    and k % 4 == 0 and n % 4 == 0 else "simt")
     before = mod.matmul.launches
     on_path = mod.matmul.launches_by_path[path]
     got = dense_matmul(x, w, tiles=tiles and MatmulTiles(*tiles))
@@ -223,8 +227,54 @@ def test_dense_matmul_kernel_equals_plain(shape, dtype, tiles):
     assert got.dtype == x_dtype and got.device == x.device
     if x_dtype == torch.float32:    # tests/test_kernels.py's tolerance
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        if path == "tf32x3":
+            exact = x.double() @ w.double()
+            assert _tf32x3_holds(got, want, exact)
+            if tiles and w_dtype == torch.float32:
+                # the CUDA-core kernel at these tiles, on the same operands
+                bm, bk, bn = tiles
+                simt = mod.launch(x, w, "simt", bm=bm, bk=bk, bn=bn)
+                torch.testing.assert_close(simt, want, rtol=2e-4,
+                                           atol=2e-4)
     else:                           # one bf16 rounding of the output
         assert _bf16_matmul_holds(got, want)
+
+
+@pytest.mark.parametrize("shape", [
+    (200, 300, 100),     # ragged M, N and K (a K tail of 12)
+    (64, 4, 64), (13, 4, 36),         # K = 4: one slice, mostly zeros
+    (130, 36, 132),      # one row and four columns past a tile
+    (1, 4, 4),
+    (64, 60, 64),        # K split 2 ways, one slice each
+    (128, 1024, 256),    # K split 4 ways
+    (512, 160, 768),     # K split 2 ways, 5 slices: 3 and 2
+    (512, 1024, 768),    # the benchmark shape: 96 CTAs, split 4
+    (1024, 200, 500),    # MNIST's fc2: split 4, slices 2, 2, 2, 1
+    (1000, 1024, 512)])
+def test_tf32x3_kernel_equals_plain(shape):
+    """The 3xTF32 kernel on f32 operands TMA reads: within
+    tests/test_kernels.py's tolerance of the plain version and under
+    chip_smoke.py's tf32x3 rule against the f64 product, counted on its
+    own path, and bitwise the same when run again (the split-K partials
+    are added in a fixed order)."""
+    _need_card()
+    from repro_torch.kernels import dense_matmul, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    mod = _kmod("dense_matmul")
+    rng = np.random.default_rng(m + 3 * k + 7 * n)
+    x = _cuda(rng.normal(size=(m, k)))
+    w = _cuda(rng.normal(size=(k, n)))
+    assert mod.matmul_path(x, w) == "tf32x3"
+    on_path = mod.matmul.launches_by_path["tf32x3"]
+    got = dense_matmul(x, w)
+    again = dense_matmul(x, w)
+    torch.cuda.synchronize()
+    assert mod.matmul.launches_by_path["tf32x3"] == on_path + 2
+    want = ref.matmul_ref(x, w)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert _tf32x3_holds(got, want, x.double() @ w.double())
+    assert torch.equal(got, again)
 
 
 def test_dense_matmul_kernels_side_by_side():
@@ -249,6 +299,33 @@ def test_dense_matmul_kernels_side_by_side():
         mod.launch(x_off, w, "wgmma")
     with pytest.raises(ValueError, match="wgmma kernel does not take"):
         mod.launch(x.float(), w.float(), "wgmma")
+
+
+def test_tf32x3_and_simt_side_by_side():
+    """Both f32 kernels on operands the tf32x3 kernel takes agree with the
+    plain version; the tf32x3 kernel refuses operands TMA cannot read, and
+    bf16 ones."""
+    _need_card()
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mod = _kmod("dense_matmul")
+    rng = np.random.default_rng(10)
+    x = _cuda(rng.normal(size=(256, 512)))
+    w = _cuda(rng.normal(size=(512, 384)))
+    want = ref.matmul_ref(x, w)
+    for path in ("tf32x3", "simt"):
+        torch.testing.assert_close(mod.launch(x, w, path), want, rtol=2e-4,
+                                   atol=2e-4)
+    w_off = torch.empty(w.numel() + 2, dtype=w.dtype, device=w.device)
+    w_off = w_off[2:].view(w.shape)                 # 8 bytes off 16
+    w_off.copy_(w)
+    assert mod.matmul_path(x, w_off) == "simt"
+    torch.testing.assert_close(mod.matmul(x, w_off, bm=64, bk=64, bn=64),
+                               want, rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="tf32x3 kernel does not take"):
+        mod.launch(x, w_off, "tf32x3")
+    with pytest.raises(ValueError, match="tf32x3 kernel does not take"):
+        mod.launch(x.bfloat16(), w.bfloat16(), "tf32x3")
 
 
 def _fc_exact(fc, x):

@@ -35,7 +35,8 @@ def _at(shape, dtype=BF16, offset=0):
 
 
 # --------------------------------------------------------------------------
-# dense matmul: wgmma for bf16 that TMA reads, the CUDA-core kernel else
+# dense matmul: wgmma for bf16 and tf32x3 for f32 that TMA reads, the
+# CUDA-core kernel else
 # --------------------------------------------------------------------------
 
 _MATMUL_CASES = {
@@ -44,7 +45,19 @@ _MATMUL_CASES = {
     "ragged K and N, multiples of 8": ((200, 296, 104), {}, "wgmma"),
     "K tail of 8": ((64, 520, 136), {}, "wgmma"),
     "K = N = 8": ((1, 8, 8), {}, "wgmma"),
-    "f32": ((128, 256, 192), {"dtype": F32}, "simt"),
+    "f32": ((128, 256, 192), {"dtype": F32}, "tf32x3"),
+    "f32 K = 60": ((64, 60, 64), {"dtype": F32}, "tf32x3"),
+    "f32 K = 4, ragged M and N": ((13, 4, 36), {"dtype": F32}, "tf32x3"),
+    "f32 N = 10": ((64, 64, 10), {"dtype": F32}, "simt"),
+    "f32 w 8 bytes off": ((64, 64, 64), {"dtype": F32, "w_offset": 2},
+                          "simt"),
+    "f32 x 16 bytes off": ((64, 64, 64), {"dtype": F32, "x_offset": 4},
+                           "tf32x3"),
+    "f32 w transposed view": ((64, 64, 64), {"dtype": F32,
+                                             "w_transposed": True}, "simt"),
+    "f32 M = 0": ((0, 64, 64), {"dtype": F32}, "simt"),
+    "f32 x, bf16 w": ((128, 256, 192), {"dtype": F32, "w_dtype": BF16},
+                      "simt"),
     "bf16 x, f32 w": ((128, 256, 192), {"w_dtype": F32}, "simt"),
     "K = 60": ((64, 60, 64), {}, "simt"),
     "N = 100": ((64, 64, 100), {}, "simt"),
@@ -82,7 +95,40 @@ def test_matmul_cpu_calls_launch_no_kernel():
     out = mod.matmul(x, w, bm=128, bk=64, bn=128)
     assert torch.equal(out, _module("ref").matmul_ref(x, w))
     assert mod.matmul.launches_by_path == before
-    assert set(before) == {"wgmma", "simt"}
+    assert set(before) == {"wgmma", "tf32x3", "simt"}
+
+
+_TF32X3_PLANS = {
+    # (m, k, n): (split, CTAs); 128 x 128 tiles throughout
+    (512, 1024, 768): (4, 96),       # the benchmark shape: 24 tiles
+    (4096, 4096, 4096): (1, 1024),
+    (1024, 200, 500): (4, 128),      # MNIST's fc2: 32 tiles, 7 slices
+    (1000, 1024, 512): (4, 128),
+    (1024, 4096, 1024): (2, 128),    # 64 tiles: 4 ways would be 256 CTAs
+    (2048, 1024, 1024): (1, 128),
+    (64, 60, 64): (2, 2),            # 2 slices: one each
+    (512, 160, 768): (2, 48),        # 5 slices: 4 ways would leave one idle
+    (64, 4, 64): (1, 1),             # 1 slice
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_TF32X3_PLANS))
+def test_tf32x3_plan_fills_the_card(shape):
+    """``tf32x3_plan`` is a pure function of (M, K, N): 128 x 128 tiles and
+    K split 4, 2 or 1 ways, the most that keeps the grid within one wave
+    of 132 CTAs and every CTA at least one 32-wide K slice.  At the
+    benchmark shape 512 x 1024 x 768 that is at least 96 CTAs; at 4096^3
+    no split."""
+    mod = _module("dense_matmul")
+    m, k, n = shape
+    plan = mod.tf32x3_plan(m, k, n)
+    assert plan == mod.tf32x3_plan(m, k, n)
+    assert (plan.bm, plan.bn) == (mod.TF32X3_TILE,) * 2 == (128, 128)
+    assert (plan.split, plan.ctas(m, n)) == _TF32X3_PLANS[shape]
+    slices = -(-k // mod.TF32X3_SLICE)
+    per = -(-slices // plan.split)
+    assert (plan.split - 1) * per < slices          # no CTA without work
+    assert plan.split == 1 or plan.ctas(m, n) <= mod.SMS
 
 
 # --------------------------------------------------------------------------

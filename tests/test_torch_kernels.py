@@ -865,6 +865,70 @@ def test_tf32x3_rule_at_full_width(case):
         assert share > 100.0, share
 
 
+def _dense_tf32x3(x, w, split, small=True):
+    """x (M, K) @ w (K, N) as the dense tf32x3 kernel sums it: both
+    operands split as the kernel splits them (rounded); K in 32-wide
+    slices, cut into ``split`` runs of ceil(slices / split); in each run
+    every slice's x_hi w_hi summed in f32 (the partial the tensor cores
+    hand over a slice) and added to an accumulator, and the slice's two
+    small products added to an accumulator of their own (left out with
+    ``small=False``); then the runs' partials added in rank order."""
+    xh, wh = _tf32(x, True), _tf32(w, True)
+    xl, wl = _tf32(x - xh, True), _tf32(w - wh, True)
+    slices = -(-x.shape[1] // 32)
+    per = -(-slices // split)
+    out = None
+    for r in range(split):
+        acc = torch.zeros(x.shape[0], w.shape[1])
+        small_acc = torch.zeros_like(acc)
+        for s in range(r * per, min(slices, (r + 1) * per)):
+            ks = slice(32 * s, 32 * s + 32)
+            acc = acc + xh[:, ks] @ wh[ks]
+            small_acc = small_acc + (xh[:, ks] @ wl[ks] + xl[:, ks] @ wh[ks])
+        part = acc + small_acc if small else acc
+        out = part if out is None else out + part
+    return out
+
+
+_DENSE_TF32X3_CASES = {
+    # (shape, the shape whose split it takes, split, holds): the benchmark
+    # shape, K = 4096 split as 4096^3 is (not at all) and as its own plan
+    # splits it, and MNIST's fc2 (a K tail of 8)
+    "512x1024x768": ((512, 1024, 768), (512, 1024, 768), 4, True),
+    "256x4096x256 as at 4096^3": ((256, 4096, 256), (4096,) * 3, 1, True),
+    "256x4096x256": ((256, 4096, 256), (256, 4096, 256), 4, True),
+    "1024x200x500": ((1024, 200, 500), (1024, 200, 500), 4, True),
+    "512x1024x768, small products left out": (
+        (512, 1024, 768), (512, 1024, 768), 4, False),
+    "256x4096x256 as at 4096^3, small products left out": (
+        (256, 4096, 256), (4096,) * 3, 1, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DENSE_TF32X3_CASES))
+def test_tf32x3_rule_holds_dense_kernel_arithmetic(case):
+    """The dense tf32x3 kernel's own arithmetic (a partial sum per 32-wide
+    K slice, the small products apart, K split as ``tf32x3_plan`` splits
+    it, the partials added in rank order), emulated in plain PyTorch,
+    takes at most 0.5 of ``chip_smoke.py``'s ``tf32x3`` limit at the
+    benchmark shape, at K = 4096 (with 4096^3's split of 1, each output's
+    arithmetic there, and with its own) and at MNIST's fc2; left without
+    its small products it misses the limit by more than 100 times."""
+    cs = _chip_smoke()
+    (m, k, n), plan_shape, split, holds = _DENSE_TF32X3_CASES[case]
+    assert importlib.import_module("repro_torch.kernels.dense_matmul"
+                                   ).tf32x3_plan(*plan_shape).split == split
+    rng = np.random.default_rng(m + k + n)
+    x = _t(rng.normal(size=(m, k)))
+    w = _t(rng.normal(size=(k, n)))
+    got = _dense_tf32x3(x, w, split, small=holds)
+    share = cs.tf32x3_share(torch, got, x @ w, x.double() @ w.double())
+    if holds:
+        assert share <= 0.5, share
+    else:
+        assert share > 100.0, share
+
+
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_attention_block_gqa_matches_jax(use_kernel):
     """GQA (8 query heads over 2 kv heads) through the port's
