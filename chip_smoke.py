@@ -13,7 +13,9 @@ prints one JSON line per phase; any failure exits non-zero.
    power limit.  With no card visible the script exits non-zero at once.
 2. build   -- nvcc builds every kernel from the checkout's sources (one
    nvcc per source, all started together) and prints the ptxas register
-   and spill lines; for the Hopper kernels (the matmul's bf16 and 3xTF32
+   and spill lines, and each lane-kernel instantiation's and narrow
+   matmul kernel's registers, spill bytes and stack frame; for the Hopper
+   kernels (the matmul's bf16 and 3xTF32
    kernels, the bf16 attention kernel and the block-sparse FC's bf16 and
    3xTF32 kernels, on ``wgmma`` fed by TMA) it prints each one's
    registers and spill bytes
@@ -24,14 +26,21 @@ prints one JSON line per phase; any failure exits non-zero.
 3. kernel_vs_plain -- small random networks (seeded numpy) through the
    entry points, covering the flag combinations the tests cover; every
    kernel launch's inputs are replayed through the plain PyTorch version
-   on the card and every output channel must agree bitwise.
+   and through the lane kernel's direct design on the card, and every
+   output channel must agree bitwise.
 4. full_width -- the main path at the published widths: ``fleet_sweep``
    of ``mnist_net()`` under tails/adaptive, sonic/fixed and tails with the
    uplink radio, over thousands of devices.  Launch counts are zeroed
-   just before and read just after; every kernel must have launched.  The
-   kernel is held against the plain version on the first run's inputs,
-   and the first 4 lanes of a full-width ``har_net()`` replay are held
-   bitwise too.
+   just before and read just after; every run must have launched the
+   hoisted design and none the direct one.  Each run is relaunched on its
+   inputs with both designs, held bitwise, and each design timed (median
+   of 5 launches: ``ms`` and ``previous_ms``), beside the throughput bound
+   and the chain floor (the longest lane's rows x the dependent f64
+   operations on an event's shortest path x the f64 add's latency, which
+   a one-thread kernel measures on the card in SM cycles beside the SM
+   clock).  The kernel is held against the plain version on the first
+   run's inputs, and a full-width ``har_net()`` replay against the direct
+   design (every lane) and the plain version (its first 4 lanes).
 5. (part of 4) har_first_lanes.
 6. kernels_vs_plain -- the ``repro_torch.kernels`` entry points
    (``dense_matmul``, ``BlockSparseFC``, ``fir_conv1d``) at small seeded
@@ -41,13 +50,14 @@ prints one JSON line per phase; any failure exits non-zero.
    bitwise in both dtypes); each matmul and block-sparse case prints the
    kernel that took it (``path``: for the matmul ``wgmma`` for aligned
    bf16 and ``tf32x3`` for aligned f32 and mixed pairs, also with ragged
-   M, N and K and K split over 2 or 4 CTAs, ``simt`` for the rest and,
-   named, at explicit tiles; for the block-sparse FC ``wgmma`` for bf16
+   M, N and K and K split over 2 or 4 CTAs, ``narrow`` for N up to 64
+   otherwise (held bitwise against the CUDA-core kernel too), ``simt``
+   for the rest and, named, at explicit tiles; for the block-sparse FC
+   ``wgmma`` for bf16
    and ``tf32x3`` for f32 and mixed pairs in 128-row blocks, ``simt`` for
    other blocks and, named, for the 128-row ones too) and the largest
    share of its limit, and fails if it is not the one its shape calls
-   for.  The f32 outputs of the tensor-core kernels (and of the
-   block-sparse CUDA-core kernel run beside them) are also held to the
+   for.  The f32 outputs of the 3xTF32 kernels are also held to the
    ``tf32x3`` rule against the f64 product, and each ``tf32x3`` matmul is
    run twice and must give the same bits.
 7. kernels_full_width -- the same entry points at the repo's benchmark
@@ -62,14 +72,18 @@ prints one JSON line per phase; any failure exits non-zero.
    4096^3 and 512 x 1024 x 768 f32 products and MNIST's fc2 must go
    through the tf32x3 kernel (each prints its tiles and split, and gives
    the same bits when run again), the 4096^3 bf16 product through the
-   wgmma kernel, MNIST's fc3 (N = 10) through the CUDA-core one (also
-   timed alone at that shape), and the 4096^2 block-sparse FC through the
+   wgmma kernel, MNIST's fc3 (N = 10) through the narrow one (also timed
+   alone at that shape, bitwise against the CUDA-core kernel, which is
+   its ``previous_ms``), and the 4096^2 block-sparse FC through the
    tf32x3 kernel in f32 and the wgmma one in bf16 (and MNIST's fc1
    through tf32x3); each tensor-core run is timed beside the CUDA-core
    kernel it replaced (``previous_ms``), at the same shape in the same
    run.  Each matmul and its library call are also timed replayed from a
    CUDA graph (``graph_ms``, ``library_graph_ms``): the device's time
-   without the host's.  The FIR is timed in bf16 beside f32.
+   without the host's.  The FIR is timed in bf16 beside f32.  Then
+   ``narrow_sweep``: the narrow and CUDA-core kernels at M = 1024, K = 500
+   and N = 1, 10, 16, 32 and 64, bitwise and timed (where the narrow one
+   is faster, ``matmul_path`` may send N to it).
 8. lm_vs_plain -- the attention kernels (f32 and bf16, causal or not,
    Sq != Sk, S of 1, 37 and 300, d of 64 and 128 on the wgmma kernel in
    bf16, d of 80 on the mma.sync one, GQA group 2) and the SSD cell (the
@@ -117,6 +131,14 @@ PEAK_BYTES = 3.35e12
 #: (at least 4 operations per class).  Every row costs at least one event.
 MIN_F64_OPS_PER_EVENT = 12 + 60 + 4 * 17
 
+#: The dependent f64 operations on the shortest path through one event of
+#: the main path's runs (each a charge_once: tools/profile_replay.py counts
+#: them), from the charge the event starts with to the one the next event
+#: starts with, counted from csrc/charge_replay.cu's charge_once: a1 = a0 -
+#: d_spend, then the finish test (a1 >= x.e + s.left * c_b) and new_rem =
+#: a1 - spend_fin side by side.  Every other operand is off this path.
+DEP_F64_OPS_PER_EVENT = 2
+
 #: Lanes of the full-width sweeps; lower them if the time limit forces it.
 FULL_LANES = 16384
 RADIO_LANES = 4096
@@ -136,8 +158,8 @@ WGMMA_KERNELS = {"dense_matmul": ("matmul_wgmma_kernel",
 
 
 def ptxas_by_kernel(log: str) -> dict:
-    """Registers and spill bytes of each entry function, from nvcc's
-    ``-Xptxas -v`` lines."""
+    """Registers, spill bytes and stack frame of each entry function, from
+    nvcc's ``-Xptxas -v`` lines."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -154,6 +176,9 @@ def ptxas_by_kernel(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame", ln)
+        if m and name:
+            out[name]["stack_frame"] = int(m.group(1))
     return out
 
 
@@ -304,6 +329,9 @@ PEAK_TF32_OPS = 494.7e12
 #: Inputs of the MNIST phase, and the large shape of each compute kernel
 #: (matmul M = K = N; block-sparse FC weight edge and batch; FIR C = L).
 MNIST_BATCH = 1024
+#: The N at which the narrow matmul kernel is timed against the CUDA-core
+#: one (dense_matmul.NARROW_MAX_N comes from this sweep).
+NARROW_SWEEP_N = (1, 10, 16, 32, 64)
 LARGE_MATMUL = 4096
 LARGE_SPARSE, LARGE_SPARSE_BATCH = 4096, 512
 LARGE_FIR = 8192
@@ -592,7 +620,14 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
     # output, plain, f64 product)
     tf32_checks = []
     for m, k, n, dtype, tiles, want_path in (
-            (13, 57, 31, f32, None, "simt"), (1, 1, 1, f32, None, "simt"),
+            # N up to 64 that no tensor-core kernel takes: the narrow
+            # kernel (ragged M and K, N = 1, 3, 17, 31, 64, bf16); wider
+            # N on the CUDA cores
+            (13, 57, 31, f32, None, "narrow"), (1, 1, 1, f32, None, "narrow"),
+            (1000, 333, 10, f32, None, "narrow"),
+            (300, 70, 17, f32, None, "narrow"),
+            (1025, 5, 3, f32, None, "narrow"),
+            (2, 700, 1, f32, None, "narrow"),
             (129, 1000, 70, f32, None, "simt"),
             # f32 that TMA reads: explicit tiles (the CUDA-core kernel's,
             # run on it too below); ragged M, N and K (a K tail of 12);
@@ -609,7 +644,9 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
             (128, 256, 192, bf16, None, "wgmma"),
             (200, 296, 104, bf16, None, "wgmma"),
             (64, 520, 136, bf16, None, "wgmma"),
-            (13, 57, 31, bf16, None, "simt"), (1, 1, 1, bf16, None, "simt"),
+            (13, 57, 31, bf16, None, "narrow"),
+            (1, 1, 1, bf16, None, "narrow"),
+            (77, 130, 64, bf16, None, "narrow"),
             (200, 300, 100, bf16, None, "simt")):
         x = dev(rng.normal(size=(m, k)), dtype)
         w = dev(rng.normal(size=(k, n)), dtype)
@@ -622,6 +659,14 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         case = f"{m}x{k}x{n} {str(dtype)[6:]} tiles={tiles}"
         got, want = dense_matmul(x, w, tiles=t), ref.matmul_ref(x, w)
         runs_ = [(path, got)]
+        if path == "narrow":
+            # the CUDA-core kernel sums each output in the same order
+            simt = mods["dense_matmul"].launch(x, w, "simt")
+            if not torch.equal(got, simt):
+                raise SystemExit(f"kernels_vs_plain: dense_matmul {case} "
+                                 f"(narrow) differs from the CUDA-core "
+                                 f"kernel")
+            case += " bitwise_vs_simt=True"
         if path == "tf32x3":
             case += f" split={mods['dense_matmul'].tf32x3_plan(m, k, n).split}"
             if not torch.equal(dense_matmul(x, w, tiles=t), got):
@@ -703,7 +748,7 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
             for p, got in runs_:
                 checks.append(("block_sparse_fc", case, got, want,
                                "allclose" if xdt == f32 else "bf16", p))
-                if xdt == f32:
+                if p == "tf32x3":      # the rule is 3xTF32's, not simt's
                     tf32_checks.append(("block_sparse_fc", case, p, got,
                                         want, fc_exact(layer, x)))
     for c, length, k in ((37, 101, 7), (5, 12, 1), (5, 12, 12), (1, 1, 1),
@@ -794,18 +839,27 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                       * 1e3, "cuda_cores_ms": flops / PEAK_F32_OPS * 1e3}
             p = mmod.tf32x3_plan(m, k, n)
             plan = dict(p._asdict(), ctas=p.ctas(m, n))
+        if path == "narrow":
+            p = mmod.narrow_plan(m, k, n, size)
+            plan = dict(p._asdict(), ctas=-(-m // p.bm))
+            if not torch.equal(dense_matmul(x, w), previous()):
+                raise SystemExit(f"kernels_full_width: dense_matmul "
+                                 f"{m}x{k}x{n} (narrow) differs from the "
+                                 f"CUDA-core kernel")
         run("dense_matmul", f"{m}x{k}x{n} {str(dtype)[6:]}",
             dense_matmul(x, w), lambda: dense_matmul(x, w),
             lambda: ref.matmul_ref(x, w), lambda: torch.matmul(x, w),
             3 * flops if path == "tf32x3" else flops,
             size * (m * k + k * n + m * n),
-            {"simt": PEAK_F32_OPS, "tf32x3": PEAK_TF32_OPS,
-             "wgmma": PEAK_BF16_OPS}[path], rule, headline,
+            {"simt": PEAK_F32_OPS, "narrow": PEAK_F32_OPS,
+             "tf32x3": PEAK_TF32_OPS, "wgmma": PEAK_BF16_OPS}[path], rule,
+            headline,
             entry=None if path == "simt" else f"dense_matmul_{path}",
             previous_fn=previous, path=path,
             exact_fn=(lambda: x.double() @ w.double())
             if path == "tf32x3" else None,
-            hopper_source=None if path == "simt" else "dense_matmul",
+            hopper_source=None if path in ("simt", "narrow")
+            else "dense_matmul",
             bounds=bounds, plan=plan)
 
     smod = mods["block_sparse_fc"]
@@ -898,13 +952,13 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         raise SystemExit("kernels_full_width: MNIST's fc1 did not go "
                          "through the tf32x3 kernel")
     if {p: by_path[p] - matmul_before[p] for p in by_path} != \
-            {"wgmma": 0, "tf32x3": 1, "simt": 1}:
+            {"wgmma": 0, "tf32x3": 1, "narrow": 1, "simt": 0}:
         raise SystemExit("kernels_full_width: MNIST's fc2 did not go "
                          "through the tf32x3 matmul kernel, or fc3 (N = "
-                         "10) not through the CUDA-core one")
-    # the CUDA-core kernel at MNIST's fc3 shape, where the main path runs it
+                         "10) not through the narrow one")
+    # the narrow kernel at MNIST's fc3 shape, where the main path runs it
     matmul_run(MNIST_BATCH, fc3.w.shape[1], fc3.w.shape[0], f32, "allclose",
-               "simt", headline=True)
+               "narrow", headline=True)
     # one large shape per kernel
     n = LARGE_MATMUL
     matmul_run(n, n, n, f32, "k4096", "tf32x3", headline=True)
@@ -926,7 +980,7 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         if n <= 0:
             raise SystemExit(f"kernels_full_width: {name} never launched")
     for path, n in matmul_by_path.items():
-        if n <= 0:
+        if n <= 0 and path != "simt":   # no main-path call takes simt now
             raise SystemExit(f"kernels_full_width: the {path} matmul kernel "
                              f"never launched")
     for path in ("tf32x3", "wgmma"):
@@ -978,7 +1032,7 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                              f"{r['shape']} disagrees with the plain version "
                              f"({TOLERANCES[r['rule']]}; max abs diff "
                              f"{diff})")
-        if r["plan"] is not None and not torch.equal(r["kernel_fn"](),
+        if r["path"] == "tf32x3" and not torch.equal(r["kernel_fn"](),
                                                       r["out"]):
             raise SystemExit(f"kernels_full_width: {r['kernel']} "
                              f"{r['shape']} ({r['path']}) differs from run "
@@ -1012,9 +1066,12 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
             line["tf32x3_tolerance"] = TOLERANCES["tf32x3"]
         if r["bounds"] is not None:
             line["bounds_ms"] = r["bounds"]
-        if r["plan"] is not None:
+        if r["path"] == "tf32x3":
             line["tf32x3_plan"] = r["plan"]
             line["bitwise_rerun"] = True
+        if r["path"] == "narrow":
+            line["narrow_plan"] = r["plan"]
+            line["bitwise_vs_previous"] = True
         if r["previous_fn"] is not None:
             line["previous_ms"] = median_ms(torch, r["previous_fn"], reps=3,
                                             inner=INNER)
@@ -1034,25 +1091,50 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
           "block_sparse_fc_launches_by_path": fc_by_path,
           "seconds_path": path_s, "all_agree": True})
 
-    # dense_matmul is three kernels: the CUDA-core one (its headline at
+    # the narrow kernel against the CUDA-core one at MNIST's fc3 M and K
+    # and N = 1 .. 64 (named launches, whatever matmul_path says): where
+    # it is faster, matmul_path may send N to it (NARROW_MAX_N)
+    for n in NARROW_SWEEP_N:
+        x = dev(rng.normal(size=(MNIST_BATCH, 500)))
+        w = dev(rng.normal(size=(500, n)))
+        t = matmul_tiles(MNIST_BATCH, 500, n, 4)
+        narrow = lambda: mmod.launch(x, w, "narrow")
+        simt = lambda: mmod.launch(x, w, "simt", bm=t.bm, bk=t.bk, bn=t.bn)
+        same = torch.equal(narrow(), simt())
+        line = {"phase": "narrow_sweep", "shape": f"{MNIST_BATCH}x500x{n} "
+                "float32", "path": mmod.matmul_path(x, w),
+                "bitwise_vs_simt": same,
+                "narrow_ms": median_ms(torch, narrow, inner=INNER),
+                "simt_ms": median_ms(torch, simt, inner=INNER),
+                "narrow_graph_ms": graph_ms(torch, narrow),
+                "simt_graph_ms": graph_ms(torch, simt)}
+        emit(line)
+        if not same:
+            raise SystemExit(f"narrow_sweep: N = {n}: the narrow kernel "
+                             f"differs from the CUDA-core one")
+
+    # dense_matmul's main-path kernels are the narrow one (its headline at
     # MNIST's fc3), the wgmma one (bf16) and the 3xTF32 one (f32); the
-    # block-sparse FC's main-path kernels are the tensor-core one in 3xTF32
-    # (f32 headline) and in bf16; each with its own launches
-    launches["dense_matmul"] = matmul_by_path["simt"]
+    # block-sparse FC's are the tensor-core one in 3xTF32 (f32 headline)
+    # and in bf16; each with its own launches
+    launches["dense_matmul_narrow"] = matmul_by_path["narrow"]
     launches["dense_matmul_wgmma"] = matmul_by_path["wgmma"]
     launches["dense_matmul_tf32x3"] = matmul_by_path["tf32x3"]
     launches["block_sparse_fc"] = fc_by_path["tf32x3"]
     launches["block_sparse_fc_wgmma"] = fc_by_path["wgmma"]
     out = []
-    for name, _mod, _fn, replaces, replaces_fn in COMPUTE_KERNELS + (
+    for name, _mod, _fn, replaces, replaces_fn in (
+            ("dense_matmul_narrow",) + COMPUTE_KERNELS[0][1:],
             ("dense_matmul_wgmma",) + COMPUTE_KERNELS[0][1:],
             ("dense_matmul_tf32x3",) + COMPUTE_KERNELS[0][1:],
-            ("block_sparse_fc_wgmma",) + COMPUTE_KERNELS[1][1:]):
+            COMPUTE_KERNELS[1],
+            ("block_sparse_fc_wgmma",) + COMPUTE_KERNELS[1][1:],
+            COMPUTE_KERNELS[2]):
         e = entries[name]
         src = {"block_sparse_fc": "sparse_fc",
-               "block_sparse_fc_wgmma": "sparse_fc",
-               "dense_matmul_wgmma": "dense_matmul",
-               "dense_matmul_tf32x3": "dense_matmul"}.get(name, name)
+               "block_sparse_fc_wgmma": "sparse_fc"}.get(
+                   name, "dense_matmul" if name.startswith("dense_matmul")
+                   else name)
         out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -1068,6 +1150,8 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                else {}),
             **({"bounds_ms": e["bounds_ms"]} if "bounds_ms" in e else {}),
             **({"tf32x3_plan": e["tf32x3_plan"]} if "tf32x3_plan" in e
+               else {}),
+            **({"narrow_plan": e["narrow_plan"]} if "narrow_plan" in e
                else {}),
             **{k: e[k] for k in ("graph_ms", "library_graph_ms") if k in e}})
     return out
@@ -1471,6 +1555,13 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln or "stack" in ln]
         emit({"phase": "build", "kernel": b.name, "seconds": b.seconds,
               "flags": " ".join(_build.SOURCE_FLAGS[b.name]), "ptxas": ptxas})
+    # the lane kernel's designs (and instantiations) and the narrow matmul:
+    # registers, spill bytes and stack frame
+    emit({"phase": "build", "kernel": "charge_replay", "lane_kernels":
+          ptxas_by_kernel(built["charge_replay"].log)})
+    emit({"phase": "build", "kernel": "dense_matmul", "narrow_kernels": {
+        n: r for n, r in ptxas_by_kernel(built["dense_matmul"].log).items()
+        if "matmul_narrow_kernel" in n}})
     # the Hopper kernels: registers and spills, and wgmma and TMA in the SASS
     cuobjdump = cuobjdump_path()
     if cuobjdump is None:
@@ -1513,8 +1604,10 @@ def main() -> int:
             a, kw = c["args"], c["kw"]
             plain = cr.event_replay(*a, **kw)
             again = wrapper(*a, **kw)
+            direct = wrapper(*a, **kw, design="direct")
             torch.cuda.synchronize()
-            for ref_name, ref in (("plain", plain), ("relaunch", again)):
+            for ref_name, ref in (("plain", plain), ("relaunch", again),
+                                  ("the direct design", direct)):
                 ok, err, bad = compare(torch, c["out"], ref)
                 max_err = max(max_err, err)
                 if not ok:
@@ -1617,6 +1710,7 @@ def main() -> int:
     emit({"phase": "kernel_vs_plain", "configs": len(cases),
           "launches": n_calls, "lanes": n_lanes,
           "flag_combinations": len(flags), "bitwise_equal": True,
+          "bitwise_equal_direct_design": True,
           "max_abs_err": max_err,
           "seconds": time.perf_counter() - t0})
 
@@ -1641,6 +1735,8 @@ def main() -> int:
     )
     rec.calls = []
     wrapper.launches = 0                  # zero just before the main path
+    for d in wrapper.launches_by_design:
+        wrapper.launches_by_design[d] = 0
     results = []
     for label, plan, build_s, lanes, kw in runs:
         before = wrapper.launches
@@ -1651,7 +1747,11 @@ def main() -> int:
         results.append((label, plan, build_s, lanes, kw, res,
                         wrapper.launches - before))
     main_launches = wrapper.launches      # read just after
+    main_by_design = dict(wrapper.launches_by_design)
     main_calls = rec.calls
+    if main_by_design != {"hoisted": main_launches, "direct": 0}:
+        raise SystemExit(f"full_width: the main path launched "
+                         f"{main_by_design}, not the hoisted design alone")
     for (label, plan, build_s, lanes, kw, res, delta), call in zip(
             results, main_calls):
         ev0, ev1 = call["events"]
@@ -1681,7 +1781,49 @@ def main() -> int:
     if main_launches < len(runs):
         raise SystemExit("full_width: fewer launches than runs")
 
-    # kernel against plain on the first run's full-width inputs, and timing
+    # each run again on its full-width inputs: the hoisted design against
+    # the direct one (bitwise), both timed (median of 5 launches), beside
+    # the throughput bound and the chain floor: the rows of the longest
+    # lane (each row at least one event) times DEP_F64_OPS_PER_EVENT times
+    # the f64 add's dependent latency, measured here in SM cycles and
+    # turned into time at the SM clock measured beside it
+    lat = cr.f64_latency(torch.device("cuda"))
+    emit({"phase": "f64_latency", **lat, "clock": "SM clock (clock64) "
+          "over %globaltimer nanoseconds, one thread, 65,536 dependent "
+          "adds then as many multiplies"})
+    replay_rows = {}
+    for (label, plan, build_s, lanes, kw, res, delta), call in zip(
+            results, main_calls):
+        a, kw_call = call["args"], call["kw"]
+        direct = wrapper(*a, **kw_call, design="direct")
+        torch.cuda.synchronize()
+        ok, err, bad = compare(torch, call["out"], direct)
+        if not ok:
+            raise SystemExit(f"{label}: the hoisted design != the direct one "
+                             f"on {bad}")
+        del direct
+        ms = median_ms(torch, lambda: wrapper(*a, **kw_call))
+        previous = median_ms(torch, lambda: wrapper(*a, **kw_call,
+                                                    design="direct"))
+        bound_ms, bound_by, bound_info = replay_bound_ms(a, kw_call,
+                                                         call["out"], torch)
+        rows_max = int(a[7].max())
+        chain_floor_ms = rows_max * DEP_F64_OPS_PER_EVENT \
+            * lat["add_cycles"] / lat["sm_clock_ghz"] * 1e-6
+        row = {"phase": "full_width_timed", "run": label, "lanes": lanes,
+               "bitwise_equal_direct_design": True, "ms": ms,
+               "previous_ms": previous, "lanes_per_s": lanes / (ms / 1e3),
+               "previous_lanes_per_s": lanes / (previous / 1e3),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "chain_floor_ms": chain_floor_ms,
+               "chain": f"{rows_max} rows (the longest lane) x "
+                        f"{DEP_F64_OPS_PER_EVENT} dependent f64 operations "
+                        f"x {lat['add_cycles']:.3f} cycles at "
+                        f"{lat['sm_clock_ghz']:.4f} GHz", **bound_info}
+        emit(row)
+        replay_rows[label] = row
+
+    # kernel against plain on the first run's full-width inputs
     first = main_calls[0]
     a, kw = first["args"], first["kw"]
     t0 = time.perf_counter()
@@ -1692,32 +1834,31 @@ def main() -> int:
     max_err = max(max_err, err)
     if not ok:
         raise SystemExit(f"full_width: kernel != plain on {bad}")
-    times = []
-    for _ in range(3):
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        wrapper(*a, **kw)
-        ev1.record()
-        torch.cuda.synchronize()
-        times.append(ev0.elapsed_time(ev1))
-    bound_ms, bound_by, bound_info = replay_bound_ms(a, kw, first["out"],
-                                                     torch)
+    headline = replay_rows[results[0][0]]
     emit({"phase": "full_width_vs_plain", "run": results[0][0],
           "lanes": int(a[1].shape[0]), "bitwise_equal": True,
-          "kernel_ms": times, "plain_ms": plain_ms, "bound_ms": bound_ms,
-          "bound_by": bound_by, **bound_info})
+          "kernel_ms": headline["ms"], "plain_ms": plain_ms,
+          "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"]})
 
     # the first 4 lanes of a full-width har_net tails replay, bitwise
     x_har = np.random.default_rng(7).normal(size=(3, 1, 112)).astype(
         np.float32)
     rec.calls = []
+    hoisted_before = wrapper.launches_by_design["hoisted"]
     fleetsim.fleet_sweep(har_net(), x_har, "tails", "1mF",
                          n_devices=HAR_LANES, seed=7, charge_cv=0.25,
                          trace_reboots=64, policy="adaptive", theta=0.5,
                          batch_rows=4, belief_alpha=0.2, device="cuda")
     torch.cuda.synchronize()
     har = rec.calls[0]
+    if wrapper.launches_by_design["hoisted"] != hoisted_before + 1:
+        raise SystemExit("har: the replay did not launch the hoisted design")
+    ok, err, bad = compare(torch, har["out"],
+                           wrapper(*har["args"], **har["kw"],
+                                   design="direct"))
+    if not ok:
+        raise SystemExit(f"har: the hoisted design != the direct one on "
+                         f"{bad}")
     a4, kw4 = lane_slice(har["args"], har["kw"], 4,
                          har["kw"]["shared_rows"])
     t0 = time.perf_counter()
@@ -1731,6 +1872,7 @@ def main() -> int:
         raise SystemExit(f"har: kernel != plain on {bad}")
     emit({"phase": "har_first_lanes", "plan_rows": int(a4[7].max()),
           "lanes": HAR_LANES, "checked_lanes": 4, "bitwise_equal": True,
+          "bitwise_equal_direct_design": HAR_LANES,
           "plain_ms": har_plain_ms})
     cr.charge_replay = wrapper
 
@@ -1750,8 +1892,11 @@ def main() -> int:
         "replaces_function": "pallas_replay",
         "launches": main_launches, "max_abs_err": max_err,
         "max_abs_diff_vs_plain": max_err,
-        "ms": min(times), "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "ms": headline["ms"], "previous_ms": headline["previous_ms"],
+        "plain_ms": plain_ms, "bound_ms": headline["bound_ms"],
+        "bound_by": headline["bound_by"],
+        "chain_floor_ms": headline["chain_floor_ms"], "library_ms": None,
+        "design": "hoisted", "previous_design": "direct",
         "shape": f"{results[0][0]}: {len(results[0][1])} rows x "
                  f"{int(a[1].shape[0])} lanes"}] + compute + lm})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -39,7 +39,17 @@ FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 #: against their plain versions and keep one rounding per operation.
 SOURCE_FLAGS = {"charge_replay": NVCC_FLAGS, "fir_conv1d": NVCC_FLAGS,
                 "dense_matmul": FMAD_FLAGS, "sparse_fc": FMAD_FLAGS,
-                "flash_attention": FMAD_FLAGS, "ssd_intra": FMAD_FLAGS}
+                "flash_attention": FMAD_FLAGS, "ssd_intra": FMAD_FLAGS,
+                "charge_replay_profile": NVCC_FLAGS + ("-DREPLAY_PROFILE",)}
+
+#: Libraries built from another library's source with other flags: the
+#: lane kernel's profile build (``tools/profile_replay.py``).
+SOURCE_OF = {"charge_replay_profile": "charge_replay"}
+
+
+def source(name: str) -> Path:
+    """The ``.cu`` file that library ``name`` is built from."""
+    return CSRC / f"{SOURCE_OF.get(name, name)}.cu"
 
 
 @dataclass
@@ -69,7 +79,7 @@ def _target(name: str) -> Path:
     """The library of ``csrc/<name>.cu``, named by a hash of the source,
     of every header in ``csrc`` (any source may include any of them) and
     of the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256(source(name).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(SOURCE_FLAGS[name]).encode())
@@ -84,7 +94,7 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *SOURCE_FLAGS[name], "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+           str(source(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, (proc, tmp), time.perf_counter()
@@ -102,7 +112,7 @@ def build(*names: str) -> dict[str, Built]:
             log, _ = proc.communicate()
             secs = time.perf_counter() - t0
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}.cu "
+                raise RuntimeError(f"nvcc failed on {source(name).name} "
                                    f"(exit {proc.returncode}):\n{log}")
             log_path.write_text(log)
             os.replace(tmp, out)

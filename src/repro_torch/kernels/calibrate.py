@@ -31,6 +31,8 @@ from dataclasses import dataclass
 SMEM_BUDGET_BYTES = 48 * 1024
 #: The most shared memory one block can opt into on an H100.
 SMEM_MAX_BYTES = 232_448
+#: SMs of an H100 SXM: what a grid of one block an SM covers.
+SMS = 132
 
 #: The matmul kernel's micro-tile edge (outputs a thread owns per side).
 TILE = 8

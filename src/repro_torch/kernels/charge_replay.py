@@ -16,7 +16,14 @@ that semantics in two forms:
   ``torch.compile``: fusion could contract a multiply and an add.
 * :func:`charge_replay` -- the wrapper of the hand-written CUDA lane
   kernel (``csrc/charge_replay.cu``, one thread per lane).  CUDA tensors
-  launch the kernel; CPU tensors take the plain version.
+  launch the kernel; CPU tensors take the plain version.  The kernel has
+  two designs (:data:`DESIGNS`): ``"hoisted"``, the main path's, chooses
+  the branch of each class loop once an event (so a class loop's loads
+  issue together), takes ``parametric`` and ``has_send`` as template
+  parameters (:func:`kernel_variant`) and sizes its blocks to cover the
+  card (:func:`lane_block`); ``"direct"``, the first design, branches
+  inside the class loop, takes every flag at run time and runs 128 lanes
+  a block.  Both give the same bits.
 
 Masking scheme
 --------------
@@ -41,6 +48,7 @@ from ..core.fleetsim import (KIND_BURN, KIND_CALIB, KIND_SEND, KIND_WORK,
 from ..runtime.radio import (N_RADIO, R_CLASS, R_CLK, R_CONF_HI, R_CONF_LO,
                              R_CPB, R_DUTY, R_HDR, R_PERIOD, R_TOPK,
                              R_WAKEUP)
+from .calibrate import SMS
 
 #: Events between two completion checks of the plain version (the floor of
 #: :func:`default_event_chunk`'s clamp).  Results do not depend on it.
@@ -766,7 +774,7 @@ _KERNEL_CONSTANTS = dict(
 
 
 def _library():
-    """Build (first use) and bind the kernel's C entry point."""
+    """Build (first use) and bind the kernel's C entry points."""
     from . import _build
 
     here = dict(R_WAKEUP=R_WAKEUP, R_CPB=R_CPB, R_HDR=R_HDR,
@@ -786,16 +794,80 @@ def _library():
         raise RuntimeError("csrc/charge_replay.cu was built for another "
                            "number of op classes")
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.charge_replay_launch.restype = ctypes.c_int
-    lib.charge_replay_launch.argtypes = (
-        [p, ctypes.c_longlong, p]                 # rows, lane stride, layout
-        + [p, p, p, i, p, p, i, p, p]             # lane inputs and traces
-        + [d, d, d, p, p]                         # theta, window, alpha, ...
-        + [i] * 5                                 # static flags
-        + [p] * 11                                # outputs
-        + [i, p])                                 # n_lanes, stream
+    common = ([p, ctypes.c_longlong, p]          # rows, lane stride, layout
+              + [p, p, p, i, p, p, i, p, p]      # lane inputs and traces
+              + [d, d, d, p, p]                  # theta, window, alpha, ...
+              + [i] * 5                          # static flags
+              + [p] * 11                         # outputs
+              + [i])                             # n_lanes
+    lib.charge_replay_launch.restype = i
+    lib.charge_replay_launch.argtypes = common + [p]          # stream
+    lib.charge_replay_hoisted_launch.restype = i
+    lib.charge_replay_hoisted_launch.argtypes = (
+        common + [i] * 4 + [p])      # variant, block, rs, cs, stream
+    lib.charge_replay_f64_latency.restype = i
+    lib.charge_replay_f64_latency.argtypes = [i, p, p, p]
     lib._bound = True
     return lib
+
+
+#: The kernel's designs: ``"hoisted"`` (the default, the main path's) and
+#: ``"direct"`` (the first design, kept to be timed beside it).
+DESIGNS = ("hoisted", "direct")
+
+#: The hoisted design's largest block (csrc/charge_replay.cu:
+#: LANE_MAX_BLOCK): 255 registers a thread leave room for 256 threads an
+#: SM.
+LANE_MAX_BLOCK = 256
+
+
+def lane_block(n_lanes: int) -> int:
+    """Lanes a block of the hoisted design: the fewest that cover the card
+    with one block an SM (a lane's events run in series, so a block an SM
+    is all a launch can use), at most :data:`LANE_MAX_BLOCK`.  16,384
+    lanes: 125 a block, 132 blocks."""
+    return max(1, min(LANE_MAX_BLOCK, -(-n_lanes // SMS)))
+
+
+def hoisted_table(packed, shared_rows: bool):
+    """The row table as the hoisted design reads it, with its strides:
+    ``(table, lane_stride, rs, cs)``, element (i, j) of lane l's rows at
+    ``table.view(-1)[l * lane_stride + i * rs + j * cs]``.  The shared
+    plan's ``(S, F)`` table goes column-major (rs = 1, cs = S): the lanes
+    of a warp, a few rows apart, then read a column from a few cache lines.
+    A lane's own ``(N, S, F)`` table stays row-major (rs = F, cs = 1)."""
+    s_pad, f = packed.shape[-2:]
+    if shared_rows:
+        return packed.T.contiguous(), 0, 1, s_pad
+    return packed, s_pad * f, f, 1
+
+
+def kernel_variant(parametric: bool, has_send: bool) -> int:
+    """The hoisted design's instantiation for these flags: ``parametric``
+    and ``has_send`` are template parameters (``adaptive``,
+    ``enable_fast`` and ``has_burn`` stay run-time arguments)."""
+    return 2 * bool(parametric) + bool(has_send)
+
+
+def f64_latency(device, n: int = 1 << 16) -> dict:
+    """The dependent latency of f64 addition and multiplication on the
+    card, from one thread running ``n`` of each in a chain: cycles per
+    operation (``clock64``) and the SM clock over the run (cycles per
+    ``%globaltimer`` nanosecond).  The second of two runs is kept."""
+    lib = _library()
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    keep = torch.zeros(1, dtype=F64, device=device)
+    for _ in range(2):
+        err = lib.charge_replay_f64_latency(
+            n, out.data_ptr(), keep.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"f64_latency_kernel launch failed: CUDA "
+                               f"error {err}")
+        torch.cuda.synchronize(device)
+    add, mul, ns = (int(v) for v in out.cpu())
+    return dict(add_cycles=add / n, mul_cycles=mul / n,
+                sm_clock_ghz=(add + mul) / ns)
 
 
 def _layout_ints(layout, f: int, g: int, k: int) -> list[int]:
@@ -825,16 +897,20 @@ def charge_replay(rows: dict, cap, rem0, trace_cum, tail_s, charge_cum,
                   adaptive: bool, parametric: bool, shared_rows: bool,
                   enable_fast: bool = True, has_burn: bool = True,
                   has_send: bool = False, conf=None, radio=None,
-                  chunk: int = EVENT_CHUNK) -> dict:
+                  chunk: int = EVENT_CHUNK, design: str = "hoisted") -> dict:
     """The fused replay: the CUDA lane kernel for CUDA tensors, the plain
     PyTorch version (:func:`event_replay`) for CPU tensors.
 
     Arguments are :func:`event_replay`'s.  On the card the wrapper packs
     the row table once (:func:`pack_rows`), checks every input's device,
     dtype, shape and contiguity, allocates the 11 outputs, launches one
-    thread per lane on the current stream, raises if the launch failed,
-    and counts the launch in ``charge_replay.launches``.  ``chunk`` only
-    paces the plain version."""
+    thread per lane of kernel design ``design`` (:data:`DESIGNS`) on the
+    current stream, raises if the launch failed, and counts the launch in
+    ``charge_replay.launches`` and ``charge_replay.launches_by_design``.
+    ``chunk`` only paces the plain version."""
+    if design not in DESIGNS:
+        raise ValueError(f"no lane kernel design {design!r}; the designs "
+                         f"are {DESIGNS}")
     if cap.device.type == "cpu":
         return event_replay(rows, cap, rem0, trace_cum, tail_s, charge_cum,
                             nominal_from, s_real, theta, window, alpha,
@@ -846,6 +922,20 @@ def charge_replay(rows: dict, cap, rem0, trace_cum, tail_s, charge_cum,
     if cap.device.type != "cuda":
         raise ValueError(f"charge_replay runs on CUDA or CPU tensors, "
                          f"got {cap.device}")
+    return _launch(rows, cap, rem0, trace_cum, tail_s, charge_cum,
+                   nominal_from, s_real, theta, window, alpha,
+                   adaptive=adaptive, parametric=parametric,
+                   shared_rows=shared_rows, enable_fast=enable_fast,
+                   has_burn=has_burn, has_send=has_send, conf=conf,
+                   radio=radio, design=design)
+
+
+def _launch(rows, cap, rem0, trace_cum, tail_s, charge_cum, nominal_from,
+            s_real, theta, window, alpha, *, adaptive, parametric,
+            shared_rows, enable_fast, has_burn, has_send, conf, radio,
+            design):
+    """The kernel half of :func:`charge_replay`: check, pack, allocate,
+    launch and count, on the device of ``cap``."""
     device = cap.device
     n_lanes = cap.shape[0]
     if conf is None:
@@ -887,9 +977,11 @@ def charge_replay(rows: dict, cap, rem0, trace_cum, tail_s, charge_cum,
         raise ValueError("entry_seg_class holds an op class out of range")
     g = shapes["entry_seg_cycles"][0]
     k = shapes["tile_n"][0] if parametric else 0
-    layout_c = (ctypes.c_int * 21)(*_layout_ints(layout, packed.shape[-1],
-                                                 g, k))
-    lane_stride = 0 if shared_rows else s_pad * packed.shape[-1]
+    f = packed.shape[-1]
+    layout_c = (ctypes.c_int * 21)(*_layout_ints(layout, f, g, k))
+    if s_pad * f >= 2**31:
+        raise ValueError("a lane's row table exceeds 2**31 elements")
+    lane_stride = 0 if shared_rows else s_pad * f
 
     out = dict(live=torch.empty_like(cap), reboots=torch.empty_like(cap),
                dead=torch.empty_like(cap),
@@ -902,28 +994,38 @@ def charge_replay(rows: dict, cap, rem0, trace_cum, tail_s, charge_cum,
                msgs_sent=torch.empty_like(cap),
                msgs_deferred=torch.empty_like(cap))
     lib = _library()
-    err = lib.charge_replay_launch(
-        packed.data_ptr(), lane_stride, layout_c,
-        cap.data_ptr(), rem0.data_ptr(), trace_cum.data_ptr(),
-        trace_cum.shape[1], tail_s.data_ptr(), charge_cum.data_ptr(),
-        charge_cum.shape[1], nominal_from.data_ptr(), s_real.data_ptr(),
-        float(theta), float(window), float(alpha), conf.data_ptr(),
-        radio.data_ptr(), int(adaptive), int(parametric),
-        int(enable_fast), int(has_burn), int(has_send),
-        *(out[name].data_ptr() for name in OUTPUTS),
-        n_lanes, torch.cuda.current_stream(device).cuda_stream)
+    table = packed
+    if design == "hoisted":
+        table, lane_stride, rs, cs = hoisted_table(packed, shared_rows)
+    args = (table.data_ptr(), lane_stride, layout_c,
+            cap.data_ptr(), rem0.data_ptr(), trace_cum.data_ptr(),
+            trace_cum.shape[1], tail_s.data_ptr(), charge_cum.data_ptr(),
+            charge_cum.shape[1], nominal_from.data_ptr(), s_real.data_ptr(),
+            float(theta), float(window), float(alpha), conf.data_ptr(),
+            radio.data_ptr(), int(adaptive), int(parametric),
+            int(enable_fast), int(has_burn), int(has_send),
+            *(out[name].data_ptr() for name in OUTPUTS), n_lanes)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if design == "hoisted":
+        err = lib.charge_replay_hoisted_launch(
+            *args, kernel_variant(parametric, has_send),
+            lane_block(n_lanes), rs, cs, stream)
+    else:
+        err = lib.charge_replay_launch(*args, stream)
     if err != 0:
-        raise RuntimeError(f"charge_replay kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"charge_replay kernel ({design}) launch failed: "
+                           f"CUDA error {err}")
     _wrapper.launches += 1
-    # `packed` may be freed now: PyTorch's caching allocator hands its
+    _wrapper.launches_by_design[design] += 1
+    # `table` may be freed now: PyTorch's caching allocator hands its
     # memory only to later work on the same stream, after the kernel.
     return out
 
 
 #: ``charge_replay.launches`` counts launches of the CUDA kernel (calls that
-#: take the plain version do not count).  The wrapper counts through this
-#: alias, so a caller that wraps ``charge_replay`` still reads the count
-#: off the original function.
+#: take the plain version do not count), ``launches_by_design`` each
+#: design's.  The wrapper counts through this alias, so a caller that wraps
+#: ``charge_replay`` still reads the counts off the original function.
 _wrapper = charge_replay
 charge_replay.launches = 0
+charge_replay.launches_by_design = {d: 0 for d in DESIGNS}

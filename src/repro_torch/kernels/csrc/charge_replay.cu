@@ -17,21 +17,49 @@
 // of a jnp.where and selects, this kernel branches and computes only the
 // selected side with the same operations, which gives the same bits.
 //
-// What bounds it on an H100: per event, a few hundred scalar f64 operations
-// (the 17-wide per-class vectors dominate) and one row stripe of F x 8 bytes
-// (520 B for F = 65) read through L2; the row table is shared by every lane
-// of a fleet sweep and fits in the 50 MB L2.  The per-lane state (about 20
-// f64 scalars plus three 17-wide class vectors) lives in registers and local
-// memory, and spills are expected.  This first design does nothing about
-// either bound, on purpose: it is the simple, right version.  Lanes that
-// finish early leave their warp's other threads running alone (divergence),
-// and the five static flags are launch arguments rather than template
-// parameters; both are later work.
+// What bounds it on an H100: a lane's events run in series, each a chain
+// of dependent f64 operations (about 8 cycles each, several divisions)
+// with a 17-wide class update beside it, so a lane is bound by latency and
+// the card by how many lanes it holds, not by its f64 rate or its memory
+// rate.  The row table is shared by every lane of a fleet sweep and lives
+// in L2 (and, for the rows the lanes of an SM are at, in L1).  Two designs,
+// chosen by name from charge_replay.py (design=):
+//
+// * hoisted (the main path).  Profiled with clock64() laps
+//   (tools/profile_replay.py), the direct design spent two thirds of an
+//   event in charge_once's class loop: each class's row loads waited
+//   behind that class's branches, so the 17 classes paid 17 round trips to
+//   memory in series, and the lanes of a warp, a few rows apart, read a
+//   row-major row as a cache line each.  Here the branch of the class loop
+//   (the event's case, the same for all 17 classes) is chosen once, and
+//   each case's loop is straight-line code whose loads issue together; the
+//   shared plan's table is passed column-major, so a warp reads a column
+//   from a few lines; the divisions whose quotients an event does not read
+//   (no debt, no send) are not taken (0 / 1e-30 goes down CUDA's slow
+//   division path); parametric and has_send are template parameters (four
+//   instantiations; adaptive, enable_fast and has_burn stay run-time: each
+//   is the same for every lane of a launch, so its branches never diverge,
+//   and the event head that holds most of them takes 4 % of an event in
+//   the profile); the torn prefix is
+//   added class by class with no array indexed at run time (the direct
+//   design's kept 136 bytes of local memory); and the blocks cover all 132
+//   SMs.  Rows are not staged in shared memory: a per-lane copy of each
+//   row, made one event ahead with cp.async, cost more in L2 traffic than
+//   the loads it saved, since L1 already shares a row among the lanes of an
+//   SM (PERF.md).
+// * direct (the first design, kept to be timed beside it): rows read
+//   row-major from global memory, the class loop branching inside, the
+//   five flags at run time, 128 lanes a block.
+//
+// Both designs do the same float operations in the same order on every
+// lane, so they give the same bits; each is held against the plain version
+// and the other on the card (chip_smoke.py, tests/test_torch_cuda.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define NC 17  // op classes (core/energy.OP_CLASSES)
+#define LANE_MAX_BLOCK 256  // lanes a block of the hoisted design, at most
 
 // Packed radio vector slots (runtime/radio.py R_*).
 #define R_WAKEUP 0
@@ -79,6 +107,83 @@ __device__ __forceinline__ double jclip(double x, double lo, double hi) {
   return jmin(jmax(x, lo), hi);
 }
 
+// The profile build (-DREPLAY_PROFILE, tools/profile_replay.py): clock64()
+// laps per region, event counts, and each warp's active lanes where a
+// region starts, kept in registers and added to prof_acc once a lane ends.
+// In the normal build every hook is empty and compiles to nothing.
+enum { P_CTX, P_HEAD, P_CHARGE, P_FAST, P_BURN, P_TAIL, P_CO_SCALAR,
+       P_CO_CLASS, P_REGIONS };
+enum { C_EVENTS, C_CHARGE, C_FAST, C_BURN, C_TORN, C_COUNTS };
+enum { W_LOOP, W_CHARGE, W_FAST, W_TORN, W_SITES };
+#define PROF_SLOTS 64
+#define PROF_SMS 256
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long g;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+  return g;
+}
+
+#ifdef REPLAY_PROFILE
+__device__ unsigned long long prof_acc[PROF_SLOTS];
+__device__ unsigned int prof_sm[PROF_SMS];  // blocks that ran on each SM
+struct Prof {
+  long long t0, t, cyc[P_REGIONS];
+  unsigned long long g0;
+  unsigned long long cnt[C_COUNTS], wexec[W_SITES], wlanes[W_SITES];
+  __device__ void start() {
+    if (threadIdx.x == 0) {
+      unsigned sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      atomicAdd(&prof_sm[sm % PROF_SMS], 1u);
+    }
+    g0 = globaltimer();
+    t0 = t = clock64();
+    for (int r = 0; r < P_REGIONS; ++r) cyc[r] = 0;
+    for (int c = 0; c < C_COUNTS; ++c) cnt[c] = 0;
+    for (int w = 0; w < W_SITES; ++w) wexec[w] = wlanes[w] = 0;
+  }
+  __device__ void lap(int r) {
+    long long n = clock64();
+    cyc[r] += n - t;
+    t = n;
+  }
+  __device__ void count(int c) { cnt[c] += 1; }
+  __device__ void warp(int w) {
+    unsigned a = __activemask();
+    if ((int)(threadIdx.x & 31) == __ffs(a) - 1) {
+      wexec[w] += 1;
+      wlanes[w] += __popc(a);
+    }
+  }
+  // slots: 0 lanes, 1 total cycles, 2 max total cycles, 3.. regions,
+  // 12 total globaltimer ns, 16.. counts, 32.. warp executions, 48.. warp
+  // lanes
+  __device__ void flush() {
+    unsigned long long total = (unsigned long long)(clock64() - t0);
+    atomicAdd(&prof_acc[12], globaltimer() - g0);
+    atomicAdd(&prof_acc[0], 1ull);
+    atomicAdd(&prof_acc[1], total);
+    atomicMax(&prof_acc[2], total);
+    for (int r = 0; r < P_REGIONS; ++r)
+      atomicAdd(&prof_acc[3 + r], (unsigned long long)cyc[r]);
+    for (int c = 0; c < C_COUNTS; ++c) atomicAdd(&prof_acc[16 + c], cnt[c]);
+    for (int w = 0; w < W_SITES; ++w) {
+      atomicAdd(&prof_acc[32 + w], wexec[w]);
+      atomicAdd(&prof_acc[48 + w], wlanes[w]);
+    }
+  }
+};
+#else
+struct Prof {
+  __device__ void start() {}
+  __device__ void lap(int) {}
+  __device__ void count(int) {}
+  __device__ void warp(int) {}
+  __device__ void flush() {}
+};
+#endif
+
 // Windowed sum of a cumulative trace over reboots (r0, r1], `fallback` per
 // entry past its end.
 __device__ double trace_window(const double* cum, int r, double r0,
@@ -89,6 +194,15 @@ __device__ double trace_window(const double* cum, int r, double r0,
   double over = jmax(r1 - last, 0.0) - jmax(r0 - last, 0.0);
   return cum[i1] - cum[i0] + over * fallback;
 }
+
+// ===========================================================================
+// The direct design: one thread per lane, rows read from global memory
+// (L2), the five flags at run time, and a class loop with its branches
+// inside.  Launched by name (charge_replay.py: design="direct") to time
+// it beside the hoisted design; the main path never calls it.
+// ===========================================================================
+
+namespace direct {
 
 // State-independent per-row decisions (row_ctx in the reference).
 struct Ctx {
@@ -195,7 +309,7 @@ struct State {
 __device__ bool charge_once(const Ctx& x, const Layout& L, const Flags& fl,
                             double cap, const double* ccum, int rc,
                             double theta, double window, double alpha,
-                            State& s) {
+                            State& s, Prof& pf) {
   const int CTRL = L.control_idx;
   double a0 = s.rem, est0 = s.bel;
 
@@ -272,11 +386,16 @@ __device__ bool charge_once(const Ctx& x, const Layout& L, const Flags& fl,
                       ? jmax(rint(s.bhat + alpha * (obs - s.bhat)), 1.0)
                       : s.bhat;
   bool stuck_now = !fin_ok && x.row_stuck;
+  pf.lap(P_CO_SCALAR);
 
   // per-class vectors, element by element, in the reference's order
   double torn[NC];
   bool need_torn = !dend && !fin && !entered_d;
-  if (need_torn) torn_prefix(x, L, p_entry, torn);
+  if (need_torn) {
+    pf.warp(W_TORN);
+    pf.count(C_TORN);
+    torn_prefix(x, L, p_entry, torn);
+  }
   for (int c = 0; c < NC; ++c) {
     double dc = s.debt_class[c], pc = s.pend_class[c];
     double cc_c = x.commit_class[c];
@@ -308,6 +427,7 @@ __device__ bool charge_once(const Ctx& x, const Layout& L, const Flags& fl,
                             : 0.0);
     s.debt_class[c] = dcls1 + (tear ? pcls1 : 0.0);
   }
+  pf.lap(P_CO_CLASS);
 
   double new_rem = fin_ok ? a1 - spend_fin
                           : trace_window(ccum, rc, s.reboots,
@@ -331,7 +451,8 @@ __device__ bool charge_once(const Ctx& x, const Layout& L, const Flags& fl,
 // refill from here on delivers exactly `cap` (fast_forward in the
 // reference).  Always finishes the row.
 __device__ void fast_forward(const Ctx& x, const Layout& L, const Flags& fl,
-                             double cap, double theta, State& s) {
+                             double cap, double theta, State& s,
+                             Prof& pf) {
   const int CTRL = L.control_idx;
   double rem = s.rem, left = s.left;
   bool batch0 = false;
@@ -364,7 +485,11 @@ __device__ void fast_forward(const Ctx& x, const Layout& L, const Flags& fl,
                    (entered ? 0.0 : rem);
 
   double torn[NC];
-  if (!ok && !entered) torn_prefix(x, L, rem, torn);
+  if (!ok && !entered) {
+    pf.warp(W_TORN);
+    pf.count(C_TORN);
+    torn_prefix(x, L, rem, torn);
+  }
   for (int c = 0; c < NC; ++c) {
     double cc_c = x.commit_class[c];
     double iv0 = batch0 ? x.iter_class[c] - cc_c : x.iter_class[c];
@@ -425,9 +550,14 @@ __global__ void charge_replay_kernel(
   for (int c = 0; c < NC; ++c)
     st.classes[c] = st.pend_class[c] = st.debt_class[c] = 0.0;
 
+  Prof pf;
+  pf.start();
   while (st.i < n_real) {
+    pf.warp(W_LOOP);
+    pf.count(C_EVENTS);
     const double* row = lane_rows + (long long)st.i * L.F;
     Ctx x = row_ctx(row, L, fl, cap, theta, conf, radio);
+    pf.lap(P_CTX);
     bool fresh = st.fresh;
 
     // decision 5: a fresh SEND row waking into a closed window sleeps
@@ -465,12 +595,19 @@ __global__ void charge_replay_kernel(
                 (st.reboots == 0.0));
         if (fl.adaptive) elig = elig && (window <= 1.0);
       }
+      pf.lap(P_HEAD);
       if (elig) {
-        fast_forward(x, L, fl, cap, theta, st);
+        pf.warp(W_FAST);
+        pf.count(C_FAST);
+        fast_forward(x, L, fl, cap, theta, st, pf);
         advance = true;
+        pf.lap(P_FAST);
       } else {
+        pf.warp(W_CHARGE);
+        pf.count(C_CHARGE);
         advance = charge_once(x, L, fl, cap, ccum, r_charge, theta, window,
-                              alpha, st);
+                              alpha, st, pf);
+        pf.lap(P_CHARGE);
       }
     } else if (fl.has_burn && x.kind == KIND_BURN) {
       // a failed calibration attempt drains the whole buffer
@@ -503,6 +640,10 @@ __global__ void charge_replay_kernel(
             st.classes[c] + (c == L.burn_idx ? 0.0 + calib_live : 0.0);
       if (burns > 0.0) st.chg = 0.0;
     }
+    if (!is_work) {
+      pf.count(C_BURN);
+      pf.lap(P_BURN);
+    }
 
     // decision 3: per-reboot dead time, booked once per row; the window
     // wait is added first as its own float step
@@ -521,7 +662,9 @@ __global__ void charge_replay_kernel(
       st.row_r0 = st.reboots;
     }
     st.fresh = advance;
+    pf.lap(P_TAIL);
   }
+  pf.flush();
 
   live_o[lane] = st.live;
   reboots_o[lane] = st.reboots;
@@ -537,13 +680,676 @@ __global__ void charge_replay_kernel(
   deferred_o[lane] = st.deferred;
 }
 
+}  // namespace direct
+
+// ===========================================================================
+// The hoisted design (the main path): the same arithmetic per lane as the
+// direct design, scheduled for the card.
+// ===========================================================================
+
+namespace hoisted {
+
+using direct::State;
+
+// A column run of a row: `n` values `s` doubles apart.  The shared plan's
+// table is laid out column-major (s = S rows), a lane's own table
+// row-major (s = 1).
+struct Vec {
+  const double* p;
+  int s;
+  __device__ __forceinline__ double operator[](int j) const {
+    return p[j * s];
+  }
+};
+
+// The direct design's Ctx, with its vectors read through a stride.
+struct Ctx {
+  int kind, k;
+  double n, c, e, cc;
+  Vec iter_class, entry_class, commit_class, seg_class, seg_cycles;
+  bool send_row;
+  double cost;
+  int radio_idx;
+  double er, cr, crs, afford_nom, send_bytes;
+  bool batchr, row_stuck, has_iters;
+
+  __device__ __forceinline__ double ivr(int c) const {
+    return batchr ? iter_class[c] - commit_class[c] : iter_class[c];
+  }
+};
+
+// Ctx::ec and Ctx::seg with has_send known at compile time.  The plan's
+// value is loaded whatever the row (every row has one), so that no load
+// waits behind a branch.
+template <bool SEND>
+__device__ __forceinline__ double ec(const Ctx& x, int c) {
+  const double v = x.entry_class[c];
+  if (SEND) return x.send_row ? (c == x.radio_idx ? x.cost : 0.0) : v;
+  return v;
+}
+template <bool SEND>
+__device__ __forceinline__ double seg(const Ctx& x, int g) {
+  const double v = x.seg_cycles[g];
+  if (SEND) return x.send_row ? (g == 0 ? x.cost : 0.0) : v;
+  return v;
+}
+
+// Class c's share of a torn entry prefix of `p` cycles: the amounts of the
+// segments of class c added to 0.0 in segment order, which are exactly the
+// additions torn_prefix makes to out[c] -- with no array indexed at run
+// time, so nothing goes to local memory.
+template <bool SEND>
+__device__ __forceinline__ double torn_class(const Ctx& x, const Layout& L,
+                                             double p, int c) {
+  double out = 0.0, cum = 0.0;
+  for (int g = 0; g < L.G; ++g) {
+    double s = seg<SEND>(x, g);
+    cum = cum + s;
+    double start = cum - s;
+    double amt = jmin(jmax(p - start, 0.0), s);
+    if ((int)x.seg_class[g] == c) out = out + amt;
+  }
+  return out;
+}
+
+// row_ctx of the direct design, with parametric and has_send known at
+// compile time.  Column j of the row is row[j * cs].
+template <bool PARAM, bool SEND>
+__device__ __forceinline__ Ctx row_ctx(const double* row, int cs,
+                                       const Layout& L, bool adaptive,
+                                       double cap, double theta, double conf,
+                                       const double* radio) {
+  const Vec r = {row, cs};
+  Ctx x;
+  x.kind = (int)r[L.kind];
+  x.k = 0;
+  x.n = r[L.n];
+  x.c = r[L.iter_cycles];
+  x.iter_class = {row + (long long)L.iter_class * cs, cs};
+  if (PARAM) {
+    int cnt = 0;
+    for (int j = 0; j < L.K; ++j) cnt += (r[L.tile_sel_cost + j] > cap);
+    x.k = cnt < 0 ? 0 : (cnt > L.K - 1 ? L.K - 1 : cnt);
+    if (r[L.tile_flag] > 0.0) {
+      x.n = r[L.tile_n + x.k];
+      x.c = r[L.tile_iter_cycles + x.k];
+      x.iter_class = {row + (long long)(L.tile_iter_class + x.k * NC) * cs,
+                      cs};
+    }
+  }
+  x.e = r[L.entry_cycles];
+  x.cc = r[L.commit_cycles];
+  x.entry_class = {row + (long long)L.entry_class * cs, cs};
+  x.commit_class = {row + (long long)L.commit_class * cs, cs};
+  x.seg_class = {row + (long long)L.seg_class * cs, cs};
+  x.seg_cycles = {row + (long long)L.seg_cycles * cs, cs};
+  x.radio_idx = L.radio_idx;
+  x.send_row = false;
+  x.cost = 0.0;
+  x.send_bytes = 0.0;
+  if (SEND && x.kind == KIND_SEND) {
+    x.send_bytes = conf >= radio[R_CONF_HI]
+                       ? radio[R_HDR] + radio[R_CLASS]
+                       : (conf >= radio[R_CONF_LO]
+                              ? radio[R_HDR] + radio[R_TOPK] : 0.0);
+    x.cost = x.send_bytes > 0.0
+                 ? radio[R_WAKEUP] + x.send_bytes * radio[R_CPB] : 0.0;
+    x.e = x.cost;
+    x.send_row = true;
+  }
+  x.has_iters = x.n > 0.0;
+  x.batchr = adaptive ? (x.has_iters && (x.cc > 0.0) && (theta <= 1.0))
+                      : false;
+  x.er = x.batchr ? x.e + x.cc : x.e;
+  x.cr = x.batchr ? x.c - x.cc : x.c;
+  x.crs = jmax(x.cr, 1e-30);
+  x.afford_nom = floor((cap - x.er) / x.crs);
+  x.row_stuck = x.has_iters ? (x.afford_nom < 1.0) : (x.e > cap);
+  return x;
+}
+
+// Which branch of charge_once's class loop an event takes.  It is the same
+// for all 17 classes, so it is chosen once per event, outside the loop, and
+// each case's loop is straight-line code whose loads issue together (in
+// the direct design each class's loads wait behind that class's branches).
+enum { CASE_DFAIL, CASE_DOK, CASE_FIN, CASE_PART, CASE_TORN };
+
+// The per-event scalars charge_once's class loop reads.
+struct ChargeTerms {
+  bool batch, defer, tear;
+  double take_f, keep_f, d_ratio, a0, d_exec, a1, left, f_commit,
+      exec_iters, commit_n, residue, p_entry;
+};
+
+// The class loop of the direct design's charge_once for one case and one
+// value of dok (a debt replayed this charge: rare, so the common loop
+// carries none of its arithmetic): every expression as there, in the same
+// order.  `t.d_ratio` is its d_exec / debt_s, the same quotient for every
+// class.
+template <int CASE, bool DOK, bool SEND>
+__device__ __forceinline__ void charge_classes(const Ctx& x, const Layout& L,
+                                               const ChargeTerms& t,
+                                               State& s) {
+  constexpr bool DEND = CASE == CASE_DFAIL || CASE == CASE_DOK;
+  constexpr bool FIN = CASE == CASE_FIN;
+  const int CTRL = L.control_idx;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    double dc = s.debt_class[c], pc = s.pend_class[c];
+    double cc_c = x.commit_class[c];
+    double iv = t.batch ? x.iter_class[c] - cc_c : x.iter_class[c];
+    double d_cls = DOK ? dc * t.take_f + cc_c : 0.0;
+    double pcls1 = DOK ? 0.0 : pc;
+    double dcls1 = DOK ? dc * t.keep_f : dc;
+    double add;
+    if (CASE == CASE_DFAIL) {
+      add = dc * t.d_ratio;
+      if (c == CTRL) add = add + (t.a0 - t.d_exec);
+    } else if (CASE == CASE_DOK) {
+      add = d_cls;
+      if (c == CTRL) add = add + t.a1;
+    } else if (FIN) {
+      add = d_cls + ((ec<SEND>(x, c) + t.left * iv) + t.f_commit * cc_c);
+    } else {
+      constexpr bool ENTERED = CASE == CASE_PART;
+      double burn =
+          ((ENTERED ? ec<SEND>(x, c) : 0.0) +
+           (ENTERED ? 0.0 : torn_class<SEND>(x, L, t.p_entry, c))) +
+          t.exec_iters * iv + t.commit_n * cc_c;
+      if (c == CTRL) burn = burn + t.residue;
+      add = d_cls + burn;
+    }
+    s.classes[c] = s.classes[c] + add;
+    s.pend_class[c] =
+        DEND ? pcls1
+             : (FIN ? (t.defer ? (pcls1 + ec<SEND>(x, c)) + t.left * iv : 0.0)
+                    : 0.0);
+    s.debt_class[c] = dcls1 + (t.tear ? pcls1 : 0.0);
+  }
+}
+
+// charge_once of the direct design: the same scalar arithmetic, then the
+// class loop of the event's case.
+template <bool SEND>
+__device__ __forceinline__ bool charge_once(const Ctx& x, const Layout& L,
+                                            bool adaptive, double cap,
+                                            const double* ccum, int rc,
+                                            double theta, double window,
+                                            double alpha, State& s,
+                                            Prof& pf) {
+  double a0 = s.rem, est0 = s.bel;
+
+  // phase 0: multi-row rollback replay
+  bool have_debt = s.debt > 0.0;
+  double debt_s = jmax(s.debt, 1e-30);
+  double want = have_debt ? jmin(s.debt, jmax(est0 - x.cc, 0.0)) : 0.0;
+  bool dok = have_debt && (want > 0.0) && (a0 >= want + x.cc);
+  bool dfail = have_debt && !dok;
+  bool dpart = dok && ((s.debt - want) > 0.0);
+  bool dend = dfail || dpart;
+  double d_exec = dfail ? jmin(want, a0) : 0.0;
+  double d_spend = dok ? want + x.cc : 0.0;
+  double a1 = a0 - d_spend;
+  double est1 = jmax(est0 - d_spend, 0.0);
+  double debt1 = dok ? s.debt - want : s.debt;
+  // read only where dok: without debt both are 0 / 1e-30, which CUDA's
+  // division sends down its slow path, twice an event
+  double keep_f = 0.0, take_f = 0.0;
+  if (dok) {
+    keep_f = (s.debt - want) / debt_s;
+    take_f = want / debt_s;
+  }
+  double pnd1 = dok ? 0.0 : s.pend;
+  double prw1 = dok ? 0.0 : s.pend_rows;
+
+  // batch decision for this charge
+  bool batch = false, defer = false;
+  if (adaptive) {
+    batch = x.has_iters && (x.cc > 0.0) &&
+            (isinf(cap) || (est1 >= theta * s.bhat));
+    defer = batch && ((prw1 + 1.0) < window);
+  }
+  double e_b = batch ? x.e + x.cc : x.e;
+  double c_b = batch ? x.c - x.cc : x.c;
+  double c_bs = jmax(c_b, 1e-30);
+
+  // row phase: schedule from belief, execute against actual
+  bool entered = a1 >= x.e;
+  double k_est = jclip(est1 >= e_b ? floor((est1 - e_b) / c_bs) : 0.0, 0.0,
+                       s.left);
+  double fin_cost = x.e + s.left * c_b + ((batch && !defer) ? x.cc : 0.0);
+  bool plan_fin = est1 >= fin_cost;
+  double sched_i = (batch && plan_fin) ? s.left : k_est;
+  double k_act = jclip(entered ? floor((a1 - e_b) / c_bs) : 0.0, 0.0,
+                       s.left);
+  double k_exec = jclip(entered ? floor((a1 - x.e) / c_bs) : 0.0, 0.0,
+                        batch ? sched_i : s.left);
+  bool fin = batch ? (plan_fin && (a1 >= fin_cost))
+                   : (a1 >= x.e + s.left * c_b);
+  bool boundary = batch && !plan_fin && (k_est == 0.0) && (prw1 > 0.0);
+  bool sched_commit = plan_fin ? !defer : ((k_est > 0.0) || (prw1 > 0.0));
+  bool commit_ok = boundary ? (a1 >= x.cc) : (a1 >= e_b + sched_i * c_b);
+  bool land = batch && !plan_fin && sched_commit && commit_ok;
+  double exec_iters = batch ? ((land && !boundary) ? sched_i : k_exec)
+                            : k_act;
+  double prog = batch ? ((land && !boundary) ? sched_i : 0.0) : k_act;
+  double commit_n = land ? 1.0 : 0.0;
+
+  double p_entry = boundary ? (land ? a1 - x.cc : -1.0) : a1;
+  bool entered_d = p_entry >= x.e;
+  double entry_burn = entered_d ? x.e : jclip(p_entry, 0.0, x.e);
+  double residue = a1 - entry_burn - exec_iters * c_b - commit_n * x.cc;
+  double spend_fin = fin_cost;
+  double f_commit = (batch && !defer) ? 1.0 : 0.0;
+
+  bool fin_ok = fin && !dend;
+  bool committed = batch ? land : (k_act > 0.0);
+  bool tear = !fin_ok && !dend && !committed && (pnd1 > 0.0);
+  double waste_add =
+      ((!fin_ok && !dend && batch && !land) ? k_exec * c_b : 0.0) +
+      (tear ? pnd1 : 0.0) + (dfail ? d_exec : 0.0);
+  double pnd_fin = defer ? pnd1 + spend_fin : 0.0;
+  double prw_fin = defer ? prw1 + 1.0 : 0.0;
+
+  bool died = dend || !fin;
+  double obs = s.chg + a0;
+  double bh_new = ((alpha > 0.0) && (s.reboots > 0.0) && died)
+                      ? jmax(rint(s.bhat + alpha * (obs - s.bhat)), 1.0)
+                      : s.bhat;
+  bool stuck_now = !fin_ok && x.row_stuck;
+  pf.lap(P_CO_SCALAR);
+
+  // per-class vectors, element by element, in the reference's order
+  const ChargeTerms t = {batch,    defer,      tear,
+                         take_f,   keep_f,     dfail ? d_exec / debt_s : 0.0,
+                         a0,       d_exec,     a1,       s.left,
+                         f_commit, exec_iters, commit_n, residue,
+                         p_entry};
+  // (dfail implies !dok; the DOK case, dend && !dfail, implies dok)
+  if (dend) {
+    if (dfail) {
+      charge_classes<CASE_DFAIL, false, SEND>(x, L, t, s);
+    } else {
+      charge_classes<CASE_DOK, true, SEND>(x, L, t, s);
+    }
+  } else if (fin) {
+    if (dok)
+      charge_classes<CASE_FIN, true, SEND>(x, L, t, s);
+    else
+      charge_classes<CASE_FIN, false, SEND>(x, L, t, s);
+  } else if (entered_d) {
+    if (dok)
+      charge_classes<CASE_PART, true, SEND>(x, L, t, s);
+    else
+      charge_classes<CASE_PART, false, SEND>(x, L, t, s);
+  } else {
+    pf.warp(W_TORN);
+    pf.count(C_TORN);
+    if (dok)
+      charge_classes<CASE_TORN, true, SEND>(x, L, t, s);
+    else
+      charge_classes<CASE_TORN, false, SEND>(x, L, t, s);
+  }
+  pf.lap(P_CO_CLASS);
+
+  double new_rem = fin_ok ? a1 - spend_fin
+                          : trace_window(ccum, rc, s.reboots,
+                                         s.reboots + 1.0, cap);
+  s.bel = fin_ok ? jmax(est1 - spend_fin, 0.0) : bh_new;
+  s.left = fin_ok ? 0.0 : s.left - (dend ? 0.0 : prog);
+  s.live = s.live + (dend ? a0 : d_spend + (fin ? spend_fin : a1));
+  s.reboots = s.reboots + (fin_ok ? 0.0 : 1.0);
+  s.rem = new_rem;
+  s.wasted = s.wasted + waste_add;
+  s.pend = dend ? pnd1 : (fin ? pnd_fin : 0.0);
+  s.pend_rows = dend ? prw1 : (fin ? prw_fin : 0.0);
+  s.bhat = bh_new;
+  s.chg = fin_ok ? s.chg + d_spend + spend_fin : 0.0;
+  s.debt = debt1 + (tear ? pnd1 : 0.0);
+  s.stuck = s.stuck || stuck_now;
+  return fin_ok || stuck_now;
+}
+
+// Which branch of fast_forward's class loop a lane takes: the row finishes
+// on this charge, or it fails having entered, or it fails torn.
+enum { FF_OK, FF_ENTERED, FF_TORN };
+
+struct ForwardTerms {
+  bool batch0;
+  double left, ok_commits, entries, afford0, rem_iters, fail_commits,
+      residue, rem;
+};
+
+// The class loop of the direct design's fast_forward for one case.
+template <int CASE, bool SEND>
+__device__ __forceinline__ void forward_classes(const Ctx& x,
+                                                const Layout& L,
+                                                const ForwardTerms& t,
+                                                State& s) {
+  const int CTRL = L.control_idx;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    double cc_c = x.commit_class[c];
+    double iv0 = t.batch0 ? x.iter_class[c] - cc_c : x.iter_class[c];
+    double add;
+    if (CASE == FF_OK) {
+      add = (ec<SEND>(x, c) + t.left * iv0) + t.ok_commits * cc_c;
+    } else {
+      add = t.entries * ec<SEND>(x, c) + t.afford0 * iv0 +
+            t.rem_iters * x.ivr(c) + t.fail_commits * cc_c;
+      add = add + (CASE == FF_ENTERED ? 0.0
+                                      : torn_class<SEND>(x, L, t.rem, c));
+      if (c == CTRL) add = add + t.residue;
+    }
+    s.classes[c] = s.classes[c] + add;
+  }
+}
+
+// fast_forward of the direct design: the same scalar arithmetic, then the
+// class loop of the lane's case.
+template <bool SEND>
+__device__ __forceinline__ void fast_forward(const Ctx& x, const Layout& L,
+                                             bool adaptive, double cap,
+                                             double theta, State& s,
+                                             Prof& pf) {
+  double rem = s.rem, left = s.left;
+  bool batch0 = false;
+  if (adaptive) {
+    bool lvl0 = isinf(cap) ? true : (s.bel >= theta * s.bhat);
+    batch0 = x.has_iters && (x.cc > 0.0) && lvl0;
+  }
+  double e0 = batch0 ? x.e + x.cc : x.e;
+  double c0 = batch0 ? x.c - x.cc : x.c;
+  double c0s = jmax(c0, 1e-30);
+  double needed = e0 + left * c0;
+  bool ok = rem >= needed;
+
+  bool entered = rem >= x.e;
+  double afford0 = jclip(entered ? floor((rem - e0) / c0s) : 0.0, 0.0, left);
+  double rem_iters = left - afford0;
+  double afford_full = jmax(x.afford_nom, 1.0);
+  double visits =
+      x.has_iters ? jmax(ceil(rem_iters / afford_full), 1.0) : 1.0;
+  double n_last =
+      x.has_iters ? rem_iters - (visits - 1.0) * afford_full : 0.0;
+  double fail_live = rem + (visits - 1.0) * cap + x.er + n_last * x.cr;
+  double fail_rem = cap - x.er - n_last * x.cr;
+  double entries = visits + (entered ? 1.0 : 0.0);
+  double ok_commits = batch0 ? 1.0 : 0.0;
+  double fail_commits = (x.batchr ? visits : 0.0) +
+                        ((batch0 && (afford0 > 0.0)) ? 1.0 : 0.0);
+  double residue = fail_live - entries * x.e - afford0 * c0 -
+                   rem_iters * x.cr - fail_commits * x.cc -
+                   (entered ? 0.0 : rem);
+
+  const ForwardTerms t = {batch0,    left,         ok_commits,
+                          entries,   afford0,      rem_iters,
+                          fail_commits, residue,   rem};
+  if (ok) {
+    forward_classes<FF_OK, SEND>(x, L, t, s);
+  } else if (entered) {
+    forward_classes<FF_ENTERED, SEND>(x, L, t, s);
+  } else {
+    pf.warp(W_TORN);
+    pf.count(C_TORN);
+    forward_classes<FF_TORN, SEND>(x, L, t, s);
+  }
+  double new_rem = ok ? rem - needed : fail_rem;
+  s.rem = new_rem;
+  s.bel = new_rem;
+  s.left = 0.0;
+  s.live = s.live + (ok ? needed : fail_live);
+  s.reboots = s.reboots + (ok ? 0.0 : visits);
+  s.chg = ok ? s.chg + needed : x.er + n_last * x.cr;
+  s.stuck = s.stuck || (!ok && x.row_stuck);
+}
+
+// One thread per lane, as in the direct design.  Element (i, j) of a lane's
+// table is at lane_rows[i * rs + j * cs]: the shared plan's table comes
+// column-major (rs = 1, cs = S), so the lanes of a warp, a few rows apart,
+// read a column from a few cache lines where row-major rows would take one
+// line a lane (an L1 wavefront each); a lane's own table comes row-major
+// (rs = F, cs = 1).
+template <bool PARAM, bool SEND>
+__global__ void __launch_bounds__(LANE_MAX_BLOCK, 1) charge_replay_kernel(
+    const double* __restrict__ rows, long long lane_stride, int rs, int cs,
+    Layout L, Flags fl, const double* __restrict__ caps,
+    const double* __restrict__ rem0, const double* __restrict__ trace_cum,
+    int r_trace, const double* __restrict__ tail_s,
+    const double* __restrict__ charge_cum, int r_charge,
+    const double* __restrict__ nominal_from, const int* __restrict__ s_real,
+    double theta, double window, double alpha,
+    const double* __restrict__ confs, const double* __restrict__ radio,
+    double* live_o, double* reboots_o, double* dead_o, double* classes_o,
+    double* wasted_o, unsigned char* stuck_o, double* rem_o,
+    double* belief_o, double* tx_o, double* sent_o, double* deferred_o,
+    int n_lanes) {
+  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n_lanes) return;
+  const bool adaptive = fl.adaptive != 0;
+  const double cap = caps[lane];
+  const double tail = tail_s[lane];
+  const double nfrom = nominal_from[lane];
+  const double conf = confs[lane];
+  const int n_real = s_real[lane];
+  const double* tcum = trace_cum + (long long)lane * r_trace;
+  const double* ccum = charge_cum + (long long)lane * r_charge;
+  const double* lane_rows = rows + (long long)lane * lane_stride;
+
+  State st;
+  st.i = 0;
+  st.fresh = true;
+  st.stuck = false;
+  st.row_r0 = st.dead = st.left = st.live = st.reboots = 0.0;
+  st.wasted = st.pend = st.pend_rows = st.chg = st.debt = 0.0;
+  st.tx = st.sent = st.deferred = 0.0;
+  st.rem = st.bel = rem0[lane];
+  st.bhat = cap + 0.0;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    st.classes[c] = st.pend_class[c] = st.debt_class[c] = 0.0;
+
+  Prof pf;
+  pf.start();
+  while (st.i < n_real) {
+    pf.warp(W_LOOP);
+    pf.count(C_EVENTS);
+    const double* row = lane_rows + (long long)st.i * rs;
+    Ctx x = row_ctx<PARAM, SEND>(row, cs, L, adaptive, cap, theta, conf,
+                                 radio);
+    pf.lap(P_CTX);
+    bool fresh = st.fresh;
+
+    // decision 5: a fresh SEND row waking into a closed window sleeps
+    double send_wait = 0.0;
+    bool defer_now = false, is_send = false;
+    if (SEND) {
+      is_send = x.kind == KIND_SEND;
+      bool want_send =
+          fresh && is_send && (x.send_bytes > 0.0) && !x.row_stuck;
+      // the window's phase (two divisions) only where a send is wanted:
+      // elsewhere defer_now is false whatever it is
+      if (want_send) {
+        double period = radio[R_PERIOD];
+        double t = st.live / radio[R_CLK] + st.dead;
+        double ps = jmax(period, 1e-30);
+        double phase = t - fabs(floor(t / ps) * ps);
+        bool closed = (period > 0.0) && (phase >= radio[R_DUTY] * period);
+        defer_now = closed;
+        send_wait = defer_now ? period - phase : 0.0;
+      }
+    }
+
+    // entering a row resets the row-local loop state
+    if (fresh) {
+      st.left = x.n;
+      st.debt = 0.0;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) st.debt_class[c] = 0.0;
+    }
+
+    bool is_work = x.kind == KIND_WORK || (SEND && is_send);
+    bool advance = true;
+    if (is_work) {
+      bool elig = false;
+      if (fl.enable_fast) {
+        elig = (st.reboots >= nfrom) && (st.bel == st.rem) &&
+               (st.bhat == cap) && (st.pend == 0.0) &&
+               (st.pend_rows == 0.0) && (st.debt == 0.0) && !x.row_stuck &&
+               ((alpha <= 0.0) || (st.chg + st.rem == cap) ||
+                (st.reboots == 0.0));
+        if (adaptive) elig = elig && (window <= 1.0);
+      }
+      pf.lap(P_HEAD);
+      if (elig) {
+        pf.warp(W_FAST);
+        pf.count(C_FAST);
+        fast_forward<SEND>(x, L, adaptive, cap, theta, st, pf);
+        advance = true;
+        pf.lap(P_FAST);
+      } else {
+        pf.warp(W_CHARGE);
+        pf.count(C_CHARGE);
+        advance = charge_once<SEND>(x, L, adaptive, cap, ccum, r_charge,
+                                    theta, window, alpha, st, pf);
+        pf.lap(P_CHARGE);
+      }
+    } else if (fl.has_burn && x.kind == KIND_BURN) {
+      // a failed calibration attempt drains the whole buffer
+      double r = st.rem;
+      st.rem = trace_window(ccum, r_charge, st.reboots, st.reboots + 1.0,
+                            cap);
+      st.bel = st.bhat;
+      st.live = st.live + r;
+      st.reboots = st.reboots + 1.0;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        st.classes[c] = st.classes[c] + (c == L.burn_idx ? 0.0 + r : 0.0);
+      st.chg = 0.0;
+    } else if (PARAM && x.kind == KIND_CALIB) {
+      // per-lane burn count from the capacitor (Sec. 7.1)
+      double burns = (double)x.k;
+      double calib_live =
+          burns > 0.0 ? st.rem + trace_window(ccum, r_charge, st.reboots,
+                                              st.reboots + burns - 1.0, cap)
+                      : 0.0;
+      double calib_rem =
+          burns > 0.0 ? trace_window(ccum, r_charge, st.reboots + burns - 1.0,
+                                     st.reboots + burns, cap)
+                      : st.rem;
+      st.rem = calib_rem;
+      st.bel = burns > 0.0 ? st.bhat : st.bel;
+      st.live = st.live + calib_live;
+      st.reboots = st.reboots + burns;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        st.classes[c] =
+            st.classes[c] + (c == L.burn_idx ? 0.0 + calib_live : 0.0);
+      if (burns > 0.0) st.chg = 0.0;
+    }
+    if (!is_work) {
+      pf.count(C_BURN);
+      pf.lap(P_BURN);
+    }
+
+    // decision 3: per-reboot dead time, booked once per row; the window
+    // wait is added first as its own float step
+    double dead_base = st.dead + send_wait;
+    st.dead = advance ? dead_base + trace_window(tcum, r_trace, st.row_r0,
+                                                 st.reboots, tail)
+                      : dead_base;
+    if (SEND) {
+      bool adv_tx = advance && is_send && !x.row_stuck;
+      st.tx = st.tx + (adv_tx ? x.send_bytes : 0.0);
+      st.sent = st.sent + ((adv_tx && (x.send_bytes > 0.0)) ? 1.0 : 0.0);
+      st.deferred = st.deferred + (defer_now ? 1.0 : 0.0);
+    }
+    if (advance) {
+      st.i += 1;
+      st.row_r0 = st.reboots;
+    }
+    st.fresh = advance;
+    pf.lap(P_TAIL);
+  }
+  pf.flush();
+
+  live_o[lane] = st.live;
+  reboots_o[lane] = st.reboots;
+  dead_o[lane] = st.dead;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    classes_o[(long long)lane * NC + c] = st.classes[c];
+  wasted_o[lane] = st.wasted;
+  stuck_o[lane] = st.stuck ? 1 : 0;
+  rem_o[lane] = st.rem;
+  belief_o[lane] = st.bhat;
+  tx_o[lane] = st.tx;
+  sent_o[lane] = st.sent;
+  deferred_o[lane] = st.deferred;
+}
+
+}  // namespace hoisted
+
+// The dependent latency of f64 arithmetic (chip_smoke.py's chain floor):
+// one thread runs `n` dependent additions, then `n` dependent
+// multiplications, and writes the clock64() cycles of each chain and the
+// %globaltimer nanoseconds of both (the SM clock beside the cycles).  The
+// empty asm statements keep each chain between its two clock reads.
+__global__ void f64_latency_kernel(double a, double b, int n,
+                                   long long* out, double* sink) {
+  double x = a;
+  asm volatile("" : "+d"(x));
+  unsigned long long g0 = globaltimer();
+  long long c0 = clock64();
+  for (int i = 0; i < n; ++i) x = x + b;
+  asm volatile("" : "+d"(x));
+  long long c1 = clock64();
+  for (int i = 0; i < n; ++i) x = x * a;
+  asm volatile("" : "+d"(x));
+  long long c2 = clock64();
+  unsigned long long g1 = globaltimer();
+  out[0] = c1 - c0;
+  out[1] = c2 - c1;
+  out[2] = (long long)(g1 - g0);
+  sink[0] = x;
+}
+
 extern "C" {
 
 int charge_replay_n_classes() { return NC; }
 
-// Launch one thread per lane, 128 to a block, on `stream`.  `layout` is 21
-// ints in Layout's field order.  Returns cudaGetLastError() after the
-// launch.
+// f64_latency_kernel on one thread: out (device, 3 long longs) gets the
+// add chain's cycles, the multiply chain's cycles and the nanoseconds of
+// both; sink (device, 1 double) keeps the result live.
+int charge_replay_f64_latency(int n, long long* out, double* sink,
+                              void* stream) {
+  f64_latency_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(1.0000001, 1e-3, n,
+                                                        out, sink);
+  return (int)cudaGetLastError();
+}
+
+#ifdef REPLAY_PROFILE
+// The profile build's counters: zero them, or copy PROF_SLOTS + PROF_SMS
+// 64-bit words (the blocks per SM widened) to `host`.
+int charge_replay_profile_reset() {
+  unsigned long long z[PROF_SLOTS] = {0};
+  unsigned int zs[PROF_SMS] = {0};
+  cudaMemcpyToSymbol(prof_acc, z, sizeof(z));
+  cudaMemcpyToSymbol(prof_sm, zs, sizeof(zs));
+  return (int)cudaGetLastError();
+}
+int charge_replay_profile_read(unsigned long long* host) {
+  unsigned int sms[PROF_SMS];
+  cudaMemcpyFromSymbol(host, prof_acc, sizeof(unsigned long long) * PROF_SLOTS);
+  cudaMemcpyFromSymbol(sms, prof_sm, sizeof(sms));
+  for (int i = 0; i < PROF_SMS; ++i) host[PROF_SLOTS + i] = sms[i];
+  return (int)cudaGetLastError();
+}
+#endif
+
+// The direct design: one thread per lane, 128 to a block, on `stream`.
+// `layout` is 21 ints in Layout's field order.  Returns cudaGetLastError()
+// after the launch.
 int charge_replay_launch(
     const double* rows, long long lane_stride, const int* layout,
     const double* caps, const double* rem0, const double* trace_cum,
@@ -563,8 +1369,51 @@ int charge_replay_launch(
   if (n_lanes <= 0) return 0;
   const int block = 128;
   const int grid = (n_lanes + block - 1) / block;
-  charge_replay_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  direct::charge_replay_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       rows, lane_stride, L, fl, caps, rem0, trace_cum, r_trace, tail_s,
+      charge_cum, r_charge, nominal_from, s_real, theta, window, alpha, conf,
+      radio, live, reboots, dead, classes, wasted, stuck, rem, belief,
+      tx_bytes, msgs_sent, msgs_deferred, n_lanes);
+  return (int)cudaGetLastError();
+}
+
+// The hoisted design, on `stream`: `block` lanes a block (1 to
+// LANE_MAX_BLOCK); `variant` is the instantiation, 2 * parametric +
+// has_send (charge_replay.py:kernel_variant); element (i, j) of a lane's
+// table at i * rs + j * cs.  The other arguments are charge_replay_launch's
+// (`layout`'s F is the row width whatever the strides).  Returns cudaErrorInvalidValue for a block or
+// variant these flags do not allow, else cudaGetLastError() after the
+// launch.
+int charge_replay_hoisted_launch(
+    const double* rows, long long lane_stride, const int* layout,
+    const double* caps, const double* rem0, const double* trace_cum,
+    int r_trace, const double* tail_s, const double* charge_cum,
+    int r_charge, const double* nominal_from, const int* s_real,
+    double theta, double window, double alpha, const double* conf,
+    const double* radio, int adaptive, int parametric, int enable_fast,
+    int has_burn, int has_send, double* live, double* reboots, double* dead,
+    double* classes, double* wasted, unsigned char* stuck, double* rem,
+    double* belief, double* tx_bytes, double* msgs_sent,
+    double* msgs_deferred, int n_lanes, int variant, int block, int rs,
+    int cs, void* stream) {
+  Layout L;
+  int* dst = &L.kind;
+  for (int j = 0; j < (int)(sizeof(Layout) / sizeof(int)); ++j)
+    dst[j] = layout[j];
+  Flags fl = {adaptive, parametric, enable_fast, has_burn, has_send};
+  if (variant != 2 * (parametric != 0) + (has_send != 0) || block < 1 ||
+      block > LANE_MAX_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  if (n_lanes <= 0) return 0;
+  using Kernel = decltype(&hoisted::charge_replay_kernel<false, false>);
+  static const Kernel kernels[4] = {
+      &hoisted::charge_replay_kernel<false, false>,
+      &hoisted::charge_replay_kernel<false, true>,
+      &hoisted::charge_replay_kernel<true, false>,
+      &hoisted::charge_replay_kernel<true, true>};
+  const int grid = (n_lanes + block - 1) / block;
+  kernels[variant]<<<grid, block, 0, (cudaStream_t)stream>>>(
+      rows, lane_stride, rs, cs, L, fl, caps, rem0, trace_cum, r_trace, tail_s,
       charge_cum, r_charge, nominal_from, s_real, theta, window, alpha, conf,
       radio, live, reboots, dead, classes, wasted, stuck, rem, belief,
       tx_bytes, msgs_sent, msgs_deferred, n_lanes);

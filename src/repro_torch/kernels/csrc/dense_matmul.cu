@@ -6,7 +6,7 @@
 // output tile in a f32 VMEM accumulator and commits it once.  Here one
 // thread block owns one output tile and loops over K itself, the
 // accumulators in registers.  Ragged M, N and K are handled here, so the
-// caller pads nothing.  Three kernels, chosen by the wrapper from the
+// caller pads nothing.  Four kernels, chosen by the wrapper from the
 // operands before the launch (dense_matmul.py:matmul_path):
 //
 // * matmul_wgmma_kernel: bf16 on the tensor cores, for contiguous,
@@ -48,8 +48,18 @@
 //     distributed shared memory in rank order, and stores them.  The sum
 //     has the same order in every run (no atomics), so the output is the
 //     same bit for bit.
-// * matmul_kernel: f32 and bf16 operands that neither tensor-core kernel
-//   takes, on the CUDA cores.  The tiles (bm, bk, bn) are the caller's; the
+// * matmul_narrow_kernel: f32 and bf16 operands with N up to 64 that
+//   neither tensor-core kernel takes (MNIST's fc3: 1024 x 500 x 10, whose
+//   40-byte rows of w TMA cannot read).  The product is 10 MFLOP over 2 MB,
+//   bound by latency and the launch, so the design is about filling the
+//   card: a CTA takes a band of bm rows of x (the wrapper sizes it so the
+//   CTAs cover the 132 SMs: 8 rows, 128 CTAs at fc3), a thread one output,
+//   and K goes through shared memory in slices as long as two stages allow
+//   (all of K at fc3), copied with cp.async.  Each output is one fmaf chain
+//   over K in order from 0.0f, as in matmul_kernel, so the two kernels give
+//   the same bits.
+// * matmul_kernel: f32 and bf16 operands that no other kernel takes, on
+//   the CUDA cores.  The tiles (bm, bk, bn) are the caller's; the
 //   accumulators are an 8 x 8 micro-tile per thread, so a block has
 //   (bm / 8) * (bn / 8) threads.  Each K slice of x (stored transposed,
 //   rows padded by one against bank conflicts) and of w is staged in
@@ -69,7 +79,9 @@
 // over the next one's loads), clusters with TMA multicast, and a TMA store
 // of the output.  The CUDA-core kernel feeds its FMAs from shared memory
 // with scalar loads, 16 loads for 64 FMAs, with one stage and no
-// copy/compute overlap.
+// copy/compute overlap.  The narrow kernel is bound by latency: the round
+// trip that stages a slice, then each output's chain of K dependent fmaf,
+// each waiting on its two operands' loads from shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -169,6 +181,138 @@ static int launch(const void* x, const void* w, void* out, int m, int k,
   matmul_kernel<T><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
       m, k, n, bm, bk, bn);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// A narrow N (MNIST's fc3: 1024 x 500 x 10) on the CUDA cores
+// ---------------------------------------------------------------------------
+
+#define NR_MAX_THREADS 1024  // threads a CTA, at most: one output each
+#define NR_MAX_ROWS 64       // rows of x a CTA, at most
+#define NR_MAX_N 64          // the widest N the kernel takes
+#define NR_SMEM_MAX (96 * 1024)  // shared memory a CTA, at most: two stages
+
+// cp.async.ca.shared.global of 4 bytes: one f32 of a K slice, from global
+// into shared memory, landing some time after it is issued.
+__device__ __forceinline__ void nr_stage(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+// A bf16 (2 bytes, below cp.async's 4) is loaded and stored.
+__device__ __forceinline__ void nr_stage(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src) {
+  *dst = *src;
+}
+// cp.async.commit_group: this thread's copies since the last commit are
+// one group.
+__device__ __forceinline__ void nr_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// cp.async.wait_group N: at most N of this thread's groups in flight.
+template <int N>
+__device__ __forceinline__ void nr_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A band of bm rows of x times all of w, a thread an output: thread t owns
+// output (t / n, t % n) of the band.  K is walked in slices of bk through
+// two stages of shared memory (x's slice, rows padded by one, then w's
+// rows k0.., which are contiguous), slice i + 1 copied while slice i is
+// summed.  The wrapper makes bk as long as two stages allow
+// (dense_matmul.py:narrow_plan): a slice costs a round trip to memory
+// whatever its length, and its sums alone are too short to hide one.
+template <typename T>
+__global__ void __launch_bounds__(NR_MAX_THREADS)
+    matmul_narrow_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                         T* __restrict__ out, int m, int k, int n, int bm,
+                         int bk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldx = bk + 1;
+  const int stage_elems = bm * ldx + bk * n;
+  T* buf = reinterpret_cast<T*>(smem);
+  const long long row0 = (long long)blockIdx.x * bm;
+  const int rows = (int)min((long long)bm, (long long)m - row0);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int r = tid / n, c = tid - r * n;
+  const bool mine = r < rows;
+  const int slices = (k + bk - 1) / bk;
+
+  auto load = [&](int slice) {
+    const int k0 = slice * bk, kw = min(bk, k - k0);
+    T* xs = buf + (slice & 1) * stage_elems;
+    T* ws = xs + bm * ldx;
+    for (int rr = 0; rr < rows; ++rr)
+      for (int kk = tid; kk < kw; kk += nthreads)
+        nr_stage(&xs[rr * ldx + kk], &x[(row0 + rr) * k + k0 + kk]);
+    const T* wsrc = w + (long long)k0 * n;
+    for (int e = tid; e < kw * n; e += nthreads) nr_stage(&ws[e], &wsrc[e]);
+    nr_commit();
+  };
+
+  float acc = 0.0f;
+  if (slices > 0) load(0);
+  for (int i = 0; i < slices; ++i) {
+    if (i + 1 < slices) {
+      load(i + 1);               // its stage was last read before the
+      nr_wait<1>();              // __syncthreads() that ended slice i - 1
+    } else {
+      nr_wait<0>();
+    }
+    __syncthreads();             // slice i has landed, every thread's part
+    if (mine) {
+      const T* xr = buf + (i & 1) * stage_elems + r * ldx;
+      const T* wc = buf + (i & 1) * stage_elems + bm * ldx + c;
+      const int kw = min(bk, k - i * bk);
+      int kk = 0;
+      // 16 terms' operands read first, so that their loads overlap, then
+      // their 16 multiply-adds in order
+      for (; kk + 16 <= kw; kk += 16) {
+        float a[16], b[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          a[u] = widen(xr[kk + u]);
+          b[u] = widen(wc[(kk + u) * n]);
+        }
+#pragma unroll
+        for (int u = 0; u < 16; ++u) acc = fmaf(a[u], b[u], acc);
+      }
+      for (; kk < kw; ++kk) acc = fmaf(widen(xr[kk]), widen(wc[kk * n]), acc);
+    }
+    __syncthreads();
+  }
+  if (mine) out[(row0 + r) * n + c] = narrow<T>(acc);
+}
+
+template <typename T>
+static int launch_narrow(const void* x, const void* w, void* out, int m,
+                         int k, int n, int bm, int bk, cudaStream_t stream) {
+  const size_t smem = 2 * sizeof(T) * ((size_t)bm * (bk + 1) + (size_t)bk * n);
+  if (bm < 1 || bm > NR_MAX_ROWS || n < 1 || n > NR_MAX_N ||
+      bm * n > NR_MAX_THREADS || bk < 1 || smem > NR_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    // the opt-in above the default 48 KB, once a device and type (a call
+    // costs microseconds)
+    static bool opted_in[64] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= 64 || !opted_in[dev]) {
+      e = cudaFuncSetAttribute(matmul_narrow_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               NR_SMEM_MAX);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < 64) opted_in[dev] = true;
+    }
+  }
+  const int threads = (bm * n + 31) / 32 * 32;
+  const int grid = (m + bm - 1) / bm;
+  matmul_narrow_kernel<T><<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
+      m, k, n, bm, bk);
   return (int)cudaGetLastError();
 }
 
@@ -573,6 +717,13 @@ int dense_matmul_tile() { return TILE; }
 int dense_matmul_max_threads() { return MAX_THREADS; }
 // The wgmma kernel's output tile edge (BM = BN).
 int dense_matmul_wgmma_tile() { return WG_BM; }
+// The narrow kernel's most threads a CTA, most rows a CTA and most shared
+// memory a CTA in KB, packed as threads | rows << 11 | kb << 18, and the
+// widest N alone.
+int dense_matmul_narrow_shape() {
+  return NR_MAX_THREADS | NR_MAX_ROWS << 11 | (NR_SMEM_MAX / 1024) << 18;
+}
+int dense_matmul_narrow_max_n() { return NR_MAX_N; }
 // The tf32x3 kernel's output tile edge (BM = BN), its K slice and the most
 // CTAs that split one tile's K.
 int dense_matmul_tf32x3_tile() { return TF_BM; }
@@ -589,6 +740,21 @@ int dense_matmul_launch(const void* x, const void* w, void* out, int m,
   cudaStream_t s = (cudaStream_t)stream;
   return bf16 ? launch<__nv_bfloat16>(x, w, out, m, k, n, bm, bk, bn, s)
               : launch<float>(x, w, out, m, k, n, bm, bk, bn, s);
+}
+
+// out (m, n) = x (m, k) @ w (k, n) on the narrow kernel: row-major and
+// contiguous, f32 (bf16 = 0) or bf16 (bf16 = 1), 1 <= n <= NR_MAX_N, bm rows
+// of x a CTA with 1 <= bm <= NR_MAX_ROWS and bm * n <= NR_MAX_THREADS, K
+// slices of bk >= 1 whose two stages fit in NR_SMEM_MAX bytes, m >= 1,
+// k >= 0; the wrapper checks them.  Returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue for a bm, bk or n the
+// kernel does not take.
+int dense_matmul_narrow_launch(const void* x, const void* w, void* out, int m,
+                               int k, int n, int bm, int bk, int bf16,
+                               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_narrow<__nv_bfloat16>(x, w, out, m, k, n, bm, bk, s)
+              : launch_narrow<float>(x, w, out, m, k, n, bm, bk, s);
 }
 
 // out (m, n) = x (m, k) @ w (k, n) on the wgmma kernel: bf16, row-major and

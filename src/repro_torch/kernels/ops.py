@@ -33,8 +33,10 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor,
     tensor-core kernel takes (``dense_matmul.matmul_path``) run on it with
     its own 128 x 128 tiles: bf16 on the wgmma kernel (64-wide K slices),
     f32 on the 3xTF32 one (32-wide K slices, K split over a cluster as
-    ``dense_matmul.tf32x3_plan`` chooses); the given tiles are still
-    checked.  A pair of one f32 and one bf16 operand is computed in f32,
+    ``dense_matmul.tf32x3_plan`` chooses); other operands with N up to
+    ``dense_matmul.NARROW_MAX_N`` run on the narrow kernel with its own
+    bands and slices (``dense_matmul.narrow_plan``); on those paths the
+    given tiles are still checked.  A pair of one f32 and one bf16 operand is computed in f32,
     as the JAX package promotes it, and returned in x's dtype."""
     m, k = x.shape
     n = w.shape[-1]

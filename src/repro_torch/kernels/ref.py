@@ -23,6 +23,20 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(F32), w.to(F32)).to(x.dtype)
 
 
+def matmul_in_order(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (K, N) summed as the narrow and CUDA-core kernels sum
+    it: for each output, one multiply-add a term over K in order from 0,
+    in f32, returned in x's dtype.  Each fused multiply-add is emulated in
+    f64 (the product of two f32 is exact there) and rounded to f32, so a
+    step can differ from ``fmaf`` by a double rounding; slow (a loop over
+    K), for tests at small K."""
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=F32, device=x.device)
+    x64, w64 = x.to(torch.float64), w.to(torch.float64)
+    for k in range(x.shape[1]):
+        acc = (acc.to(torch.float64) + x64[:, k, None] * w64[None, k]).to(F32)
+    return acc.to(x.dtype)
+
+
 def block_sparse_matvec_ref(x: torch.Tensor, w_dense) -> torch.Tensor:
     """y = x @ W^T against the dense master copy (zeros included)."""
     w = torch.as_tensor(w_dense, device=x.device).to(F32)

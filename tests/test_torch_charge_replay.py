@@ -227,3 +227,72 @@ def test_wrapper_takes_plain_version_for_cpu_tensors(grid_plans):
     assert tcr.charge_replay.launches == before
     for x, y in zip(a, b):
         _assert_same_replay(x, y, "auto-vs-torch")
+
+
+# --------------------------------------------------------------------------
+# the lane kernel's host-side choices (pure functions; the kernel itself
+# runs on the card, tests/test_torch_cuda.py)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lanes,block,blocks", [
+    (16384, 125, 132),      # the main path: every SM of an H100 a block
+    (4096, 32, 128),
+    (132, 1, 132), (1, 1, 1), (0, 1, 0),
+    (1_000_000, 256, 3907)])  # capped by the registers of an SM
+def test_lane_block_covers_the_card(lanes, block, blocks):
+    got = tcr.lane_block(lanes)
+    assert got == block
+    assert 1 <= got <= tcr.LANE_MAX_BLOCK
+    assert -(-lanes // got) == blocks
+    assert blocks <= tcr.SMS or got == tcr.LANE_MAX_BLOCK
+
+
+def test_kernel_variant_is_the_two_template_flags():
+    """``parametric`` and ``has_send`` pick one of four instantiations,
+    ``2 * parametric + has_send`` (what charge_replay_hoisted_launch
+    checks them against)."""
+    got = {(p, s): tcr.kernel_variant(p, s)
+           for p in (False, True) for s in (False, True)}
+    assert got == {(False, False): 0, (False, True): 1, (True, False): 2,
+                   (True, True): 3}
+
+
+@pytest.mark.parametrize("shared_rows", [True, False])
+def test_hoisted_table_strides_address_every_element(shared_rows, grid_plans):
+    """The hoisted design's table and strides put element (i, j) of lane
+    l's rows where the packed table has it: the shared plan column-major,
+    per-lane tables row-major."""
+    _jp, tplan = grid_plans[5]
+    rows = {k: torch.as_tensor(v) for k, v in tfs._plan_rows(tplan).items()}
+    lanes = 3
+    if not shared_rows:
+        rows = {k: torch.stack([v + i for i in range(lanes)])
+                for k, v in rows.items()}
+    packed, _layout = tcr.pack_rows(rows, shared_rows)
+    table, lane_stride, rs, cs = tcr.hoisted_table(packed, shared_rows)
+    s_pad, f = packed.shape[-2:]
+    assert table.is_contiguous() and table.numel() == packed.numel()
+    assert (rs, cs) == ((1, s_pad) if shared_rows else (f, 1))
+    flat = table.reshape(-1)
+    i = torch.arange(s_pad)[:, None]
+    j = torch.arange(f)[None, :]
+    for lane in range(lanes):
+        want = packed if shared_rows else packed[lane]
+        got = flat[lane * lane_stride + i * rs + j * cs]
+        assert torch.equal(got, want)
+
+
+def test_unknown_design_is_refused(grid_plans):
+    """``design`` names one of the kernel's designs; anything else raises,
+    on the CPU too."""
+    _jp, tplan = grid_plans[0]
+    rows = {k: torch.as_tensor(v) for k, v in tfs._plan_rows(tplan).items()}
+    f = lambda *shape: torch.zeros(shape, dtype=torch.float64)
+    args = [rows, f(1) + tplan.capacity, f(1) + tplan.capacity, f(1, 1),
+            f(1), f(1, 1), f(1), torch.full((1,), len(tplan),
+                                            dtype=torch.int32),
+            0.5, 1.0, 0.0]
+    with pytest.raises(ValueError, match="no lane kernel design"):
+        tcr.charge_replay(*args, adaptive=False, parametric=False,
+                          shared_rows=True, design="staged")
+    assert tcr.DESIGNS == ("hoisted", "direct")

@@ -118,11 +118,72 @@ def test_launches_count_kernel_launches_only():
     kw = dict(plan=plan, n_devices=64, seed=1, charge_cv=0.3,
               device="cuda")
     before = cr.charge_replay.launches
+    by_design = dict(cr.charge_replay.launches_by_design)
     tfs.fleet_sweep(**kw)
     assert cr.charge_replay.launches == before + 1
+    assert cr.charge_replay.launches_by_design == dict(
+        by_design, hoisted=by_design["hoisted"] + 1)
     tfs.fleet_sweep(backend="torch", **kw)
     tfs.fleet_sweep(plan=plan, n_devices=8, seed=1, device="cuda")
     assert cr.charge_replay.launches == before + 1
+
+
+def _both_designs(monkeypatch, run):
+    """Run ``run()`` with every lane-kernel launch made by both designs,
+    and return the pairs of outputs."""
+    wrapper, pairs = cr._wrapper, []
+
+    def both(*a, **kw):
+        out = wrapper(*a, **kw)
+        pairs.append((out, wrapper(*a, **kw, design="direct")))
+        return out
+
+    monkeypatch.setattr(cr, "charge_replay", both)
+    run()
+    torch.cuda.synchronize()
+    assert pairs
+    return pairs
+
+
+@pytest.mark.parametrize("rows", ["shared", "per-lane"])
+def test_hoisted_design_equals_direct(rows, monkeypatch):
+    """The hoisted design (the main path's) and the direct one give the
+    same bits on every channel: shared rows (a fleet sweep with the uplink
+    radio, adaptive, and sonic fixed) and per-lane rows (parametric tails
+    over several capacitors with a short trace, so the closed-form fast
+    path runs, and a continuous-power lane)."""
+    _need_card()
+    net, x = _net()
+    if rows == "shared":
+        radio = pack_radio(RadioModel(window_period_s=0.05,
+                                      window_duty=0.3), SEND_POLICIES[1])
+        runs = [lambda: tfs.fleet_sweep(
+                    net, x, "tails", "100uF", n_devices=300, seed=2,
+                    charge_cv=0.4, trace_reboots=8, policy="adaptive",
+                    batch_rows=4, belief_alpha=0.2, radio=radio,
+                    device="cuda"),
+                lambda: tfs.fleet_sweep(
+                    net, x, "sonic", "100uF", n_devices=300, seed=3,
+                    charge_cv=0.4, trace_reboots=8, device="cuda")]
+    else:
+        base = tfs.build_plan(net, x, "tails", "1mF", parametric=True)
+        plans = [dataclasses.replace(
+            base, capacity=max(2000.0, float(np.rint(f * base.total_cycles))))
+            for f in (0.05, 0.12, 0.3, 0.6)]
+        plans.append(dataclasses.replace(base, capacity=np.inf))
+        caps = np.asarray([p.capacity for p in plans])
+        ctr = charge_capacity_jitter(len(plans), 6, caps, seed=6, cv=0.4)
+        runs = [lambda: tfs.replay_plans(
+            plans, charge_traces=ctr, policy="adaptive", batch_rows=1,
+            init_frac=np.linspace(0.2, 1, 5), device="cuda")]
+    for run in runs:
+        for hoisted, direct in _both_designs(monkeypatch, run):
+            for k, a in hoisted.items():
+                b = direct[k]
+                same = a == b
+                if a.is_floating_point():
+                    same |= a.isnan() & b.isnan()   # NaN in both is equal
+                assert bool(same.all()), k
 
 
 def test_cpu_tensors_with_cuda_backend_raise():
@@ -216,7 +277,8 @@ def test_dense_matmul_kernel_equals_plain(shape, dtype, tiles):
     assert path == ("wgmma" if x_dtype == w_dtype == torch.bfloat16
                     and k % 8 == 0 and n % 8 == 0 else "tf32x3"
                     if torch.float32 in (x_dtype, w_dtype)
-                    and k % 4 == 0 and n % 4 == 0 else "simt")
+                    and k % 4 == 0 and n % 4 == 0 else "narrow"
+                    if n <= mod.NARROW_MAX_N else "simt")
     before = mod.matmul.launches
     on_path = mod.matmul.launches_by_path[path]
     got = dense_matmul(x, w, tiles=tiles and MatmulTiles(*tiles))
@@ -299,6 +361,37 @@ def test_dense_matmul_kernels_side_by_side():
         mod.launch(x_off, w, "wgmma")
     with pytest.raises(ValueError, match="wgmma kernel does not take"):
         mod.launch(x.float(), w.float(), "wgmma")
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1024, 500, 10), F32), ((13, 57, 31), F32), ((1, 1, 1), F32),
+    ((1000, 333, 10), F32), ((300, 70, 17), F32), ((1025, 5, 3), F32),
+    ((2, 700, 1), F32), ((64, 64, 64), F32), ((1024, 4096, 64), F32),
+    ((77, 130, 64), BF16), ((13, 57, 31), BF16), ((1024, 500, 10), BF16)])
+def test_narrow_kernel_bitwise_equals_simt(shape, dtype):
+    """The narrow kernel sums each output over K in order as the CUDA-core
+    kernel does, so the two give the same bits, ragged M and K, K in one
+    slice or several, f32 and bf16; both within the f32 (or bf16) rule of
+    the plain version."""
+    _need_card()
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    mod = _kmod("dense_matmul")
+    rng = np.random.default_rng(m + 3 * k + 7 * n)
+    x = _cuda(rng.normal(size=(m, k)), dtype)
+    w = _cuda(rng.normal(size=(k, n)), dtype)
+    on_path = mod.matmul.launches_by_path["narrow"]
+    got = mod.launch(x, w, "narrow")
+    simt = mod.launch(x, w, "simt")
+    torch.cuda.synchronize()
+    assert mod.matmul.launches_by_path["narrow"] == on_path + 1
+    assert torch.equal(got, simt)
+    want = ref.matmul_ref(x, w)
+    if dtype == F32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        assert _bf16_matmul_holds(got, want)
 
 
 def test_tf32x3_and_simt_side_by_side():

@@ -35,8 +35,9 @@ def _at(shape, dtype=BF16, offset=0):
 
 
 # --------------------------------------------------------------------------
-# dense matmul: wgmma for bf16 and tf32x3 for f32 that TMA reads, the
-# CUDA-core kernel else
+# dense matmul: wgmma for bf16 and tf32x3 for f32 that TMA reads, else the
+# narrow kernel for contiguous operands with N up to 64, else the CUDA-core
+# kernel
 # --------------------------------------------------------------------------
 
 _MATMUL_CASES = {
@@ -48,9 +49,11 @@ _MATMUL_CASES = {
     "f32": ((128, 256, 192), {"dtype": F32}, "tf32x3"),
     "f32 K = 60": ((64, 60, 64), {"dtype": F32}, "tf32x3"),
     "f32 K = 4, ragged M and N": ((13, 4, 36), {"dtype": F32}, "tf32x3"),
-    "f32 N = 10": ((64, 64, 10), {"dtype": F32}, "simt"),
+    "f32 N = 10": ((64, 64, 10), {"dtype": F32}, "narrow"),
     "f32 w 8 bytes off": ((64, 64, 64), {"dtype": F32, "w_offset": 2},
-                          "simt"),
+                          "narrow"),
+    "f32 N = 100, w 8 bytes off": ((64, 64, 100), {"dtype": F32,
+                                                   "w_offset": 2}, "simt"),
     "f32 x 16 bytes off": ((64, 64, 64), {"dtype": F32, "x_offset": 4},
                            "tf32x3"),
     "f32 w transposed view": ((64, 64, 64), {"dtype": F32,
@@ -59,12 +62,13 @@ _MATMUL_CASES = {
     "f32 x, bf16 w": ((128, 256, 192), {"dtype": F32, "w_dtype": BF16},
                       "simt"),
     "bf16 x, f32 w": ((128, 256, 192), {"w_dtype": F32}, "simt"),
-    "K = 60": ((64, 60, 64), {}, "simt"),
+    "K = 60": ((64, 60, 64), {}, "narrow"),
     "N = 100": ((64, 64, 100), {}, "simt"),
-    "K = 4": ((64, 4, 64), {}, "simt"),
-    "odd everything": ((13, 57, 31), {}, "simt"),
-    "x 2 bytes off": ((64, 64, 64), {"x_offset": 1}, "simt"),
-    "w 8 bytes off": ((64, 64, 64), {"w_offset": 4}, "simt"),
+    "K = 4": ((64, 4, 64), {}, "narrow"),
+    "odd everything": ((13, 57, 31), {}, "narrow"),
+    "x 2 bytes off": ((64, 64, 64), {"x_offset": 1}, "narrow"),
+    "w 8 bytes off": ((64, 64, 64), {"w_offset": 4}, "narrow"),
+    "N = 65, x 2 bytes off": ((64, 64, 65), {"x_offset": 1}, "simt"),
     "x 16 bytes off": ((64, 64, 64), {"x_offset": 8}, "wgmma"),
     "w transposed view": ((64, 64, 64), {"w_transposed": True}, "simt"),
     "M = 0": ((0, 64, 64), {}, "simt"),
@@ -95,7 +99,7 @@ def test_matmul_cpu_calls_launch_no_kernel():
     out = mod.matmul(x, w, bm=128, bk=64, bn=128)
     assert torch.equal(out, _module("ref").matmul_ref(x, w))
     assert mod.matmul.launches_by_path == before
-    assert set(before) == {"wgmma", "tf32x3", "simt"}
+    assert set(before) == {"wgmma", "tf32x3", "narrow", "simt"}
 
 
 _TF32X3_PLANS = {

@@ -150,6 +150,75 @@ def test_dense_matmul_refuses_tiles_the_kernel_cannot_take(tiles):
         dense_matmul(x, w, tiles=MatmulTiles(*tiles))
 
 
+# the narrow kernel (N up to NARROW_MAX_N where no tensor-core kernel
+# reads the operands): (m, k, n), dtype, x offset in elements, the path
+_NARROW_PATHS = {
+    "f32 fc3": ((1024, 500, 10), torch.float32, 0, "narrow"),
+    "f32 N = 1": ((7, 33, 1), torch.float32, 0, "narrow"),
+    "f32 N = 17, ragged": ((13, 57, 17), torch.float32, 0, "narrow"),
+    "f32 N at the threshold, x misaligned": ((64, 64, 64), torch.float32,
+                                             1, "narrow"),
+    "f32 N past the threshold": ((64, 63, 65), torch.float32, 0, "simt"),
+    "f32 N = 16, aligned": ((64, 64, 16), torch.float32, 0, "tf32x3"),
+    "f32 N = 64, aligned": ((64, 64, 64), torch.float32, 0, "tf32x3"),
+    "bf16 N = 10": ((1024, 500, 10), torch.bfloat16, 0, "narrow"),
+    "bf16 N = 16, aligned": ((64, 64, 16), torch.bfloat16, 0, "wgmma"),
+    "bf16 N = 64, K = 60": ((64, 60, 64), torch.bfloat16, 0, "narrow"),
+    "f32 K = 0": ((8, 0, 10), torch.float32, 0, "simt"),
+    "f32 M = 0": ((0, 8, 10), torch.float32, 0, "simt"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_NARROW_PATHS))
+def test_matmul_path_takes_narrow_below_the_threshold(case):
+    """``matmul_path`` sends N up to ``NARROW_MAX_N`` to the narrow kernel
+    only where neither tensor-core kernel reads the operands: those keep
+    their path, and wider N stays on the CUDA cores."""
+    (m, k, n), dtype, off, want = _NARROW_PATHS[case]
+    mod = _module("dense_matmul")
+    x = torch.zeros(m * k + off, dtype=dtype)[off:].view(m, k)
+    w = torch.zeros(k, n, dtype=dtype)
+    assert mod.matmul_path(x, w) == want
+
+
+@pytest.mark.parametrize("n", [1, 10, 17])
+@pytest.mark.parametrize("m,k", [(13, 57), (130, 300), (1, 5)])
+def test_narrow_order_matches_jax(m, k, n):
+    """The narrow kernel's sum (each output over K in order, one
+    multiply-add a term: ``ref.matmul_in_order``) against the Pallas
+    kernel in interpret mode, ragged M and K, within tests/test_kernels.py's
+    f32 tolerance."""
+    rng = np.random.default_rng(m * k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    want = np.asarray(jax_dense_matmul(jnp.asarray(x), jnp.asarray(w),
+                                       interpret=True))
+    got = ref.matmul_in_order(_t(x), _t(w))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("m,k,n,size,bm,bk", [
+    (1024, 500, 10, 4, 8, 500),     # MNIST's fc3: 128 CTAs, K in one slice
+    (1024, 500, 10, 2, 8, 500),
+    (1024, 4096, 64, 4, 8, 170),    # two stages of 8 + 64 rows fill 96 KB
+    (13, 57, 31, 4, 1, 57),
+    (100000, 64, 64, 4, 16, 64),    # bm capped by the threads (1024 // 64)
+    (100000, 64, 1, 4, 64, 64)])    # ... and by NARROW_MAX_ROWS
+def test_narrow_plan(m, k, n, size, bm, bk):
+    """The narrow kernel's plan: rows of x a CTA covering the card in one
+    wave where M allows (at most 64, a thread an output up to 1024), K
+    slices as long as two stages allow in 96 KB."""
+    mod = _module("dense_matmul")
+    plan = mod.narrow_plan(m, k, n, size)
+    assert plan == (bm, bk)
+    assert plan.bm * n <= mod.NARROW_MAX_THREADS
+    assert 2 * size * (plan.bm * (plan.bk + 1) + plan.bk * n) \
+        <= mod.NARROW_SMEM_MAX
+    if plan.bm < min(mod.NARROW_MAX_ROWS, mod.NARROW_MAX_THREADS // n):
+        assert -(-m // plan.bm) <= mod.SMS
+
+
 def test_cpu_tensors_take_the_plain_versions():
     """CPU tensors reach the plain versions, which launch nothing."""
     before = _launches()
