@@ -16,13 +16,14 @@ prints one JSON line per phase; any failure exits non-zero.
    and spill lines, and each lane-kernel instantiation's and narrow
    matmul kernel's registers, spill bytes and stack frame; for the Hopper
    kernels (the matmul's bf16 and 3xTF32
-   kernels, the bf16 attention kernel and the block-sparse FC's bf16 and
-   3xTF32 kernels, on ``wgmma`` fed by TMA) it prints each one's
-   registers and spill bytes
+   kernels, the bf16 attention kernel, the block-sparse FC's bf16 and
+   3xTF32 kernels and the SSD cell's 3xTF32 kernel, on ``wgmma`` fed by
+   TMA) it prints each one's registers and spill bytes
    and, where the toolkit has ``cuobjdump``, the HGMMA and UTMALDG
    instructions in its SASS, and fails if either count is 0 or a spill
    byte is reported (where ``cuobjdump`` is missing it says so on a
-   line).
+   line).  It also builds the SSD cell's comparison variant, x dt fed by
+   its threads' loads (``ssd_intra_thread_fed``), timed in phase 9.
 3. kernel_vs_plain -- small random networks (seeded numpy) through the
    entry points, covering the flag combinations the tests cover; every
    kernel launch's inputs are replayed through the plain PyTorch version
@@ -47,7 +48,11 @@ prints one JSON line per phase; any failure exits non-zero.
    shapes (odd sizes, explicit tiles, f32, bf16 and both mixed pairs, an
    empty row-block, batches off the batch tile, K = 1 and K = L), each
    output held against its kernel's plain version on the card (the FIR
-   bitwise in both dtypes); each matmul and block-sparse case prints the
+   bitwise in every dtype pair, on the kernel ``fir_path`` names and, where
+   that is the flat one, on the tiled first design too, over L = 1, K = L,
+   tiles that end mid-row with spans off 16-byte boundaries, the largest
+   K of the flat design and the next, and x off a 16-byte boundary); each
+   matmul and block-sparse case and each FIR case prints the
    kernel that took it (``path``: for the matmul ``wgmma`` for aligned
    bf16 and ``tf32x3`` for aligned f32 and mixed pairs, also with ragged
    M, N and K and K split over 2 or 4 CTAs, ``narrow`` for N up to 64
@@ -80,17 +85,32 @@ prints one JSON line per phase; any failure exits non-zero.
    kernel it replaced (``previous_ms``), at the same shape in the same
    run.  Each matmul and its library call are also timed replayed from a
    CUDA graph (``graph_ms``, ``library_graph_ms``): the device's time
-   without the host's.  The FIR is timed in bf16 beside f32.  Then
+   without the host's.  MNIST's 105 FIR launches must all take the flat
+   kernel (``mnist_fir_launches_by_path``); the FIR is timed at MNIST's two
+   convolutions as the chain stacks them (conv1: 491,520 rows of 28;
+   conv2: 819,200 rows of 12) and at 8192^2 in f32 and bf16, each bitwise
+   against and timed beside the tiled first design (``previous_ms``) and
+   the flat kernel's own looped-K instantiation (``looped_ms``: what the
+   unrolled K = 5 one saves), with
+   ``F.conv1d`` (groups = C) as the library call; the benchmark's 128 x 512
+   (32 tiles, fewer than SMs) takes the tiled one and is timed beside the
+   flat one by name (``flat_ms``); each FIR row is also timed from CUDA
+   graphs (``graph_ms``, ``previous_graph_ms``, ``flat_graph_ms``,
+   ``looped_graph_ms``).  Then
    ``narrow_sweep``: the narrow and CUDA-core kernels at M = 1024, K = 500
    and N = 1, 10, 16, 32 and 64, bitwise and timed (where the narrow one
    is faster, ``matmul_path`` may send N to it).
 8. lm_vs_plain -- the attention kernels (f32 and bf16, causal or not,
    Sq != Sk, S of 1, 37 and 300, d of 64 and 128 on the wgmma kernel in
    bf16, d of 80 on the mma.sync one, GQA group 2) and the SSD cell (the
-   tests' shapes, an overflowing decay, Q = 256, in f32 and bf16) against
-   their plain versions on the card, attention's at the tiles of the
-   kernel that took it; each attention case prints that kernel
-   (``path``).
+   tests' shapes, an overflowing decay, Q = 256, 192, 128 and 64 (one row
+   tile), N = 64, 128 and 192, 17 heads and one head, in f32, bf16 and
+   three mixes) against their plain
+   versions on the card, attention's at the tiles of the kernel that took
+   it; each case prints that kernel (``path``); an SSD case on the wgmma
+   kernel also runs the first design and the thread-fed variant by name,
+   and holds the wgmma outputs to the ``ssd_f64`` rule against the f64
+   cell.
 9. lm_full_width -- qwen3-0.6b as published (28 layers, bf16, attention
    through the kernel) over 2 x 4,096 tokens: the attention kernel's
    launches zeroed just before ``forward`` and read just after (one a
@@ -99,11 +119,19 @@ prints one JSON line per phase; any failure exits non-zero.
    same weights widened to f32, in f32; the forward timed and split
    (hidden states, LM head) beside its bound.  Then each kernel at its
    full-width shape (one layer's attention; the SSD cell at mamba2-370m's
-   widths, reached through the ``kernels`` entry point, launches counted,
-   then on bf16 inputs)
+   widths, reached through the ``kernels`` entry point, launches counted
+   by kernel and all on the wgmma one, then on bf16 inputs)
    against its plain version, timed beside its plain version, its bound
    and, for attention, ``scaled_dot_product_attention`` as a yardstick and
-   the ``mma.sync`` kernel it replaced (``previous_ms``).
+   the ``mma.sync`` kernel it replaced (``previous_ms``); the SSD cell
+   also against the f64 cell (``ssd_f64``), timed beside the first design
+   (``previous_ms``) and the thread-fed variant (``thread_fed_ms``, both
+   rules too), with its bounds: the tensor cores' tf32 products
+   with G counted once a batch*chunk (``bound_ms``), that count on the
+   CUDA cores, the first design's count (G once a cell) and the bytes;
+   then at 1 to 512 cells (``small_cells``), the wgmma kernel at the
+   heads a CTA ``ssd_plan`` gives beside the first design, and from CUDA
+   graphs at 1, 2, 4 and 8 heads a CTA beside the first design.
 10. the kernels line, the ``nvidia-smi`` line, and the result line.
 """
 
@@ -149,12 +177,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-#: The Hopper kernels (wgmma fed by TMA) by source: a substring of each
+#: The Hopper kernels (wgmma, fed by TMA) by source: a substring of each
 #: kernel's mangled name.
 WGMMA_KERNELS = {"dense_matmul": ("matmul_wgmma_kernel",
                                   "matmul_tf32x3_kernel"),
                  "flash_attention": ("flash_wgmma_kernel",),
-                 "sparse_fc": ("block_sparse_fc_hopper_kernel",)}
+                 "sparse_fc": ("block_sparse_fc_hopper_kernel",),
+                 "ssd_intra": ("ssd_wgmma_kernel",)}
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -433,6 +462,15 @@ TOLERANCES = {
               "4096, as does a 3xTF32 one product short, "
               "tests/test_torch_kernels.py)",
     "logits": "max |d| <= 1e-4 max |logit|",
+    "ssd_f64": "max |kernel - f64| <= 4 max |plain f32 - f64| + 2^-24 "
+               "max |f64| per output (the tf32x3 rule), the f64 cell "
+               "computed on the card from the same inputs (ref."
+               "ssd_intra_ref in float64), for the wgmma kernel beside the "
+               "ssd rule: its products are 3xTF32 (S's with decay * x dt in "
+               "three tf32 parts, since a steep decay leaves S a sum of a "
+               "few products, where two parts missed the rule), and a "
+               "one-pass TF32 product misses this limit by more than 50 "
+               "times, tests/test_torch_kernels.py",
     "ssd": "max |d| <= 1e-5 max |ref| per output (f32 sums over N then Q "
            "terms in another order than the plain version's cuBLAS "
            "products grow as sqrt(terms), about 1e-6 of the largest value; "
@@ -578,8 +616,8 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
     from repro_torch.compress.prune import prune_by_sparsity
     from repro_torch.core.inference import SimNet, SparseFC
     from repro_torch.kernels import (BlockSparseFC, MatmulTiles,
-                                     dense_matmul, fir_conv1d, matmul_tiles,
-                                     ref)
+                                     dense_matmul, fir_conv1d, fir_tiles,
+                                     matmul_tiles, ref)
     from repro_torch.models.dnn import mnist_net
 
     mods = {name: importlib.import_module(f"repro_torch.kernels.{mod}")
@@ -751,15 +789,48 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                 if p == "tf32x3":      # the rule is 3xTF32's, not simt's
                     tf32_checks.append(("block_sparse_fc", case, p, got,
                                         want, fc_exact(layer, x)))
-    for c, length, k in ((37, 101, 7), (5, 12, 1), (5, 12, 12), (1, 1, 1),
-                         (3, 300, 70), (2, 600, 33), (4000, 28, 5)):
-        for dtype in (f32, bf16):
-            x = dev(rng.normal(size=(c, length)), dtype)
-            taps = dev(rng.normal(size=(c, k)), dtype)
-            checks.append(("fir_conv1d",
-                           f"C={c} L={length} K={k} {str(dtype)[6:]}",
-                           fir_conv1d(x, taps), ref.fir_conv1d_ref(x, taps),
-                           "bitwise", None))
+    # the FIR: the tests' shapes, L = 1, K = L, tiles that end mid-row
+    # with spans off 16-byte boundaries (999 x 13, 3000 x 12, 700 x 28, and
+    # 40000 x 12 and 20000 x 28, enough tiles for the entry point to take
+    # the flat kernel), the largest K of the flat design at L = 300 and the
+    # next, x off a 16-byte boundary; every dtype pair.  Each through the
+    # entry point, bitwise; the other design by name where it takes the
+    # operands, bitwise too.
+    fmod = mods["fir_conv1d"]
+    for c, length, k, off in (
+            (37, 101, 7, False), (5, 12, 1, False), (5, 12, 12, False),
+            (1, 1, 1, False), (3, 300, 70, False), (2, 600, 33, False),
+            (4000, 28, 5, False), (999, 13, 5, False), (3000, 12, 5, False),
+            (700, 28, 5, False), (40000, 12, 5, False),
+            (20000, 28, 5, False), (3, 300, 117, False), (3, 300, 118, False),
+            (2, 300, 300, False), (700, 28, 5, True)):
+        for xdt, tdt in ((f32, f32), (bf16, bf16), (f32, bf16),
+                         (bf16, f32)):
+            x = dev(rng.normal(size=(c, length)), xdt)
+            if off:
+                x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(
+                    c, length)
+            taps = dev(rng.normal(size=(c, k)), tdt)
+            case = (f"C={c} L={length} K={k} x {str(xdt)[6:]} taps "
+                    f"{str(tdt)[6:]}" + (" x 4 bytes off" if off else ""))
+            path = fmod.fir_path(x, taps)
+            if (length, k) in ((12, 5), (28, 5)) and xdt == tdt \
+                    and fmod.flat_takes(x, taps) == off:
+                raise SystemExit(f"kernels_vs_plain: the flat FIR kernel "
+                                 f"{'takes' if off else 'does not take'} "
+                                 f"{case}")
+            want = ref.fir_conv1d_ref(x, taps)
+            checks.append(("fir_conv1d", case, fir_conv1d(x, taps), want,
+                           "bitwise", path))
+            if path == "flat":
+                checks.append(("fir_conv1d", case, fmod.launch(
+                    x, taps, "tiled", cb=fir_tiles(c, length,
+                                                   x.element_size())),
+                    want, "bitwise", "tiled"))
+            elif fmod.flat_takes(x, taps):
+                checks.append(("fir_conv1d", case,
+                               fmod.launch(x, taps, "flat"), want,
+                               "bitwise", "flat"))
     torch.cuda.synchronize()
     small_err = {}
     for name, case, got, want, rule, path in checks:
@@ -772,9 +843,10 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         if path is not None:
             line = {"phase": "kernels_vs_plain", "kernel": name,
                     "case": case, "path": path, "max_abs_diff_vs_plain": diff,
-                    "rule": rule, "limit_share": (
-                        limit_share(torch, got, want, rule) if rule == "bf16"
-                        else allclose_share(torch, got, want))}
+                    "rule": rule}
+            if rule != "bitwise":
+                line["limit_share"] = limit_share(torch, got, want, rule) \
+                    if rule == "bf16" else allclose_share(torch, got, want)
             emit(line)
     tf32_share = 0.0
     for name, case, path, got, want, exact in tf32_checks:
@@ -805,7 +877,7 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
     def run(kernel, shape, out, kernel_fn, plain_fn, library_fn, flops,
             nbytes, peak, rule, headline, entry=None, previous_fn=None,
             path=None, exact_fn=None, hopper_source=None, bounds=None,
-            plan=None):
+            plan=None, flat_fn=None, looped_fn=None):
         runs.append(dict(kernel=kernel, shape=shape, out=out,
                          kernel_fn=kernel_fn, plain_fn=plain_fn,
                          library_fn=library_fn, flops=flops, bytes=nbytes,
@@ -813,7 +885,7 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                          entry=entry or kernel, previous_fn=previous_fn,
                          path=path, exact_fn=exact_fn,
                          hopper_source=hopper_source, bounds=bounds,
-                         plan=plan))
+                         plan=plan, flat_fn=flat_fn, looped_fn=looped_fn))
 
     mmod = mods["dense_matmul"]
 
@@ -904,17 +976,37 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
             if dtype == f32 else None, hopper_source="sparse_fc",
             bounds=bounds)
 
-    def fir_run(c, length, k, dtype=f32, headline=False):
+    def fir_run(c, length, k, dtype=f32, headline=False, name=None,
+                want_path="flat"):
+        """The FIR through the entry point, ``F.conv1d`` with groups = C as
+        the library call; on the flat kernel, timed beside the tiled one
+        it replaced at the tiles ``fir_tiles`` gives it (``previous_ms``)
+        and, at K = 5, beside its own instantiation that loops over K
+        (``looped_ms``: what the unrolled K = 5 one saves); on the tiled
+        one, beside the flat one by name (``flat_ms``)."""
         x = dev(rng.normal(size=(c, length)), dtype)
         taps = dev(rng.normal(size=(c, k)), dtype)
         n_out = length - k + 1
-        run("fir_conv1d", f"C={c} L={length} K={k} {str(dtype)[6:]}",
+        path = fmod.fir_path(x, taps)
+        if path != want_path:
+            raise SystemExit(f"kernels_full_width: fir_conv1d C={c} "
+                             f"L={length} K={k} takes the {path} kernel, "
+                             f"not the {want_path} one")
+        cb = fir_tiles(c, length, x.element_size())
+        run("fir_conv1d", (name + ": " if name else "")
+            + f"C={c} L={length} K={k} {str(dtype)[6:]}",
             fir_conv1d(x, taps), lambda: fir_conv1d(x, taps),
             lambda: ref.fir_conv1d_ref(x, taps),
             lambda: F.conv1d(x[None], taps[:, None], groups=c),
             2.0 * c * n_out * k,
             x.element_size() * (c * length + c * k + c * n_out),
-            PEAK_F32_OPS, "bitwise", headline)
+            PEAK_F32_OPS, "bitwise", headline,
+            previous_fn=(lambda: fmod.launch(x, taps, "tiled", cb=cb))
+            if path == "flat" else None, path=path,
+            flat_fn=(lambda: fmod.launch(x, taps, "flat"))
+            if path == "tiled" and fmod.flat_takes(x, taps) else None,
+            looped_fn=(lambda: fmod.launch(x, taps, "flat", looped=True))
+            if path == "flat" and k == 5 else None)
 
     net = mnist_net()
     conv1, _p1, conv2, _p2, fc1, fc2, fc3 = net.layers
@@ -930,7 +1022,8 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         wrappers[name].launches = 0     # zero just before the path
     by_path = wrappers["dense_matmul"].launches_by_path
     sparse_by_path = wrappers["block_sparse_fc"].launches_by_path
-    for counts in (by_path, sparse_by_path):
+    fir_by_path = wrappers["fir_conv1d"].launches_by_path
+    for counts in (by_path, sparse_by_path, fir_by_path):
         for p in counts:
             counts[p] = 0
     t0 = time.perf_counter()
@@ -938,16 +1031,23 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
     matmul_run(512, 1024, 768, f32, "allclose", "tf32x3")
     sparse_run(checkerboard(np, rng, 512, 128), 16, f32, "allclose",
                "tf32x3")
-    fir_run(128, 512, 5)
+    fir_run(128, 512, 5, want_path="tiled")   # 32 tiles: fewer than SMs
     bench_launches = {n: w.launches for n, w in wrappers.items()}
     tf32x3_before = sparse_by_path["tf32x3"]
     matmul_before = dict(by_path)
+    fir_before = dict(fir_by_path)
     # MNIST at its published widths over a batch
     logits = mnist_chain(torch, params, x_mnist, fir_conv1d, sfc,
                          dense_matmul)
     torch.cuda.synchronize()
     mnist_launches = {n: w.launches - bench_launches[n]
                       for n, w in wrappers.items()}
+    mnist_fir_by_path = {p: fir_by_path[p] - fir_before[p]
+                         for p in fir_by_path}
+    if mnist_fir_by_path != {"flat": mnist_launches["fir_conv1d"],
+                             "tiled": 0} or not mnist_fir_by_path["flat"]:
+        raise SystemExit(f"kernels_full_width: MNIST's FIR launches went "
+                         f"{mnist_fir_by_path}, not all to the flat kernel")
     if sparse_by_path["tf32x3"] != tf32x3_before + 1:
         raise SystemExit("kernels_full_width: MNIST's fc1 did not go "
                          "through the tf32x3 kernel")
@@ -956,6 +1056,11 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         raise SystemExit("kernels_full_width: MNIST's fc2 did not go "
                          "through the tf32x3 matmul kernel, or fc3 (N = "
                          "10) not through the narrow one")
+    # the FIR at MNIST's two convolutions as conv_by_fir stacks them: 1024
+    # inputs x 20 channels x 24 rows of 28 (conv1), x 100 x 8 rows of 12
+    # (conv2)
+    fir_run(MNIST_BATCH * 20 * 24, 28, 5, name="MNIST conv1")
+    fir_run(MNIST_BATCH * 100 * 8, 12, 5, name="MNIST conv2")
     # the narrow kernel at MNIST's fc3 shape, where the main path runs it
     matmul_run(MNIST_BATCH, fc3.w.shape[1], fc3.w.shape[0], f32, "allclose",
                "narrow", headline=True)
@@ -971,6 +1076,7 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
     del w_large
     fir_run(LARGE_FIR, LARGE_FIR, 5, headline=True)
     fir_run(LARGE_FIR, LARGE_FIR, 5, dtype=bf16)
+    fir_launches_by_path = dict(fir_by_path)
     torch.cuda.synchronize()
     launches = {n: w.launches for n, w in wrappers.items()}   # read just after
     matmul_by_path = dict(by_path)
@@ -1023,6 +1129,7 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
 
     # every run: against its plain version, then timed
     entries = {}
+    mnist_fir = []
     for r in runs:
         plain = r["plain_fn"]()
         torch.cuda.synchronize()
@@ -1072,6 +1179,31 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         if r["path"] == "narrow":
             line["narrow_plan"] = r["plan"]
             line["bitwise_vs_previous"] = True
+        if r["kernel"] == "fir_conv1d":
+            # the other design gives the same bits; the device's time of
+            # each, from CUDA graphs (these calls are host-bound at the
+            # benchmark's shape), is what fir_path's FLAT_MIN_TILES rests on
+            other = r["previous_fn"] or r["flat_fn"]
+            if other is not None and not torch.equal(other(), r["out"]):
+                raise SystemExit(f"kernels_full_width: fir_conv1d "
+                                 f"{r['shape']}: the flat kernel differs "
+                                 f"from the tiled one")
+            line["bitwise_vs_other_design"] = other is not None
+            line["graph_ms"] = graph_ms(torch, r["kernel_fn"])
+            if r["previous_fn"] is not None:
+                line["previous_graph_ms"] = graph_ms(torch, r["previous_fn"])
+            if r["flat_fn"] is not None:
+                line["flat_ms"] = median_ms(torch, r["flat_fn"], reps=3,
+                                            inner=INNER)
+                line["flat_graph_ms"] = graph_ms(torch, r["flat_fn"])
+            if r["looped_fn"] is not None:
+                if not torch.equal(r["looped_fn"](), r["out"]):
+                    raise SystemExit(f"kernels_full_width: fir_conv1d "
+                                     f"{r['shape']}: the looped flat kernel "
+                                     f"differs from the unrolled one")
+                line["looped_ms"] = median_ms(torch, r["looped_fn"], reps=3,
+                                              inner=INNER)
+                line["looped_graph_ms"] = graph_ms(torch, r["looped_fn"])
         if r["previous_fn"] is not None:
             line["previous_ms"] = median_ms(torch, r["previous_fn"], reps=3,
                                             inner=INNER)
@@ -1086,9 +1218,16 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
         emit(line)
         if r["headline"]:
             entries[r["entry"]] = line
+        if r["shape"].startswith("MNIST"):
+            mnist_fir.append({k: line[k] for k in (
+                "shape", "ms", "previous_ms", "graph_ms", "previous_graph_ms",
+                "looped_ms", "looped_graph_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")})
     emit({"phase": "kernels_full_width", "launches": launches,
           "matmul_launches_by_path": matmul_by_path,
           "block_sparse_fc_launches_by_path": fc_by_path,
+          "fir_conv1d_launches_by_path": fir_launches_by_path,
+          "mnist_fir_launches_by_path": mnist_fir_by_path,
           "seconds_path": path_s, "all_agree": True})
 
     # the narrow kernel against the CUDA-core one at MNIST's fc3 M and K
@@ -1153,7 +1292,15 @@ def compute_kernels(torch, np, emit, hopper) -> list[dict]:
                else {}),
             **({"narrow_plan": e["narrow_plan"]} if "narrow_plan" in e
                else {}),
-            **{k: e[k] for k in ("graph_ms", "library_graph_ms") if k in e}})
+            **{k: e[k] for k in ("graph_ms", "library_graph_ms",
+                                 "previous_graph_ms", "looped_ms",
+                                 "looped_graph_ms") if k in e}})
+        if name == "fir_conv1d":
+            # the main path's shapes, MNIST's two convolutions, and where
+            # its launches went
+            out[-1].update(mnist_shapes=mnist_fir,
+                           launches_by_path=fir_launches_by_path,
+                           mnist_launches_by_path=mnist_fir_by_path)
     return out
 
 
@@ -1165,6 +1312,10 @@ LM_BATCH, LM_SEQ = 2, 4096
 #: The SSD cell at mamba2-370m's widths (Q = ssm_chunk 256, N = ssm_state
 #: 128, P = ssm_headdim 64, H = 2 * 1024 / 64) over batch 2 x 4,096 tokens.
 SSD_BC, SSD_H, SSD_Q, SSD_P, SSD_N = 2 * 4096 // 256, 32, 256, 64, 128
+#: (batch*chunks, heads) of the SSD cell's few-cell timings, at Q, N and P
+#: as above.
+SSD_SMALL_CELLS = ((1, 1), (1, 8), (2, 8), (4, 8), (8, 8), (16, 8), (4, 32),
+                   (8, 32), (16, 32))
 
 def lm_kernels(torch, np, emit, hopper) -> list[dict]:
     """Phases 8 and 9: the attention and SSD kernels against their plain
@@ -1228,18 +1379,52 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
                 checks.append(("flash_attention", case, [got], [want],
                                "allclose" if dtype == f32 else "attn_bf16",
                                path))
-    for shape in ((2, 3, 8, 4, 5, False), (1, 2, 4, 8, 3, False),
-                  (1, 2, 64, 8, 6, True), (2, 4, SSD_Q, SSD_P, SSD_N, True),
-                  (1, 2, 100, 70, 70, False)):
-        for dtype in (f32, bf16):
-            args = ssd_inputs(rng, *shape, dtype=dtype)
+    # the SSD cell: through the entry point (the kernel ssd_path names);
+    # where that is the wgmma one, also the first design by name, and the
+    # wgmma outputs held to the f64 rule too (ssd_f64 below)
+    ssd_f64 = []
+    for shape, dts in (
+            ((2, 3, 8, 4, 5, False), None), ((1, 2, 4, 8, 3, False), None),
+            ((1, 2, 64, 8, 6, True), None),
+            ((2, 4, SSD_Q, SSD_P, SSD_N, True), None),
+            ((1, 2, 100, 70, 70, False), None),
+            ((3, 5, 128, 64, 64, False), None),
+            ((2, 17, 256, 64, 192, False), None),
+            ((2, 9, SSD_Q, SSD_P, SSD_N, True), (f32, bf16, f32, bf16)),
+            ((2, 9, SSD_Q, SSD_P, SSD_N, True), (bf16, f32, f32, f32)),
+            ((2, 9, SSD_Q, SSD_P, SSD_N, True), (f32, bf16, bf16, f32)),
+            ((1, 1, 64, SSD_P, 64, False), None),
+            ((2, 3, 192, SSD_P, SSD_N, True), None),
+            ((4, 1, SSD_Q, SSD_P, SSD_N, True), None)):
+        for dtype in (f32, bf16) if dts is None else (None,):
+            args = ssd_inputs(rng, *shape, dtype=dtype or f32)
+            if dts is not None:
+                args = tuple(a.to(d) for a, d in zip(args, dts))
+            case = f"(bc, h, q, p, n, steep)={shape} " + (
+                str(dtype)[6:] if dts is None else
+                "xdt, bb, cc, cs " + "/".join(str(d)[6:] for d in dts))
+            path = smod.ssd_path(*args)
+            want_path = "wgmma" if shape[3] == 64 and shape[2] % 64 == 0 \
+                and shape[4] % 64 == 0 else "simt"
+            if path != want_path:
+                raise SystemExit(f"lm_vs_plain: ssd_intra {case} takes the "
+                                 f"{path} kernel, not the {want_path} one")
             got = list(ssd_intra(*args))
             if any(g.dtype != f32 for g in got):
-                raise SystemExit(f"lm_vs_plain: ssd_intra on {dtype} "
-                                 f"inputs returns {[g.dtype for g in got]}")
-            checks.append(("ssd_intra", f"(bc, h, q, p, n, steep)={shape} "
-                           f"{str(dtype)[6:]}", got,
-                           list(ref.ssd_intra_ref(*args)), "ssd", None))
+                raise SystemExit(f"lm_vs_plain: ssd_intra on {case} "
+                                 f"returns {[g.dtype for g in got]}")
+            want = list(ref.ssd_intra_ref(*args))
+            checks.append(("ssd_intra", case, got, want, "ssd", path))
+            if path == "wgmma":
+                exact = ref.ssd_intra_ref(*args, dtype=torch.float64)
+                fed = list(smod.launch(*args, "wgmma_thread_fed"))
+                checks.append(("ssd_intra", case,
+                               list(smod.launch(*args, "simt")), want, "ssd",
+                               "simt"))
+                checks.append(("ssd_intra", case, fed, want, "ssd",
+                               "wgmma_thread_fed"))
+                ssd_f64.append((case, "wgmma", got, want, exact))
+                ssd_f64.append((case, "wgmma_thread_fed", fed, want, exact))
     torch.cuda.synchronize()
     small_err = {}
     for name, case, got, want, rule, path in checks:
@@ -1256,13 +1441,27 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
                 if rule == "attn_bf16":
                     line["limit_share"] = limit_share(torch, g, w, rule)
                 emit(line)
+    f64_share = 0.0
+    for case, path, got, want, exact in ssd_f64:
+        shares = [tf32x3_share(torch, g, w, e)
+                  for g, w, e in zip(got, want, exact)]
+        f64_share = max(f64_share, *shares)
+        emit({"phase": "lm_vs_plain", "kernel": "ssd_intra", "case": case,
+              "path": path, "rule": "ssd_f64", "limit_share_y_s": shares})
+        if max(shares) > 1.0:
+            raise SystemExit(f"lm_vs_plain: ssd_intra {case} ({path}) "
+                             f"misses the f64 rule "
+                             f"({TOLERANCES['ssd_f64']}; {shares} of the "
+                             f"limit)")
     emit({"phase": "lm_vs_plain", "cases": len(checks),
           "max_abs_diff_vs_plain": small_err, "all_agree": True,
+          "ssd_f64_max_limit_share": f64_share,
           "tolerances": {"flash_attention f32": TOLERANCES["allclose"],
                          "flash_attention bf16": TOLERANCES["attn_bf16"],
-                         "ssd_intra": TOLERANCES["ssd"]},
+                         "ssd_intra": [TOLERANCES["ssd"],
+                                       TOLERANCES["ssd_f64"]]},
           "seconds": time.perf_counter() - t0})
-    del checks
+    del checks, ssd_f64
 
     # ---- 9. the qwen3-0.6b forward at full width
     cfg = dataclasses.replace(get_config(LM_ARCH), use_pallas_attention=True)
@@ -1427,66 +1626,136 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
                                                  PEAK_BF16_OPS)
     del q, k, v, q4, k4, v4
 
+    # the SSD cell at mamba2-370m's widths through the entry point: its
+    # launches counted by kernel, all on the wgmma one
     args = ssd_inputs(rng, SSD_BC, SSD_H, SSD_Q, SSD_P, SSD_N, False)
     smod.ssd_intra.launches = 0               # its path: the entry point
+    for p in smod.ssd_intra.launches_by_path:
+        smod.ssd_intra.launches_by_path[p] = 0
     got = ssd_intra(*args)
     torch.cuda.synchronize()
     ssd_launches = smod.ssd_intra.launches
-    if ssd_launches <= 0:
-        raise SystemExit("lm_full_width: ssd_intra never launched")
-    want = ref.ssd_intra_ref(*args)
-    ssd_diff = 0.0
-    for gt, wt in zip(got, want):
-        ok, diff = agree(torch, gt, wt, "ssd")
-        ssd_diff = max(ssd_diff, diff)
-        if not ok:
-            raise SystemExit(f"lm_full_width: ssd_intra at mamba2-370m's "
-                             f"shape disagrees with the plain version "
-                             f"({TOLERANCES['ssd']}; max abs diff {diff})")
-    del got, want
+    ssd_by_path = dict(smod.ssd_intra.launches_by_path)
+    if ssd_launches <= 0 or ssd_by_path != {"wgmma": ssd_launches,
+                                             "simt": 0,
+                                             "wgmma_thread_fed": 0}:
+        raise SystemExit(f"lm_full_width: ssd_intra launched {ssd_by_path}, "
+                         f"not the wgmma kernel alone")
+    del got
     tri = SSD_Q * (SSD_Q + 1) // 2            # (i, j) pairs with j <= i
     cells = SSD_BC * SSD_H
-    ssd_flops = 2.0 * cells * (tri * SSD_N + tri * SSD_P
-                               + SSD_Q * SSD_N * SSD_P)
+    # G counted once a batch*chunk (it depends on bb and cc alone), y and
+    # S once a cell; the first design's count, G once a cell, beside it
+    ssd_flops = 2.0 * (SSD_BC * tri * SSD_N + cells * tri * SSD_P
+                       + cells * SSD_Q * SSD_N * SSD_P)
+    per_cell_flops = 2.0 * cells * (tri * SSD_N + tri * SSD_P
+                                    + SSD_Q * SSD_N * SSD_P)
     ssd_bytes = 4 * (2 * cells * SSD_Q * SSD_P + 2 * SSD_BC * SSD_Q * SSD_N
                      + cells * SSD_Q + cells * SSD_N * SSD_P)
-    ssd = dict(
-        ms=median_ms(torch, lambda: ssd_intra(*args), inner=INNER),
-        plain_ms=median_ms(torch, lambda: ref.ssd_intra_ref(*args), reps=3),
-        library_ms=None, max_abs_err=ssd_diff, flops=ssd_flops,
-        bytes=ssd_bytes,
-        shape=f"xdt ({SSD_BC}, {SSD_H}, {SSD_Q}, {SSD_P}), bb/cc ({SSD_BC}, "
-              f"{SSD_Q}, {SSD_N}) f32")
-    ssd["bound_ms"], ssd["bound_by"] = bound(ssd_flops, ssd_bytes,
-                                             PEAK_F32_OPS)
-    # the same cell on bf16 inputs (f32 outputs), timed beside it
-    args = [a.to(bf16) for a in args]
-    ssd16_diff = 0.0
-    for gt, wt in zip(ssd_intra(*args), ref.ssd_intra_ref(*args)):
-        ok, diff = agree(torch, gt, wt, "ssd")
-        ssd16_diff = max(ssd16_diff, diff)
-        if not ok or gt.dtype != f32:
-            raise SystemExit(f"lm_full_width: ssd_intra on bf16 inputs at "
-                             f"mamba2-370m's shape disagrees with the plain "
-                             f"version ({TOLERANCES['ssd']}; max abs diff "
-                             f"{diff}, {gt.dtype})")
-    ssd16_bytes = ssd_bytes - 2 * (cells * SSD_Q * SSD_P
-                                   + 2 * SSD_BC * SSD_Q * SSD_N + cells * SSD_Q)
-    ssd16 = dict(
-        ms=median_ms(torch, lambda: ssd_intra(*args), inner=INNER),
-        plain_ms=median_ms(torch, lambda: ref.ssd_intra_ref(*args), reps=3),
-        library_ms=None, max_abs_err=ssd16_diff, flops=ssd_flops,
-        bytes=ssd16_bytes, shape=ssd["shape"][:-3] + "bf16, outputs f32")
-    ssd16["bound_ms"], ssd16["bound_by"] = bound(ssd_flops, ssd16_bytes,
-                                                 PEAK_F32_OPS)
+    bf16_saved = 2 * (cells * SSD_Q * SSD_P + 2 * SSD_BC * SSD_Q * SSD_N
+                      + cells * SSD_Q)
+
+    g_flops = 2.0 * SSD_BC * tri * SSD_N
+
+    def ssd_full(args, nbytes, tc_flops, dtype_name):
+        """Both rules, the first design on the same inputs, and the times
+        of the kernel, the first design and the plain version, beside the
+        bounds: the tensor cores' tf32 products (``tc_flops``: three of
+        each product of the count with G once a batch*chunk for f32
+        inputs, one fewer for each bf16 operand), that count on the CUDA
+        cores, the first design's count (G once a cell) on them, and the
+        bytes."""
+        got = ssd_intra(*args)
+        want = ref.ssd_intra_ref(*args)
+        exact = ref.ssd_intra_ref(*args, dtype=torch.float64)
+        first = smod.launch(*args, "simt")
+        fed = smod.launch(*args, "wgmma_thread_fed")
+        diff = share = 0.0
+        for gt, wt, ex, ft, xt in zip(got, want, exact, first, fed):
+            if tf32x3_share(torch, xt, wt, ex) > 1.0:
+                raise SystemExit(f"lm_full_width: ssd_intra (thread-fed) on "
+                                 f"{dtype_name} inputs misses the f64 rule")
+            for g_, label in ((gt, "the wgmma kernel"),
+                              (ft, "the first design"),
+                              (xt, "the thread-fed variant")):
+                ok, d = agree(torch, g_, wt, "ssd")
+                if not ok or g_.dtype != f32:
+                    raise SystemExit(
+                        f"lm_full_width: ssd_intra ({label}) on "
+                        f"{dtype_name} inputs at mamba2-370m's shape "
+                        f"disagrees with the plain version "
+                        f"({TOLERANCES['ssd']}; max abs diff {d})")
+                if g_ is gt:
+                    diff = max(diff, d)
+            share = max(share, tf32x3_share(torch, gt, wt, ex))
+        if share > 1.0:
+            raise SystemExit(f"lm_full_width: ssd_intra on {dtype_name} "
+                             f"inputs misses the f64 rule "
+                             f"({TOLERANCES['ssd_f64']}; {share} of the "
+                             f"limit)")
+        del got, want, exact, first, fed
+        bounds = {"tf32x3_tensor_cores_ms": tc_flops / PEAK_TF32_OPS * 1e3,
+                  "cuda_cores_ms": ssd_flops / PEAK_F32_OPS * 1e3,
+                  "per_cell_G_cuda_cores_ms": per_cell_flops / PEAK_F32_OPS
+                  * 1e3,
+                  "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+        r = dict(
+            ms=median_ms(torch, lambda: ssd_intra(*args), inner=INNER),
+            previous_ms=median_ms(torch, lambda: smod.launch(*args, "simt"),
+                                  reps=3, inner=INNER),
+            thread_fed_ms=median_ms(
+                torch, lambda: smod.launch(*args, "wgmma_thread_fed"),
+                inner=INNER),
+            plain_ms=median_ms(torch, lambda: ref.ssd_intra_ref(*args),
+                               reps=3),
+            library_ms=None, max_abs_err=diff, path="wgmma",
+            plan={"heads_per_cta": smod.ssd_plan(SSD_BC, SSD_H, SSD_Q,
+                                                 SSD_N)},
+            f64_limit_share=share, flops=ssd_flops,
+            per_cell_G_flops=per_cell_flops, bytes=nbytes, bounds_ms=bounds,
+            tolerance=[TOLERANCES["ssd"], TOLERANCES["ssd_f64"]],
+            shape=f"xdt ({SSD_BC}, {SSD_H}, {SSD_Q}, {SSD_P}), bb/cc "
+                  f"({SSD_BC}, {SSD_Q}, {SSD_N}) {dtype_name}, outputs f32")
+        r["bound_ms"], r["bound_by"] = bound(tc_flops, nbytes, PEAK_TF32_OPS)
+        r["tensor_core_flops"] = tc_flops
+        return r
+
+    ssd = ssd_full(args, ssd_bytes, 3 * ssd_flops, "float32")
+    # the same cell on bf16 inputs (f32 outputs), timed beside it: G in one
+    # tf32 pass, y and S (one bf16 operand each) in two
+    ssd16 = ssd_full([a.to(bf16) for a in args], ssd_bytes - bf16_saved,
+                     g_flops + 2 * (ssd_flops - g_flops), "bfloat16")
     del args
+    # few cells: the wgmma kernel at ssd_plan's heads a CTA beside the
+    # first design, and at each other choice of heads a CTA from CUDA
+    # graphs (what ssd_plan's choice rests on)
+    small_cells = []
+    for bc, h in SSD_SMALL_CELLS:
+        a = ssd_inputs(rng, bc, h, SSD_Q, SSD_P, SSD_N, False)
+        if smod.ssd_path(*a) != "wgmma":
+            raise SystemExit(f"lm_full_width: ssd_intra at {bc} x {h} cells "
+                             f"does not take the wgmma kernel")
+        small_cells.append({
+            "bc": bc, "h": h, "heads_per_cta": smod.ssd_plan(
+                bc, h, SSD_Q, SSD_N),
+            "ms": median_ms(torch, lambda: ssd_intra(*a), inner=INNER),
+            "previous_ms": median_ms(torch, lambda: smod.launch(*a, "simt"),
+                                     inner=INNER),
+            "graph_ms_by_heads": {
+                hg: graph_ms(torch, lambda: smod.launch(*a, "wgmma",
+                                                        heads=hg))
+                for hg in (1, 2, 4, 8) if hg <= h},
+            "previous_graph_ms": graph_ms(
+                torch, lambda: smod.launch(*a, "simt"))})
+        del a
+    ssd["small_cells"] = small_cells
     for name, r in (("flash_attention", flash), ("ssd_intra", ssd),
                     ("ssd_intra", ssd16)):
         emit({"phase": "lm_full_width", "kernel": name, **r,
               "of_bound": r["bound_ms"] / r["ms"]})
     emit({"phase": "lm_full_width", "launches": {
         "flash_attention": launches, "ssd_intra": ssd_launches},
-        "all_agree": True})
+        "ssd_intra_launches_by_path": ssd_by_path, "all_agree": True})
 
     out = []
     for name, r, n, replaces in (
@@ -1503,8 +1772,14 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **({"previous_ms": r["previous_ms"]} if "previous_ms" in r
-               else {})})
+            **{k: r[k] for k in ("previous_ms", "thread_fed_ms", "path",
+                                 "bounds_ms", "plan", "f64_limit_share",
+                                 "small_cells") if k in r}})
+        if name == "ssd_intra":
+            out[-1].update(launches_by_path=ssd_by_path, bf16_inputs={
+                k: ssd16[k] for k in ("ms", "previous_ms", "thread_fed_ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "f64_limit_share", "max_abs_err")})
     return out
 
 
@@ -1549,7 +1824,8 @@ def main() -> int:
 
     # ---- 2. build every kernel of the path
     built = _build.build("charge_replay", "dense_matmul", "sparse_fc",
-                         "fir_conv1d", "flash_attention", "ssd_intra")
+                         "fir_conv1d", "flash_attention", "ssd_intra",
+                         "ssd_intra_thread_fed")
     for b in built.values():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln or "stack" in ln]

@@ -40,11 +40,15 @@ FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 SOURCE_FLAGS = {"charge_replay": NVCC_FLAGS, "fir_conv1d": NVCC_FLAGS,
                 "dense_matmul": FMAD_FLAGS, "sparse_fc": FMAD_FLAGS,
                 "flash_attention": FMAD_FLAGS, "ssd_intra": FMAD_FLAGS,
-                "charge_replay_profile": NVCC_FLAGS + ("-DREPLAY_PROFILE",)}
+                "charge_replay_profile": NVCC_FLAGS + ("-DREPLAY_PROFILE",),
+                "ssd_intra_thread_fed": FMAD_FLAGS + ("-DSSD_THREAD_FED",)}
 
 #: Libraries built from another library's source with other flags: the
-#: lane kernel's profile build (``tools/profile_replay.py``).
-SOURCE_OF = {"charge_replay_profile": "charge_replay"}
+#: lane kernel's profile build (``tools/profile_replay.py``) and the SSD
+#: cell's wgmma design with x dt fed by its threads' loads (timed beside
+#: the TMA ring by ``chip_smoke.py``).
+SOURCE_OF = {"charge_replay_profile": "charge_replay",
+             "ssd_intra_thread_fed": "ssd_intra"}
 
 
 def source(name: str) -> Path:

@@ -12,9 +12,11 @@ discipline as the paper, with the energy buffer replaced by shared memory.
 The alignment is the kernels' own granularity, not the TPU's 8 x 128:
 ``csrc/dense_matmul.cu``'s CUDA-core kernel gives each thread an 8 x 8
 micro-tile of the output (:data:`TILE`), so its bm and bn are multiples of
-8 and a 128 x 128 tile takes its 256 threads; ``csrc/fir_conv1d.cu`` runs
-256 threads over a block of channels x output positions.  The tiles
-returned here are the ones those kernels launch with.  The matmul's
+8 and a 128 x 128 tile takes its 256 threads; ``csrc/fir_conv1d.cu``'s
+first (tiled) design runs 256 threads over a block of channels x output
+positions (its flat design, the main path's, runs tiles of its own, see
+``fir_conv1d.fir_path``).  The tiles returned here are the ones those
+kernels launch with.  The matmul's
 tensor-core kernels run their own tiles (128 x 128 outputs fed by a
 4-stage ring: 64-wide K slices for bf16 on wgmma, 32-wide for f32 as
 3xTF32, whose split over K ``dense_matmul.tf32x3_plan`` chooses), so

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) machinery shared by the GEMMs (dense_matmul.cu: bf16, and
-// f32 as 3xTF32), the bf16 attention kernel (flash_attention.cu) and the
-// block-sparse FC (sparse_fc.cu, bf16 and 3xTF32 f32): TMA tensor maps on
-// the host; mbarrier rings, TMA loads, wgmma descriptors and products, named
-// and cluster barriers, loads from another CTA's shared memory, setmaxnreg
-// and the 3xTF32 split on the device.  Each device helper is one PTX
+// f32 as 3xTF32), the bf16 attention kernel (flash_attention.cu), the
+// block-sparse FC (sparse_fc.cu, bf16 and 3xTF32 f32) and the SSD cell
+// (ssd_intra.cu, 3xTF32): TMA tensor maps on the host; mbarrier rings, TMA
+// loads, wgmma descriptors and products, named and cluster barriers, loads
+// from another CTA's shared memory, setmaxnreg and the 3xTF32 split on the
+// device.  Each device helper is one PTX
 // instruction (or a loop around one, or the pair a barrier needs), named in
 // the line above it.
 //
@@ -386,6 +387,28 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32, A and B from shared
+// memory, both K-major: d (64 x 64, f32) = A (64 x 8) B (8 x 64) +
+// (scale_d ? d : 0), each f32 element read as tf32 (ssd_intra.cu: the SSD
+// cell's 64 x 64 tiles of G, y and S).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // device: thread block clusters
 // ---------------------------------------------------------------------------
@@ -417,7 +440,7 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr,
 }
 
 // ---------------------------------------------------------------------------
-// device: the 3xTF32 split (sparse_fc.cu, dense_matmul.cu)
+// device: the 3xTF32 split (sparse_fc.cu, dense_matmul.cu, ssd_intra.cu)
 // ---------------------------------------------------------------------------
 
 // a rounded to tf32 (11 significant bits, ties away from zero): its lower

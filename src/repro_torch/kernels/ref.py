@@ -79,8 +79,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def ssd_intra_ref(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
-                  cs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One Mamba2 SSD intra-chunk cell per (batch*chunk, head), in f32.
+                  cs: torch.Tensor, dtype: torch.dtype = F32
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Mamba2 SSD intra-chunk cell per (batch*chunk, head), in f32 (or
+    in ``dtype``: float64 gives the exact cell that the 3xTF32 kernel's
+    ``tf32x3`` rule is held to).
 
     xdt (BC, H, Q, P), bb/cc (BC, Q, N), cs (BC, H, Q) -> y (BC, H, Q, P),
     s (BC, H, N, P): ``G = C B^T``, ``M = G * exp(cs_i - cs_j)`` for
@@ -97,11 +100,11 @@ def ssd_intra_ref(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
     the Pallas kernel in interpret mode)."""
     if cs.dtype == torch.bfloat16:
         def in_cs(t):
-            return t.to(torch.bfloat16).to(F32)
+            return t.to(torch.bfloat16).to(dtype)
     else:
         def in_cs(t):
             return t
-    xdt, bb, cc, cs = xdt.to(F32), bb.to(F32), cc.to(F32), cs.to(F32)
+    xdt, bb, cc, cs = (t.to(dtype) for t in (xdt, bb, cc, cs))
     q = xdt.shape[2]
     g = torch.matmul(cc, bb.transpose(-1, -2))[:, None]       # (BC,1,Q,Q)
     l_log = in_cs(cs[..., :, None] - cs[..., None, :])         # (BC,H,Q,Q)

@@ -518,23 +518,84 @@ def test_block_sparse_kernels_side_by_side():
         mod.launch(x, *fc._bundle, fc.m, "wgmma", bm=128, bk=128)
 
 
+#: FIR cases: the tests' shapes, L = 1, K = L, a K past the flat design's
+#: stage, tiles that end mid-row with spans off 16-byte boundaries and a
+#: last chunk past the end of x (999 x 13; 40000 x 13, on the flat design
+#: through the entry point in f32 only: its 88 bf16 tiles are fewer than
+#: FLAT_MIN_TILES, so bf16 takes the tiled design there and the flat one by
+#: name), and MNIST's two convolutions as
+#: chip_smoke.py's conv_by_fir stacks them (1024 x 20 x 24 rows of 28,
+#: 1024 x 100 x 8 rows of 12).
+_FIR_CASES = [(37, 101, 7), (5, 12, 1), (5, 12, 12), (3, 300, 70),
+              (4000, 28, 5), (2, 9000, 5), (1, 1, 1), (999, 13, 5),
+              (3, 8192, 5), (2, 300, 300), (40000, 13, 5), (491520, 28, 5),
+              (819200, 12, 5)]
+
+
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("c,length,k", [(37, 101, 7), (5, 12, 1),
-                                        (5, 12, 12), (3, 300, 70),
-                                        (4000, 28, 5), (2, 9000, 5)])
+@pytest.mark.parametrize("c,length,k", _FIR_CASES)
 def test_fir_kernel_bitwise_equals_plain(c, length, k, dtype):
+    """The kernel ``fir_path`` names, through the entry point (its launch
+    counted on its path), bitwise equal to the plain version; the other
+    design, launched by name where it takes the operands, too."""
     _need_card()
     from repro_torch.kernels import fir_conv1d, ref
     rng = np.random.default_rng(c + length + k)
     x = _cuda(rng.normal(size=(c, length)), dtype)
     taps = _cuda(rng.normal(size=(c, k)), dtype)
     mod = _kmod("fir_conv1d")
-    before = mod.fir_conv1d.launches
+    path = mod.fir_path(x, taps)
+    if c in (491520, 819200) or (c == 40000 and dtype == F32):
+        assert path == "flat"             # at least 132 tiles
+    before = dict(mod.fir_conv1d.launches_by_path)
     got = fir_conv1d(x, taps)
     torch.cuda.synchronize()
-    assert mod.fir_conv1d.launches == before + 1
+    assert mod.fir_conv1d.launches_by_path == {
+        p: n + (p == path) for p, n in before.items()}
     assert got.dtype == dtype
+    want = ref.fir_conv1d_ref(x, taps)
+    assert torch.equal(got, want)
+    if path == "flat":
+        assert torch.equal(mod.launch(x, taps, "tiled"), want)
+        if k == 5:
+            assert torch.equal(mod.launch(x, taps, "flat", looped=True),
+                               want)
+    elif mod.flat_takes(x, taps):
+        assert torch.equal(mod.launch(x, taps, "flat"), want)
+
+
+@pytest.mark.parametrize("x_dtype,taps_dtype", [(F32, BF16), (BF16, F32)])
+def test_fir_flat_mixed_dtypes_bitwise(x_dtype, taps_dtype):
+    """A mixed pair on the flat design, MNIST's conv1 rows: bitwise equal
+    to the plain version and to the first design."""
+    _need_card()
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(12)
+    x = _cuda(rng.normal(size=(40000, 28)), x_dtype)
+    taps = _cuda(rng.normal(size=(40000, 5)), taps_dtype)
+    mod = _kmod("fir_conv1d")
+    assert mod.fir_path(x, taps) == "flat"
+    got = mod.launch(x, taps, "flat")
     assert torch.equal(got, ref.fir_conv1d_ref(x, taps))
+    assert torch.equal(got, mod.launch(x, taps, "tiled"))
+
+
+def test_fir_paths_refuse_what_they_do_not_take():
+    """x off a 16-byte boundary takes the first design; the flat one named
+    for it, or for a K whose span does not fit, is refused; so is a CPU
+    tensor."""
+    _need_card()
+    mod = _kmod("fir_conv1d")
+    x = torch.randn(4 * 12 + 1, device="cuda")[1:].view(4, 12)
+    taps = torch.randn(4, 5, device="cuda")
+    assert mod.fir_path(x, taps) == "tiled"
+    with pytest.raises(ValueError, match="flat kernel does not take"):
+        mod.launch(x, taps, "flat")
+    big = torch.randn(2, 300, device="cuda")
+    with pytest.raises(ValueError, match="flat kernel does not take"):
+        mod.launch(big, torch.randn(2, 300, device="cuda"), "flat")
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        mod.launch(x.cpu(), taps.cpu(), "tiled")
 
 
 def test_compute_kernels_count_only_cuda_launches():
@@ -646,32 +707,91 @@ def test_flash_kernels_side_by_side():
                    v[..., :80].contiguous(), "wgmma", causal=True, group=2)
 
 
-@pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("bc,h,q,p,n,steep", [
-    (2, 3, 8, 4, 5, False), (1, 2, 64, 8, 6, True), (2, 4, 256, 64, 128, True),
-    (1, 2, 100, 70, 70, False)])
-def test_ssd_kernel_equals_plain(bc, h, q, p, n, steep, dtype):
-    """Against the plain version, max |d| <= 1e-5 max |ref| per output, in
-    f32 from f32 or bf16 inputs; the steep cases overflow exp(cs_i - cs_j)
-    above the diagonal."""
-    _need_card()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.kernels import ref, ssd_intra
-    mod = _kmod("ssd_intra")
+def _ssd_args(bc, h, q, p, n, steep, dtypes):
+    """Seeded inputs of one SSD call, each in its own dtype (xdt, bb, cc,
+    cs); the steep ones overflow exp(cs_i - cs_j) above the diagonal."""
     rng = np.random.default_rng(q + n)
-    xdt = _cuda(rng.normal(size=(bc, h, q, p)), dtype)
-    bb, cc = (_cuda(rng.normal(size=(bc, q, n)), dtype) for _ in range(2))
     step = rng.uniform(1.0, 4.0, (bc, h, q)) if steep else \
         rng.uniform(0.005, 1.0, (bc, h, q))
-    cs = _cuda(np.cumsum(-step, axis=-1), dtype)
-    before = mod.ssd_intra.launches
-    y, s = ssd_intra(xdt, bb, cc, cs)
-    torch.cuda.synchronize()
-    assert mod.ssd_intra.launches == before + 1
-    for got, want in zip((y, s), ref.ssd_intra_ref(xdt, bb, cc, cs)):
+    return (_cuda(rng.normal(size=(bc, h, q, p)), dtypes[0]),
+            _cuda(rng.normal(size=(bc, q, n)), dtypes[1]),
+            _cuda(rng.normal(size=(bc, q, n)), dtypes[2]),
+            _cuda(np.cumsum(-step, axis=-1), dtypes[3]))
+
+
+def _ssd_f64_share(got, plain, exact):
+    """chip_smoke.py's tf32x3 rule on one SSD output: max |got - f64| over
+    4 max |plain f32 - f64| + 2^-24 max |f64|."""
+    limit = 4 * float((plain.double() - exact).abs().max()) \
+        + 2.0 ** -24 * float(exact.abs().max())
+    return float((got.double() - exact).abs().max()) / limit
+
+
+def _ssd_holds(args, outs, wgmma):
+    """Both outputs f32, finite, within 1e-5 max |ref| of the plain
+    version; a wgmma output also within the tf32x3 rule of the f64 cell."""
+    from repro_torch.kernels import ref
+    plain = ref.ssd_intra_ref(*args)
+    exact = ref.ssd_intra_ref(*args, dtype=torch.float64)
+    for got, want, ex in zip(outs, plain, exact):
         assert got.dtype == F32 and torch.isfinite(got).all()
         diff = float((got - want).abs().max())
         assert diff <= 1e-5 * float(want.abs().max())
+        if wgmma:
+            assert _ssd_f64_share(got, want, ex) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("bc,h,q,p,n,steep", [
+    (2, 3, 8, 4, 5, False), (1, 2, 64, 8, 6, True), (2, 4, 256, 64, 128, True),
+    (1, 2, 100, 70, 70, False), (3, 5, 128, 64, 64, False),
+    (2, 17, 256, 64, 192, False), (1, 1, 64, 64, 64, False),
+    (2, 3, 192, 64, 128, True), (4, 1, 256, 64, 128, True)])
+def test_ssd_kernel_equals_plain(bc, h, q, p, n, steep, dtype):
+    """The kernel ``ssd_path`` names (its launch counted on its path)
+    against the plain version, max |d| <= 1e-5 max |ref| per output, in
+    f32 from f32 or bf16 inputs, and a wgmma one also within the tf32x3
+    rule of the f64 cell; the first design, the thread-fed variant and the
+    wgmma design at other heads a CTA on the same inputs hold too (Q = 64:
+    one row tile; one head: a warpgroup without heads)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import ssd_intra
+    mod = _kmod("ssd_intra")
+    args = _ssd_args(bc, h, q, p, n, steep, [dtype] * 4)
+    path = mod.ssd_path(*args)
+    assert path == ("wgmma" if p == 64 and q % 64 == 0 and n % 64 == 0
+                    else "simt")
+    before = dict(mod.ssd_intra.launches_by_path)
+    y, s = ssd_intra(*args)
+    torch.cuda.synchronize()
+    assert mod.ssd_intra.launches_by_path == {
+        k: v + (k == path) for k, v in before.items()}
+    _ssd_holds(args, (y, s), path == "wgmma")
+    if path == "wgmma":
+        _ssd_holds(args, mod.launch(*args, "simt"), False)
+        _ssd_holds(args, mod.launch(*args, "wgmma_thread_fed"), True)
+        for heads in {1, min(h, 3), min(h, 8)}:   # not ssd_plan's choice
+            _ssd_holds(args, mod.launch(*args, "wgmma", heads=heads), True)
+        with pytest.raises(ValueError, match="heads a CTA"):
+            mod.launch(*args, "wgmma", heads=9)
+
+
+@pytest.mark.parametrize("mask", range(16))
+def test_ssd_wgmma_dtype_mixes(mask):
+    """Every mix of f32 and bf16 inputs (bit 0 xdt, 1 bb, 2 cc, 3 cs), one
+    instantiation each, at mamba2-370m's cell widths with a steep decay:
+    both rules, and run again for the same bits."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mod = _kmod("ssd_intra")
+    args = _ssd_args(2, 9, 256, 64, 128, True,
+                     [BF16 if mask >> i & 1 else F32 for i in range(4)])
+    assert mod.ssd_path(*args) == "wgmma"
+    got = mod.launch(*args, "wgmma")
+    _ssd_holds(args, got, True)
+    again = mod.launch(*args, "wgmma")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_lm_forward_launches_flash_once_a_layer():

@@ -1,12 +1,13 @@
 """How the port picks its Hopper kernels, and what rebuilds them, on the CPU.
 
-``dense_matmul.matmul_path``, ``flash_attention.attention_path`` and
-``sparse_fc.fc_path`` decide from the operands alone (dtype, contiguity,
-16-byte alignment, K and N, d, or the block shape) which CUDA kernel a
-call on the card launches; each is tested here on every boundary with CPU
-tensors, which launch nothing.  ``_build`` names a
-library by a hash of its source, the shared headers and the flags, so an
-edited header rebuilds every source, and keeps each build's log beside
+``dense_matmul.matmul_path``, ``flash_attention.attention_path``,
+``sparse_fc.fc_path``, ``fir_conv1d.fir_path`` and ``ssd_intra.ssd_path``
+decide from the operands alone (dtype, contiguity, 16-byte alignment, K
+and N, d, the block shape, the FIR's row length and taps, the SSD cell's
+Q, N and P) which CUDA kernel a call on the card launches; each is tested
+here on every boundary with CPU tensors, which launch nothing.  ``_build``
+names a library by a hash of its source, the shared headers and the flags,
+so an edited header rebuilds every source, and keeps each build's log beside
 its library.
 """
 
@@ -284,6 +285,194 @@ def test_fc_cpu_calls_launch_no_kernel():
     assert mod.block_sparse_matvec.launches_by_path == before
     assert (mod.HOPPER_BM, mod.HOPPER_ROWS) == (128, 128)
     assert mod.SLICE == {F32: 32, BF16: 64}
+
+
+# --------------------------------------------------------------------------
+# FIR: the flat kernel where its spans fit and its copies are aligned, else
+# the first (tiled) design
+# --------------------------------------------------------------------------
+
+#: case: ((C, L, K), x dtype, taps dtype, options, flat_takes, fir_path).
+#: The largest K of the flat design at L = 12 is 5 (MNIST's conv2) in f32,
+#: 3 for bf16 x with f32 taps (a bf16 tile is 4,096 outputs, whose f32 tap
+#: span is twice as long); at L = 300 it is 117 (f32).  fir_path takes it
+#: from 132 tiles (2,048 f32 or 4,096 bf16 outputs each): 11,179 rows of
+#: 24 outputs, not 11,178.
+_FIR_CASES = {
+    "MNIST conv2 rows, f32": ((819200, 12, 5), F32, F32, {}, True, "flat"),
+    "MNIST conv1 rows, f32": ((491520, 28, 5), F32, F32, {}, True, "flat"),
+    "8192^2, f32": ((8192, 8192, 5), F32, F32, {}, True, "flat"),
+    "8192^2, bf16": ((8192, 8192, 5), BF16, BF16, {}, True, "flat"),
+    "132 tiles": ((11179, 28, 5), F32, F32, {}, True, "flat"),
+    "131 tiles": ((11178, 28, 5), F32, F32, {}, True, "tiled"),
+    "the benchmark's 128 x 512 (32 tiles)": ((128, 512, 5), F32, F32, {},
+                                             True, "tiled"),
+    "L = 12, K = 6, f32": ((4, 12, 6), F32, F32, {}, False, "tiled"),
+    "L = 12, K = 5, bf16": ((67584, 12, 5), BF16, BF16, {}, True, "flat"),
+    "L = 12, K = 6, f32 x, bf16 taps": ((40000, 12, 6), F32, BF16, {}, True,
+                                        "flat"),
+    "L = 12, K = 3, bf16 x, f32 taps": ((70000, 12, 3), BF16, F32, {}, True,
+                                        "flat"),
+    "L = 12, K = 4, bf16 x, f32 taps": ((70000, 12, 4), BF16, F32, {}, False,
+                                        "tiled"),
+    "L = 300, K = 117, f32": ((3, 300, 117), F32, F32, {}, True, "tiled"),
+    "L = 300, K = 118, f32": ((3, 300, 118), F32, F32, {}, False, "tiled"),
+    "K = L": ((5, 12, 12), F32, F32, {}, False, "tiled"),
+    "L = K = 1, f32": ((1, 1, 1), F32, F32, {}, False, "tiled"),
+    "L = 2, K = 1, f32": ((1, 2, 1), F32, F32, {}, True, "tiled"),
+    "x 4 bytes off": ((20000, 28, 5), F32, F32, {"x_offset": 1}, False,
+                      "tiled"),
+    "x 16 bytes off": ((20000, 28, 5), F32, F32, {"x_offset": 4}, True,
+                       "flat"),
+    "taps 2 bytes off": ((40000, 28, 5), BF16, BF16, {"taps_offset": 1},
+                         False, "tiled"),
+    "x a transposed view": ((20000, 28, 5), F32, F32, {"x_transposed": True},
+                            False, "tiled"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FIR_CASES))
+def test_fir_path_boundaries(case):
+    (c, length, k), xdt, tdt, kw, takes, want = _FIR_CASES[case]
+    if kw.get("x_transposed"):
+        x = _at((length, c), xdt).T
+    else:
+        x = _at((c, length), xdt, kw.get("x_offset", 0))
+    taps = _at((c, k), tdt, kw.get("taps_offset", 0))
+    mod = _module("fir_conv1d")
+    assert mod.flat_takes(x, taps) == takes
+    assert mod.fir_path(x, taps) == want
+
+
+def test_fir_flat_fits_is_the_kernels_worst_case():
+    """``flat_fits`` bounds every tile's spans: over the tile starts of
+    four rounds of every row phase, the spans the kernel stages (rounded
+    out to 16 bytes) fit the stage wherever ``flat_fits`` says so, and
+    where it says not, some tile comes within the 32 bytes of rounding it
+    allows of overflowing it."""
+    mod = _module("fir_conv1d")
+    for length, k, sx, st in ((12, 5, 4, 4), (12, 6, 4, 4), (28, 12, 2, 2),
+                              (300, 117, 4, 4), (300, 118, 4, 4),
+                              (13, 5, 2, 4)):
+        t, lo = mod.FLAT_OUT_BYTES // sx, length - k + 1
+        worst_in = worst_tap = 0
+        for o0 in range(0, 4 * lo * t, t):      # tile starts, all phases
+            r0, p0 = divmod(o0, lo)
+            r1, p1 = divmod(o0 + t - 1, lo)
+            first, end = r0 * length + p0, r1 * length + p1 + k
+            worst_in = max(worst_in, -(-end * sx // 16) * 16
+                           - first * sx // 16 * 16)
+            worst_tap = max(worst_tap, -(-(r1 + 1) * k * st // 16) * 16
+                            - r0 * k * st // 16 * 16)
+        if mod.flat_fits(length, k, sx, st):
+            assert worst_in <= mod.FLAT_IN_BYTES, (length, k, sx, st)
+            assert worst_tap <= mod.FLAT_TAP_BYTES, (length, k, sx, st)
+        else:
+            assert worst_in > mod.FLAT_IN_BYTES - 32 \
+                or worst_tap > mod.FLAT_TAP_BYTES - 32, (length, k, sx, st)
+
+
+def test_fir_cpu_calls_launch_no_kernel():
+    """On CPU tensors the entry point takes the plain version whatever the
+    path and counts no launch; ``launch`` refuses CPU tensors and unknown
+    kernels; the module's stage matches the kernel's."""
+    mod = _module("fir_conv1d")
+    before = dict(mod.fir_conv1d.launches_by_path)
+    assert set(before) == {"flat", "tiled"}
+    x, taps = torch.randn(40000, 12), torch.randn(40000, 5)
+    assert mod.fir_path(x, taps) == "flat"
+    assert torch.equal(mod.fir_conv1d(x, taps, cb=1),
+                       mod.fir_conv1d_ref(x, taps))
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        mod.launch(x, taps, "flat")
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        mod.launch(x, taps, "tiled")
+    assert mod.fir_conv1d.launches_by_path == before
+    assert (mod.FLAT_OUT_BYTES, mod.FLAT_IN_BYTES, mod.FLAT_TAP_BYTES) == (
+        8192, 14336, 6144)
+
+
+# --------------------------------------------------------------------------
+# SSD: the wgmma kernel for P = 64, Q a multiple of 64 up to 256, N a
+# multiple of 64, aligned; else the first (CUDA-core) design
+# --------------------------------------------------------------------------
+
+#: case: ((BC, H, Q, P, N), dtypes of xdt, bb, cc, cs, options, path)
+_SSD_CASES = {
+    "mamba2-370m": ((32, 32, 256, 64, 128), (F32,) * 4, {}, "wgmma"),
+    "mamba2-370m, bf16": ((32, 32, 256, 64, 128), (BF16,) * 4, {}, "wgmma"),
+    "bf16 bb and cs": ((2, 3, 256, 64, 128), (F32, BF16, F32, BF16), {},
+                       "wgmma"),
+    "Q = N = 64": ((1, 1, 64, 64, 64), (F32,) * 4, {}, "wgmma"),
+    "N = 192, 17 heads": ((2, 17, 256, 64, 192), (F32,) * 4, {}, "wgmma"),
+    "Q = 320": ((1, 2, 320, 64, 128), (F32,) * 4, {}, "simt"),
+    "Q = 100": ((1, 2, 100, 64, 128), (F32,) * 4, {}, "simt"),
+    "N = 96": ((1, 2, 256, 64, 96), (F32,) * 4, {}, "simt"),
+    "N = 32": ((1, 2, 256, 64, 32), (F32,) * 4, {}, "simt"),
+    "P = 128": ((1, 2, 256, 128, 128), (F32,) * 4, {}, "simt"),
+    "P = 70": ((1, 2, 100, 70, 70), (F32,) * 4, {}, "simt"),
+    "no cells": ((0, 2, 256, 64, 128), (F32,) * 4, {}, "simt"),
+    "xdt 4 bytes off": ((1, 2, 256, 64, 128), (F32,) * 4, {"offset": 0},
+                        "simt"),
+    "cs 2 bytes off": ((1, 2, 256, 64, 128), (F32, F32, F32, BF16),
+                       {"offset": 3}, "simt"),
+    "bb 16 bytes off": ((1, 2, 256, 64, 128), (F32,) * 4, {"offset": 1,
+                                                          "by": 4},
+                        "wgmma"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SSD_CASES))
+def test_ssd_path_boundaries(case):
+    """``ssd_path`` from the shapes, dtypes, contiguity and alignment alone;
+    ``offset`` names the input (0 xdt, 1 bb, 2 cc, 3 cs) placed ``by``
+    elements (default 1) into its storage."""
+    (bc, h, q, p, n), dts, kw, want = _SSD_CASES[case]
+    shapes = ((bc, h, q, p), (bc, q, n), (bc, q, n), (bc, h, q))
+    args = [_at(sh, dt, kw.get("by", 1) if kw.get("offset") == i else 0)
+            for i, (sh, dt) in enumerate(zip(shapes, dts))]
+    assert _module("ssd_intra").ssd_path(*args) == want
+
+
+def test_ssd_path_refuses_strided_inputs():
+    mod = _module("ssd_intra")
+    xdt = torch.zeros(1, 2, 256, 64)
+    bb = torch.zeros(1, 128, 256).transpose(1, 2)    # (1, 256, 128) view
+    cs = torch.zeros(1, 2, 256)
+    assert mod.ssd_path(xdt, bb.contiguous(), bb.contiguous(), cs) == "wgmma"
+    assert mod.ssd_path(xdt, bb, bb.contiguous(), cs) == "simt"
+
+
+def test_ssd_plan_and_cpu_calls():
+    """Heads a CTA: 8 at mamba2-370m's 1,024 cells and above, fewer where
+    the grid would leave SMs idle, never more than H (the picks the card's
+    times favoured, PERF.md); CPU tensors take the plain version and launch
+    nothing; ``launch`` refuses them and unknown kernels."""
+    mod = _module("ssd_intra")
+    picks = {(1, 1): 1, (1, 8): 2, (2, 8): 2, (4, 8): 2, (8, 8): 4,
+             (16, 8): 2, (2, 32): 4, (4, 32): 2, (8, 32): 4, (16, 32): 8,
+             (32, 32): 8, (64, 32): 8}
+    assert {k: mod.ssd_plan(*k, 256, 128) for k in picks} == picks
+    assert all(1 <= mod.ssd_plan(bc, h, q, n) <= min(h, mod.HEADS_PER_CTA)
+               for bc in (1, 3, 40) for h in (1, 2, 5, 9, 33)
+               for q in (64, 256) for n in (64, 192))
+    assert mod.HEADS_PER_CTA == 8
+    before = dict(mod.ssd_intra.launches_by_path)
+    assert set(before) == {"wgmma", "simt", "wgmma_thread_fed"}
+    assert set(mod.PATHS) < set(mod.BUILDS)
+    args = (torch.randn(1, 2, 64, 64), torch.randn(1, 64, 64),
+            torch.randn(1, 64, 64), -torch.rand(1, 2, 64).cumsum(-1))
+    assert mod.ssd_path(*args) == "wgmma"
+    y, s = mod.ssd_intra(*args)
+    want = mod.ssd_intra_ref(*args)
+    assert torch.equal(y, want[0]) and torch.equal(s, want[1])
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        mod.launch(*args, "wgmma")
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        mod.launch(*args, "tf32")
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        mod.launch(*args, "wgmma_thread_fed")
+    assert mod.ssd_intra.launches_by_path == before
 
 
 # --------------------------------------------------------------------------

@@ -474,6 +474,100 @@ def test_fir_composes_2d_convolution():
                                **TOL)
 
 
+def _flat_fir(x, taps, out_dtype):
+    """x (C, L) and taps (C, K), numpy f32 (values of out_dtype's inputs),
+    through the flat FIR kernel's index arithmetic (csrc/fir_conv1d.cu's
+    flat_tile and fir_flat_kernel): tiles of FLAT_OUT_BYTES of output in
+    flat order, each tile's input and tap spans staged from the flat arrays
+    rounded out to 16 bytes (and checked against the stage), thread t's
+    outputs t, t + 256, .. found by one division and then steps of 256 //
+    (L-K+1) rows and 256 % (L-K+1) positions, each summed in tap order from
+    0 with one f32 rounding per multiply and per add; the output in
+    out_dtype (numpy f32 or ml_dtypes bf16)."""
+    fmod = _module("fir_conv1d")
+    c, length = x.shape
+    k = taps.shape[1]
+    lo = length - k + 1
+    sx = np.dtype(out_dtype).itemsize
+    st = 2 if taps.dtype == NP_BF16 else 4
+    t_out = fmod.FLAT_OUT_BYTES // sx
+    xf, tf = x.astype(np.float32).ravel(), taps.astype(np.float32).ravel()
+    total = c * lo
+    out = np.empty(total, np.float32)
+    step_row, step_pos = 256 // lo, 256 % lo
+    for tile in range(-(-total // t_out)):
+        o0 = tile * t_out
+        n = min(t_out, total - o0)
+        r0, p0 = divmod(o0, lo)
+        r1, p1 = divmod(o0 + n - 1, lo)
+        in_b0 = (r0 * length + p0) * sx // 16 * 16
+        in_b1 = -(-((r1 * length + p1 + k) * sx) // 16) * 16
+        tap_b0 = r0 * k * st // 16 * 16
+        tap_b1 = -(-((r1 + 1) * k * st) // 16) * 16
+        assert in_b1 - in_b0 <= fmod.FLAT_IN_BYTES
+        assert tap_b1 - tap_b0 <= fmod.FLAT_TAP_BYTES
+        in_el, tap_el = in_b0 // sx, tap_b0 // st
+        xs = xf[in_el:in_b1 // sx]            # the staged spans (the end
+        ts = tf[tap_el:tap_b1 // st]          # of the array cuts them)
+        xoff, toff = r0 * length - in_el, r0 * k - tap_el
+        for tid in range(256):
+            rr, pos = divmod(p0 + tid, lo)
+            for q in range(tid, n, 256):
+                base = xoff + rr * length + pos
+                acc = np.float32(0.0)
+                for t in range(k):
+                    acc = np.float32(acc + np.float32(
+                        xs[base + t] * ts[toff + rr * k + t]))
+                out[o0 + q] = acc
+                rr, pos = rr + step_row, pos + step_pos
+                if pos >= lo:
+                    rr, pos = rr + 1, pos - lo
+    return out.reshape(c, lo).astype(out_dtype)
+
+
+#: (C, L, K): MNIST's conv2 and conv1 rows (tiles end mid-row), a ragged
+#: long row, the largest K whose spans fit at L = 300 (f32), a K = 1 case,
+#: and 999 x 13 (spans start off 16-byte boundaries; the last chunk of x
+#: crosses its end)
+_FLAT_FIR_CASES = [(700, 12, 5), (300, 28, 5), (3, 8190, 5), (5, 300, 80),
+                   (7, 300, 117), (999, 13, 5), (2500, 12, 1)]
+
+
+@pytest.mark.parametrize("x_dtype,taps_dtype", [("f32", "f32"),
+                                                ("bf16", "bf16"),
+                                                ("f32", "bf16")])
+@pytest.mark.parametrize("c,length,k", _FLAT_FIR_CASES)
+def test_flat_fir_index_arithmetic_matches_jax(c, length, k, x_dtype,
+                                               taps_dtype):
+    """The flat FIR kernel's tiles and spans, emulated in Python, give the
+    JAX kernel's outputs: bit for bit the Pallas kernel's in interpret mode
+    for a bf16 output, and for an f32 one bit for bit the JAX package's
+    numpy oracle (the Pallas kernel's order; interpret mode on the CPU may
+    fuse a multiply and an add, so it is held within the f32 tolerance)."""
+    (xn, xt), (tn, tt) = DTYPES[x_dtype], DTYPES[taps_dtype]
+    fmod = _module("fir_conv1d")
+    assert fmod.flat_fits(length, k, np.dtype(xn).itemsize,
+                          np.dtype(tn).itemsize)
+    rng = np.random.default_rng(c + length + k)
+    x = rng.normal(size=(c, length)).astype(np.float32).astype(xn)
+    taps = rng.normal(size=(c, k)).astype(np.float32).astype(tn)
+    got = _flat_fir(x, taps, xn)
+    want = np.asarray(jax_fir(jnp.asarray(x), jnp.asarray(taps),
+                              interpret=True))
+    assert got.dtype == want.dtype
+    if x_dtype == "bf16":
+        np.testing.assert_array_equal(got.view(np.uint16),
+                                      want.view(np.uint16))
+    else:
+        np.testing.assert_array_equal(got, jref.fir_conv1d_ref(x, taps))
+        np.testing.assert_allclose(got, want, **TOL)
+    # and the port's plain version (the wrapper on CPU tensors) is the same
+    plain = fir_conv1d(_t(x.astype(np.float32), xt),
+                       _t(taps.astype(np.float32), tt))
+    np.testing.assert_array_equal(
+        plain.float().numpy(), got.astype(np.float32))
+
+
 # --------------------------------------------------------------------------
 # calibration (its numbers differ from the JAX package's by design)
 # --------------------------------------------------------------------------
@@ -1127,3 +1221,127 @@ def test_ssd_intra_refuses_bad_shapes():
         ssd_intra(xdt, bb, bb, torch.randn(2, 3, 5))
     with pytest.raises(ValueError, match="expected xdt"):
         ssd_intra(xdt, bb, torch.randn(2, 4, 7), torch.randn(2, 3, 4))
+
+
+def _split_tf32(a):
+    """a = big + small, both tf32 rounded to nearest (hopper.cuh's
+    split_tf32)."""
+    big = _tf32(a, True)
+    return big, _tf32(a - big, True)
+
+
+def _slices_3xtf32(a, b, one_pass=False, b_parts=2):
+    """a (..., M, K) @ b (..., K, N) as the SSD kernel's wgmma sums it: K in
+    32-wide slices, each slice's big x big product summed alone and added
+    to an accumulator, the small products in an accumulator of their own
+    (left out with ``one_pass``), the two added at the end.  b in two tf32
+    parts (three products), or with ``b_parts=3`` in three: big, mid =
+    tf32(b - big), low = tf32(b - big - mid), and five products (a big
+    times all three, a small times big and mid)."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    b3 = _tf32(b - bh - bl, True)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    small = torch.zeros_like(acc)
+    for k0 in range(0, a.shape[-1], 32):
+        ks = slice(k0, k0 + 32)
+        acc = acc + ah[..., ks] @ bh[..., ks, :]
+        if not one_pass:
+            small = small + (ah[..., ks] @ bl[..., ks, :]
+                             + al[..., ks] @ bh[..., ks, :])
+            if b_parts == 3:
+                small = small + (ah[..., ks] @ b3[..., ks, :]
+                                 + al[..., ks] @ bl[..., ks, :])
+    return acc + small
+
+
+def _ssd_wgmma(xdt, bb, cc, cs, one_pass=False):
+    """The wgmma SSD kernel's arithmetic in plain PyTorch: G = C B^T once
+    per batch*chunk, shared by its heads; M = G * exp(cs_i - cs_j) where j
+    <= i (cs rounded as ``ref.ssd_intra_ref`` rounds a bf16 cs); y = M x dt
+    and S = B^T (decay * x dt), every product as :func:`_slices_3xtf32`, S's
+    with decay * x dt in three parts.  A bf16 operand's small tf32 part is
+    0, so the passes the kernel drops for it are exactly 0 here."""
+    rnd = cs.dtype == torch.bfloat16
+    in_cs = (lambda t: t.to(torch.bfloat16).float()) if rnd else \
+        (lambda t: t)
+    for t in (xdt, bb, cc):
+        if t.dtype == torch.bfloat16:
+            assert not _split_tf32(t.float())[1].any()
+    xdt, bb, cc, cs = xdt.float(), bb.float(), cc.float(), cs.float()
+    q = xdt.shape[2]
+    g = _slices_3xtf32(cc, bb.transpose(-1, -2), one_pass)     # (BC, Q, Q)
+    causal = torch.ones(q, q, dtype=torch.bool).tril()
+    m = torch.where(causal, g[:, None] * torch.exp(
+        in_cs(cs[..., :, None] - cs[..., None, :])), 0.0)
+    y = _slices_3xtf32(m, xdt, one_pass)
+    decay = in_cs(torch.exp(in_cs(cs[..., -1:] - cs)))
+    s = _slices_3xtf32(bb.transpose(-1, -2)[:, None],
+                       decay[..., None] * xdt, one_pass, b_parts=3)
+    return y, s
+
+
+_SSD_WGMMA_CASES = {
+    # name: (bf16 inputs among xdt, bb, cc, cs; steep decay; one pass)
+    "f32": ((), False, False),
+    "f32, steep decay": ((), True, False),
+    "bf16": (("xdt", "bb", "cc", "cs"), False, False),
+    "bf16 x dt (y in two passes)": (("xdt",), False, False),
+    "bf16 bb and cc (G in one pass, S in three)": (("bb", "cc"), True,
+                                                    False),
+    "bf16 cs": (("cs",), False, False),
+    "one-pass TF32, f32": ((), False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SSD_WGMMA_CASES))
+def test_ssd_wgmma_arithmetic_matches_jax(case):
+    """The wgmma SSD kernel's arithmetic, emulated (:func:`_ssd_wgmma`), at
+    mamba2-370m's cell widths (Q = 256, N = 128, P = 64) over 3 heads of
+    one batch*chunk, against the Pallas kernel in interpret mode: within
+    the ``ssd`` rule (1e-5 of max |ref| per output) and ``chip_smoke.py``'s
+    f64 rule (max |got - f64| <= 4 max |plain f32 - f64| + 2^-24 max
+    |f64|, the f64 cell from ``ref.ssd_intra_ref``; 0.44 of it at most).
+    A one-pass TF32 product misses the f64 limit by more than 50 times."""
+    cs_mod = _chip_smoke()
+    narrow, steep, one_pass = _SSD_WGMMA_CASES[case]
+    kw = dict(dt_range=(1.0, 2.0), a_range=(1.0, 2.0)) if steep else {}
+    args = _ssd_inputs(1, 3, 256, 64, 128, 19, chunks=1, **kw)
+    names = ("xdt", "bb", "cc", "cs")
+    args = [a.astype(NP_BF16) if nm in narrow else a
+            for nm, a in zip(names, args)]
+    targs = [_t(a, torch.bfloat16 if nm in narrow else torch.float32)
+             for nm, a in zip(names, args)]
+    want = jax_ssd(*(jnp.asarray(a) for a in args), interpret=True)
+    got = _ssd_wgmma(*targs, one_pass=one_pass)
+    plain = ref.ssd_intra_ref(*targs)
+    exact = ref.ssd_intra_ref(*targs, dtype=torch.float64)
+    for g, w, p_, e in zip(got, want, plain, exact):
+        w = torch.from_numpy(np.array(w))
+        share = cs_mod.tf32x3_share(torch, g, p_, e)
+        if one_pass:
+            assert share > 50.0, share
+            continue
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        assert share <= 1.0, share
+
+
+@pytest.mark.parametrize("seed", [7, 10])
+def test_ssd_chunk_state_needs_three_parts_of_x_dt(seed):
+    """Why S splits decay * x dt into three tf32 parts: with a steep decay
+    (``chip_smoke.py``'s recipe, steps of 1 to 4) S is a sum of a few
+    products, the plain version's error one rounding a product, and S with
+    x dt in two parts misses the f64 rule at these seeds; in three parts
+    with five products it holds with room (at most 0.75 of the limit)."""
+    cs_mod = _chip_smoke()
+    rng = np.random.default_rng(seed)
+    xdt = _t(rng.normal(size=(2, 4, 256, 64)))
+    bb = _t(rng.normal(size=(2, 256, 128)))
+    cs = _t(np.cumsum(-rng.uniform(1.0, 4.0, (2, 4, 256)), axis=-1))
+    xs = torch.exp(cs[..., -1:] - cs)[..., None] * xdt
+    bt = bb.transpose(-1, -2)[:, None]
+    plain = bt @ xs
+    exact = bt.double() @ xs.double()
+    two = cs_mod.tf32x3_share(torch, _slices_3xtf32(bt, xs), plain, exact)
+    three = cs_mod.tf32x3_share(torch, _slices_3xtf32(bt, xs, b_parts=3),
+                                plain, exact)
+    assert two > 1.0 and three <= 0.75, (two, three)
