@@ -11,7 +11,8 @@ prints one JSON line per phase; any failure exits non-zero.
 
 1. device  -- the card's name and count, and its ``nvidia-smi`` name and
    power limit.  With no card visible the script exits non-zero at once.
-2. build   -- nvcc builds every kernel from the checkout's sources (one
+2. build   -- nvcc builds every kernel from the checkout's sources (the
+   lane kernel, the statistics fold and the five compute kernels; one
    nvcc per source, all started together) and prints the ptxas register
    and spill lines, and each lane-kernel instantiation's and narrow
    matmul kernel's registers, spill bytes and stack frame; for the Hopper
@@ -25,7 +26,8 @@ prints one JSON line per phase; any failure exits non-zero.
    line).  It also builds the SSD cell's comparison variant, x dt fed by
    its threads' loads (``ssd_intra_thread_fed``), timed in phase 9.
 3. kernel_vs_plain -- small random networks (seeded numpy) through the
-   entry points, covering the flag combinations the tests cover; every
+   entry points, covering the flag combinations the tests cover (and a
+   ``PlanSet`` of five of their plans, the lane kernel in plan mode); every
    kernel launch's inputs are replayed through the plain PyTorch version
    and through the lane kernel's direct design on the card, and every
    output channel must agree bitwise.
@@ -42,7 +44,28 @@ prints one JSON line per phase; any failure exits non-zero.
    clock).  The kernel is held against the plain version on the first
    run's inputs, and a full-width ``har_net()`` replay against the direct
    design (every lane) and the plain version (its first 4 lanes).
-5. (part of 4) har_first_lanes.
+5. (part of 4) har_first_lanes.  Then design_sweep: a ``PlanSet`` of
+   ``mnist_net()``'s {tile-32, sonic, tails} x {100uF, 1mF} plans (the JAX
+   package's design_space grid with tile-32 for tile-8), 4,096 devices a
+   candidate, seed 7, charge cv 0.25, 64 charges, 16 recharges: launch
+   counts zeroed just before and read just after, every launch on the
+   hoisted design in plan mode; each candidate bitwise equal to its own
+   ``fleet_sweep``, the launch relaunched on the direct design (bitwise)
+   and timed (median of 3), ``reduce="stats"`` of the sweep bitwise equal
+   to ``stats_from_outputs`` of its lanes; its rows, table bytes and the
+   six solo launches' ms.  Then streamed_stats: ``fleet_sweep`` of
+   ``mnist_net()`` under tails/1mF adaptive with ``reduce="stats"`` in
+   65,536-lane chunks, at 262,144 lanes (prefetch 0 and 1, bitwise equal)
+   and 1,048,576 (prefetch 1), counts zeroed before and read after each
+   (one fold and one lane-kernel launch a chunk), the producer thread's
+   share of the wall and the peak device memory over its baseline, which
+   must agree within 10 % between the two sizes; the fold kernel bitwise
+   against its plain version (on the host) on one chunk's outputs, timed
+   beside its bound (the bytes at 3.35 TB/s) and the lane-order chain
+   (lanes x the f64 add's latency); a ``capacitor_sweep`` of the
+   parametric tails plan over 5 capacitors x 4,096 devices, its
+   ``reduce="stats"`` groups bitwise equal to ``stats_from_outputs`` of
+   its lanes.
 6. kernels_vs_plain -- the ``repro_torch.kernels`` entry points
    (``dense_matmul``, ``BlockSparseFC``, ``fir_conv1d``) at small seeded
    shapes (odd sizes, explicit tiles, f32, bf16 and both mixed pairs, an
@@ -333,7 +356,8 @@ def replay_bound_ms(args, kw, out, torch) -> tuple[float, str, dict]:
     rows = args[0]
     s_real = args[7]
     n_lanes = int(s_real.shape[0])
-    in_bytes = sum(v.numel() * 8 for v in rows.values())   # packed f64
+    in_bytes = (rows.packed.numel() * 8 if hasattr(rows, "packed")
+                else sum(v.numel() * 8 for v in rows.values()))  # f64
     in_bytes += sum(a.numel() * a.element_size() for a in args[1:8])
     in_bytes += kw["conf"].numel() * 8 + kw["radio"].numel() * 8
     out_bytes = sum(v.numel() * v.element_size() for v in out.values())
@@ -1783,6 +1807,362 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
     return out
 
 
+#: Phase 5b: the PlanSet design sweep -- MNIST's {tile-32, sonic, tails} x
+#: {100uF, 1mF} candidates, this many devices a candidate (the JAX package's
+#: design_space grid with tile-32 for tile-8; lower it if the time limit
+#: forces it).
+DESIGN_DEVICES = 4096
+#: Phase 5c: the streamed statistics -- lanes a chunk, and the two fleet
+#: sizes whose peak device memory must agree within MEMORY_FLAT.
+STREAM_CHUNK = 65536
+STREAM_LANES = (262144, 1048576)
+MEMORY_FLAT = 0.10
+#: Phase 5c's capacitor sweep: capacitors (cycles a charge) x devices.
+CAP_SWEEP = (1.0e5, 3.0e5, 1.0e6, 3.0e6, 1.0e7)
+CAP_DEVICES = 4096
+
+
+def stats_equal(np, a, b) -> list:
+    """The statistics (of two ``FleetStats``) that differ in any bit."""
+    bad = [f for f in ("count", "completed", "class_sums")
+           if not np.array_equal(getattr(a, f), getattr(b, f))]
+    for f in ("sums", "sumsqs", "mins", "maxs", "hists"):
+        bad += [(f, ch) for ch in getattr(a, f)
+                if not np.array_equal(getattr(a, f)[ch], getattr(b, f)[ch])]
+    return bad
+
+
+def host_outputs(out: dict) -> dict:
+    """A replay's output tensors as numpy arrays."""
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def zero_counts(wrapper) -> None:
+    wrapper.launches = 0
+    for d in wrapper.launches_by_design:
+        wrapper.launches_by_design[d] = 0
+    for m in wrapper.launches_by_mode:
+        wrapper.launches_by_mode[m] = 0
+
+
+def design_sweep(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
+                 plan_tails, plan_sonic) -> dict:
+    """Phase 5b: a PlanSet of MNIST's candidates in one launch of the lane
+    kernel in plan mode, against each candidate's own sweep, the direct
+    design and its statistics; returns the numbers the kernels line
+    reports."""
+    from repro_torch.core.energy import make_power_system
+    from repro_torch.core.fleetstats import stats_from_outputs
+
+    def restamp(plan, power):
+        ps = make_power_system(power)
+        return fleetsim.dataclasses.replace(
+            plan, power=ps.name, recharge_s=ps.recharge_s,
+            capacity=ps.cycles_per_charge)
+
+    t0 = time.perf_counter()
+    plan_t32 = fleetsim.build_plan(net, x, "tile-32", "1mF")
+    tails_100 = fleetsim.build_plan(
+        net, x, "tails", "100uF",
+        ref=(plan_tails.ref_output, plan_tails.max_atomic))
+    plans = [restamp(plan_t32, "100uF"), plan_t32,
+             restamp(plan_sonic, "100uF"), plan_sonic, tails_100, plan_tails]
+    labels = [f"mnist/{p.strategy}/{p.power}" for p in plans]
+    ps = fleetsim.PlanSet.from_plans(plans, labels=labels)
+    build_s = time.perf_counter() - t0
+    kw = dict(n_devices=DESIGN_DEVICES, seed=7, charge_cv=0.25,
+              charge_reboots=64, trace_reboots=16, device="cuda")
+    lanes = len(ps) * DESIGN_DEVICES
+
+    rec.calls = []
+    zero_counts(wrapper)                  # just before the design sweep
+    t0 = time.perf_counter()
+    res = fleetsim.fleet_sweep(plan=ps, **kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = wrapper.launches            # read just after
+    by_mode = dict(wrapper.launches_by_mode)
+    by_design = dict(wrapper.launches_by_design)
+    if by_mode != {"shared": 0, "lane": 0, "plan": launches} \
+            or launches < 1 or by_design["direct"] != 0:
+        raise SystemExit(f"design_sweep: launched {by_design} in modes "
+                         f"{by_mode}, not the hoisted design in plan mode")
+    call = rec.calls[0]
+    a, kw_call = call["args"], call["kw"]
+    ev0, ev1 = call["events"]
+    sweep_ms = ev0.elapsed_time(ev1)
+
+    # every candidate against its own fleet sweep on the card
+    solo_ms, rows = [], []
+    for p, plan in enumerate(plans):
+        rec.calls = []
+        solo = fleetsim.fleet_sweep(plan=plan, **kw)
+        torch.cuda.synchronize()
+        e0, e1 = rec.calls[0]["events"]
+        solo_ms.append(e0.elapsed_time(e1))
+        for ch in ("completed", "live_s", "dead_s", "reboots", "energy_j",
+                   "wasted_cycles", "belief_cycles"):
+            if not np.array_equal(getattr(res, ch)[p], getattr(solo, ch)):
+                raise SystemExit(f"design_sweep: {labels[p]} {ch} != its "
+                                 f"own fleet_sweep")
+        rows.append({"label": labels[p], "rows": len(plan),
+                     "completion_rate": float(res.completed[p].mean()),
+                     "solo_ms": solo_ms[-1]})
+
+    # the plan-mode launch again on the direct design, bitwise
+    direct = wrapper(*a, **kw_call, design="direct")
+    torch.cuda.synchronize()
+    ok, _err, bad = compare(torch, call["out"], direct)
+    if not ok:
+        raise SystemExit(f"design_sweep: the direct design in plan mode != "
+                         f"the hoisted one on {bad}")
+    del direct
+    ms = median_ms(torch, lambda: wrapper(*a, **kw_call), reps=3)
+
+    # reduce="stats" of the same sweep against its own materialized lanes
+    st = fleetsim.fleet_sweep(plan=ps, reduce="stats", **kw)
+    ref = stats_from_outputs(host_outputs(call["out"]), st.edges,
+                             group_id=np.repeat(np.arange(len(ps)),
+                                                DESIGN_DEVICES),
+                             n_groups=len(ps))
+    bad = stats_equal(np, st, ref)
+    if bad:
+        raise SystemExit(f"design_sweep: reduce='stats' != "
+                         f"stats_from_outputs on {bad}")
+    table = a[0].packed
+    line = {"phase": "design_sweep", "candidates": rows,
+            "devices_per_candidate": DESIGN_DEVICES, "lanes": lanes,
+            "table_shape": list(table.shape),
+            "table_bytes": table.numel() * table.element_size(),
+            "plan_build_s": build_s, "wall_s": wall_s,
+            "launches": launches, "launches_by_mode": by_mode,
+            "kernel_ms": ms, "first_launch_ms": sweep_ms,
+            "lanes_per_s": lanes / (ms / 1e3),
+            "solo_ms_sum": sum(solo_ms),
+            "bitwise_equal_solo": True, "bitwise_equal_direct_design": True,
+            "stats_bitwise_equal_stats_from_outputs": True}
+    emit(line)
+    return line
+
+
+def streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
+                   plan_tails, lat) -> dict:
+    """Phase 5c: the memory-flat streamed sweep (reduce="stats",
+    lane_chunk, prefetch) of MNIST under tails/1mF adaptive, the fold
+    kernel against its plain version on one chunk, and a capacitor sweep's
+    statistics; returns the fold's entry of the kernels line."""
+    import threading
+
+    from repro_torch.core.fleetstats import stats_from_outputs
+    from repro_torch.kernels import stats_fold as sf
+    from repro_torch.runtime import failures
+
+    kw = dict(plan=plan_tails, seed=42, charge_cv=0.25, charge_reboots=64,
+              trace_reboots=64, policy="adaptive", theta=0.5, batch_rows=4,
+              belief_alpha=0.2, reduce="stats", lane_chunk=STREAM_CHUNK,
+              device="cuda")
+
+    # the host's share: time in the chunk builders on the producer thread
+    # (and on the caller's, for the first chunk)
+    host_s = {"producer": 0.0, "caller": 0.0}
+    by_fn: dict = {}                      # producer seconds by function
+    timed = [(failures, n) for n in (
+        "initial_charge_fraction_stream", "harvest_jitter_stream",
+        "reboot_recharge_times_stream", "charge_capacity_jitter_stream",
+        "charge_trace_cumulative", "recharge_trace_cumulative")]
+    timed += [(fleetsim, "_prepare"), (fleetsim, "_chunk_tensors")]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in timed]
+
+    def timing(fn, name):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t
+                if threading.current_thread().name == "fleetsim-prefetch":
+                    host_s["producer"] += dt
+                    by_fn[name] = by_fn.get(name, 0.0) + dt
+                else:
+                    host_s["caller"] += dt
+        return run
+
+    cr.charge_replay = wrapper            # no recorder in the timed runs
+    runs = []
+    fold_launches = replay_launches = 0
+    try:
+        for mod, n, fn in saved:
+            setattr(mod, n, timing(fn, n))
+        for lanes, prefetch in ((STREAM_LANES[0], 0), (STREAM_LANES[0], 1),
+                                (STREAM_LANES[1], 1)):
+            host_s.update(producer=0.0, caller=0.0)
+            by_fn.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            sf.stats_fold.launches = 0    # just before the streamed run
+            zero_counts(wrapper)
+            t0 = time.perf_counter()
+            st = fleetsim.fleet_sweep(n_devices=lanes, prefetch=prefetch,
+                                      **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            chunks = -(-lanes // STREAM_CHUNK)
+            launches = (sf.stats_fold.launches, wrapper.launches)  # after
+            if launches != (chunks, chunks) \
+                    or wrapper.launches_by_design["hoisted"] != chunks:
+                raise SystemExit(f"streamed_stats: {lanes} lanes in {chunks} "
+                                 f"chunks launched the fold and the lane "
+                                 f"kernel {launches} times")
+            fold_launches += launches[0]
+            replay_launches += launches[1]
+            peak = torch.cuda.max_memory_allocated()
+            done = st.completed.sum()
+            if int(st.count.sum()) != lanes or not np.isfinite(
+                    st.sums["live_cycles"]).all():
+                raise SystemExit("streamed_stats: counts or sums are off")
+            row = {"phase": "streamed_stats", "lanes": lanes,
+                   "lane_chunk": STREAM_CHUNK, "prefetch": prefetch,
+                   "chunks": chunks, "wall_s": wall,
+                   "lanes_per_s": lanes / wall,
+                   "producer_s": host_s["producer"],
+                   "caller_host_s": host_s["caller"],
+                   "producer_share_of_wall": host_s["producer"] / wall,
+                   "producer_s_by_function": dict(by_fn),
+                   "peak_bytes": peak, "base_bytes": base,
+                   "peak_over_base_bytes": peak - base,
+                   "peak_lane_bytes": st.peak_lane_bytes,
+                   "completion_rate": float(done / st.count.sum()),
+                   "fold_launches": launches[0],
+                   "replay_launches": launches[1]}
+            emit(row)
+            runs.append((st, row))
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+    bad = stats_equal(np, runs[0][0], runs[1][0])
+    if bad:
+        raise SystemExit(f"streamed_stats: prefetch 0 != 1 on {bad}")
+    small, large = runs[1][1]["peak_over_base_bytes"], \
+        runs[2][1]["peak_over_base_bytes"]
+    if abs(large - small) > MEMORY_FLAT * small:
+        raise SystemExit(f"streamed_stats: peak device memory {large} B at "
+                         f"{STREAM_LANES[1]} lanes vs {small} B at "
+                         f"{STREAM_LANES[0]}: not flat")
+
+    # the fold kernel against its plain version on one chunk's outputs
+    folds = []
+    real_reduce = fleetsim.reduce_lane_outputs
+
+    def keep(*args):
+        folds.append(args)
+        return real_reduce(*args)
+
+    fleetsim.reduce_lane_outputs = keep
+    try:
+        fleetsim.fleet_sweep(n_devices=STREAM_CHUNK, prefetch=1, **kw)
+    finally:
+        fleetsim.reduce_lane_outputs = real_reduce
+    torch.cuda.synchronize()
+    out, gid, valid, edges, n_groups = folds[0]
+    got = sf.stats_fold(out, gid, valid, edges, n_groups)
+    torch.cuda.synchronize()
+    plain = sf.stats_fold_plain({k: v.cpu() for k, v in out.items()},
+                                gid.cpu(), valid.cpu(),
+                                {k: e.cpu() for k, e in edges.items()},
+                                n_groups)
+    max_diff = 0.0
+    for g_part, p_part in zip(got, plain):
+        for k in g_part:
+            a, b = g_part[k].cpu(), p_part[k]
+            same = (a == b) | (a.isnan() & b.isnan())
+            fin = a.isfinite() & b.isfinite()
+            if bool(fin.any()):
+                max_diff = max(max_diff, float((a - b)[fin].abs().max()))
+            if not bool(same.all()):
+                raise SystemExit(f"streamed_stats: fold kernel != plain on "
+                                 f"{k}")
+    fold_ms = median_ms(torch, lambda: sf.stats_fold(out, gid, valid, edges,
+                                                     n_groups))
+    plain_card_ms = median_ms(torch, lambda: sf.stats_fold_plain(
+        out, gid, valid, edges, n_groups), reps=3)
+    t0 = time.perf_counter()
+    sf.stats_fold_plain({k: v.cpu() for k, v in out.items()}, gid.cpu(),
+                        valid.cpu(), {k: e.cpu() for k, e in edges.items()},
+                        n_groups)
+    plain_host_ms = (time.perf_counter() - t0) * 1e3
+    n = int(gid.shape[0])
+    in_bytes = (sum(out[k].numel() * 8 for k in sf.LANE_KEYS)
+                + out["classes"].numel() * 8 + out["stuck"].numel()
+                + valid.numel() + gid.numel() * 4
+                + sum(e.numel() * 8 for e in edges.values()))
+    out_bytes = sum(t.numel() * 8 for part in got for t in part.values())
+    # the f64 operations a lane needs: the class and channel sums, the
+    # squares, total_s's division and add, tx_joules' product, and a
+    # comparison each for min and max
+    ops = n * (2 + out["classes"].shape[1] + 2 * 10 + 10 + 3 + 2 * 10)
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F64_OPS * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes \
+        else (t_bytes, "bytes")
+    chain_ms = n * lat["add_cycles"] / lat["sm_clock_ghz"] * 1e-6
+    fold = {"phase": "streamed_stats", "fold": "one chunk", "lanes": n,
+            "bitwise_equal_plain": True, "max_abs_diff_vs_plain": max_diff,
+            "fold_ms_per_chunk": fold_ms, "bytes": in_bytes + out_bytes,
+            "bytes_ms": t_bytes, "f64_ops": ops, "ops_ms": t_ops,
+            "chain_floor_ms": chain_ms,
+            "fold_bound_ms": max(t_bytes, chain_ms),
+            "fold_bound_by": "lane-order chain" if chain_ms >= t_bytes
+            else "bytes",
+            "chain": f"{n} lanes x {lat['add_cycles']:.3f} cycles at "
+                     f"{lat['sm_clock_ghz']:.4f} GHz",
+            "plain_card_ms": plain_card_ms, "plain_host_ms": plain_host_ms}
+    emit(fold)
+
+    # a capacitor sweep's groups against its own materialized lanes
+    pplan = fleetsim.build_plan(net, x, "tails", "1mF", parametric=True)
+    cap_kw = dict(plan=pplan, n_devices=CAP_DEVICES, seed=5,
+                  charge_cv=0.25, charge_reboots=64, device="cuda")
+    cr.charge_replay = rec
+    rec.calls = []
+    before = wrapper.launches
+    cn = fleetsim.capacitor_sweep(None, None, CAP_SWEEP, **cap_kw)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1 or len(rec.calls) != 1:
+        raise SystemExit("capacitor_sweep: not one lane-kernel launch")
+    raw = host_outputs(rec.calls[0]["out"])
+    cr.charge_replay = wrapper
+    fold_before = sf.stats_fold.launches
+    cs = fleetsim.capacitor_sweep(None, None, CAP_SWEEP, reduce="stats",
+                                  **cap_kw)
+    if sf.stats_fold.launches != fold_before + 1:
+        raise SystemExit("capacitor_sweep: the stats did not launch the "
+                         "fold kernel")
+    ref = stats_from_outputs(raw, cs.edges, group_id=np.repeat(
+        np.arange(len(CAP_SWEEP)), CAP_DEVICES), n_groups=len(CAP_SWEEP))
+    bad = stats_equal(np, cs, ref)
+    if bad:
+        raise SystemExit(f"capacitor_sweep: reduce='stats' != "
+                         f"stats_from_outputs on {bad}")
+    emit({"phase": "streamed_stats", "capacitor_sweep": list(CAP_SWEEP),
+          "devices": CAP_DEVICES,
+          "completion_rate": [float(c) for c in cn.completed.mean(1)],
+          "stats_bitwise_equal_stats_from_outputs": True})
+    return {
+        "name": "stats_fold", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stats_fold.cu",
+        "replaces": "src/repro/core/fleetstats.py:143",
+        "replaces_function": "reduce_lane_outputs (an XLA function with "
+                             "no Pallas kernel)",
+        "launches": fold_launches, "max_abs_err": max_diff,
+        "max_abs_diff_vs_plain": max_diff, "ms": fold_ms,
+        "plain_ms": plain_card_ms, "plain_host_ms": plain_host_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "chain_floor_ms": chain_ms, "library_ms": None,
+        "shape": f"{n} lanes, {n_groups} group, "
+                 f"{sum(e.numel() - 1 for e in edges.values())} bins"}
+
+
 def main() -> int:
     import torch
 
@@ -1823,9 +2203,9 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # ---- 2. build every kernel of the path
-    built = _build.build("charge_replay", "dense_matmul", "sparse_fc",
-                         "fir_conv1d", "flash_attention", "ssd_intra",
-                         "ssd_intra_thread_fed")
+    built = _build.build("charge_replay", "stats_fold", "dense_matmul",
+                         "sparse_fc", "fir_conv1d", "flash_attention",
+                         "ssd_intra", "ssd_intra_thread_fed")
     for b in built.values():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln or "stack" in ln]
@@ -1878,7 +2258,8 @@ def main() -> int:
         nonlocal max_err
         for c in calls:
             a, kw = c["args"], c["kw"]
-            plain = cr.event_replay(*a, **kw)
+            plain = cr.event_replay(*a, **{k: v for k, v in kw.items()
+                                           if k != "host_checked"})
             again = wrapper(*a, **kw)
             direct = wrapper(*a, **kw, design="direct")
             torch.cuda.synchronize()
@@ -1955,6 +2336,15 @@ def main() -> int:
                           belief_alpha=pol[3],
                           radio=pack_radio(window, SEND_POLICIES[1]),
                           device="cuda")))
+    design = fleetsim.PlanSet.from_plans([sonic, tile8, tails, burn,
+                                          sonic_small])
+    for pol in (policies[0], policies[4]):
+        cases.append((f"planset/{pol}",
+                      lambda pol=pol: fleetsim.fleet_sweep(
+                          plan=design, n_devices=12, seed=8, charge_cv=0.4,
+                          charge_reboots=24, trace_reboots=8, policy=pol[0],
+                          theta=pol[1], batch_rows=pol[2],
+                          belief_alpha=pol[3], device="cuda")))
     inf_plan = fleetsim.dataclasses.replace(sonic, capacity=np.inf)
     cases.append(("cap-inf/radio", lambda: per_lane(
         [sonic, inf_plan, sonic, inf_plan], "adaptive", 0.5, 2, 0.1, 0.4, 12,
@@ -2150,6 +2540,12 @@ def main() -> int:
           "lanes": HAR_LANES, "checked_lanes": 4, "bitwise_equal": True,
           "bitwise_equal_direct_design": HAR_LANES,
           "plain_ms": har_plain_ms})
+
+    # ---- 5b. the PlanSet design sweep; 5c. the streamed statistics
+    design_line = design_sweep(torch, np, emit, fleetsim, cr, rec, wrapper,
+                               net, x, plan_tails, plan_sonic)
+    fold_entry = streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper,
+                                net, x, plan_tails, lat)
     cr.charge_replay = wrapper
 
     # ---- 6, 7. the compute kernels: against their plain versions, then at
@@ -2173,8 +2569,15 @@ def main() -> int:
         "bound_by": headline["bound_by"],
         "chain_floor_ms": headline["chain_floor_ms"], "library_ms": None,
         "design": "hoisted", "previous_design": "direct",
+        "plan_mode_launches": design_line["launches"],
+        "plan_mode_ms": design_line["kernel_ms"],
+        "plan_mode_solo_ms_sum": design_line["solo_ms_sum"],
+        "plan_mode_shape": f"{len(design_line['candidates'])} candidates "
+                           f"x {design_line['devices_per_candidate']} "
+                           f"lanes, table {design_line['table_shape']}",
         "shape": f"{results[0][0]}: {len(results[0][1])} rows x "
-                 f"{int(a[1].shape[0])} lanes"}] + compute + lm})
+                 f"{int(a[1].shape[0])} lanes"}, fold_entry]
+        + compute + lm})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -205,14 +205,49 @@ def send_defer_wait(live, dead, radio):
 
 _INT_FIELDS = ("kind", "tile_flag", "entry_seg_class")
 
+#: How the lanes find their rows (``shared_rows``: ``True``, ``False`` or
+#: ``"plan"``): one ``(S, F)`` table for every lane (a fleet sweep), one
+#: ``(N, S, F)`` table a lane (``replay_plans``), or a ``(P, S, F)`` pack of
+#: candidate plans read through a per-lane plan index (a ``PlanSet`` design
+#: sweep).
+MODES = ("shared", "lane", "plan")
 
-def pack_rows(rows: dict, shared_rows: bool):
+
+def row_mode(shared_rows) -> str:
+    """The :data:`MODES` entry of a ``shared_rows`` argument."""
+    if isinstance(shared_rows, str):
+        if shared_rows == "plan":
+            return "plan"
+        raise ValueError(f"shared_rows must be True, False or 'plan', got "
+                         f"{shared_rows!r}")
+    return "shared" if shared_rows else "lane"
+
+
+class PackedRows:
+    """A row table packed once (:func:`pack_rows`) to be replayed many
+    times: the chunks of a streamed sweep reuse it, and the hoisted
+    design's layout of it (:func:`hoisted_table`) is made at its first
+    launch and kept.  :func:`event_replay` and :func:`charge_replay` take
+    it wherever they take a row dict."""
+
+    def __init__(self, rows: dict, shared_rows):
+        self.mode = row_mode(shared_rows)
+        self.packed, self.layout = pack_rows(rows, shared_rows)
+        self.hoisted = None
+
+    @property
+    def device(self):
+        return self.packed.device
+
+
+def pack_rows(rows: dict, shared_rows):
     """Flatten a plan's per-row field dict into one float64 row table,
-    ``(S, F)`` for rows shared by every lane or ``(N, S, F)`` for one row
-    table per lane, plus the static ``(key, offset, shape)`` layout.  Keys
-    are sorted (the JAX package's column order); integer fields are small
-    whole numbers, exact in float64."""
-    lead = 1 if shared_rows else 2
+    ``(S, F)`` for rows shared by every lane, ``(N, S, F)`` for one row
+    table per lane or ``(P, S, F)`` for a pack of candidate plans
+    (``shared_rows="plan"``), plus the static ``(key, offset, shape)``
+    layout.  Keys are sorted (the JAX package's column order); integer
+    fields are small whole numbers, exact in float64."""
+    lead = 1 if row_mode(shared_rows) == "shared" else 2
     cols, layout, off = [], [], 0
     for k in sorted(rows):
         v = torch.as_tensor(rows[k])
@@ -223,12 +258,25 @@ def pack_rows(rows: dict, shared_rows: bool):
     return torch.cat(cols, dim=lead).contiguous(), tuple(layout)
 
 
-def unpack_row(packed, layout, i) -> dict:
-    """Gather every lane's current row: ``i`` is the ``(N,)`` row cursor.
-    Integer fields come back as int64."""
+def _packed(rows, shared_rows):
+    """``(packed, layout)`` of a row dict or a :class:`PackedRows`."""
+    if isinstance(rows, PackedRows):
+        if rows.mode != row_mode(shared_rows):
+            raise ValueError(f"rows were packed for {rows.mode!r} lanes, "
+                             f"not {row_mode(shared_rows)!r}")
+        return rows.packed, rows.layout
+    return pack_rows(rows, shared_rows)
+
+
+def unpack_row(packed, layout, i, plan=None) -> dict:
+    """Gather every lane's current row: ``i`` is the ``(N,)`` row cursor;
+    with a ``(P, S, F)`` pack, ``plan`` is the ``(N,)`` plan index (else a
+    3-D table holds one plan a lane).  Integer fields come back as
+    int64."""
     if packed.dim() == 3:
-        lanes = torch.arange(packed.shape[0], device=packed.device)
-        stripe = packed[lanes, i]
+        if plan is None:
+            plan = torch.arange(packed.shape[0], device=packed.device)
+        stripe = packed[plan, i]
     else:
         stripe = packed[i]
     n = stripe.shape[0]
@@ -581,13 +629,14 @@ def event_step(packed, layout, cap, trace_cum, tail_s, charge_cum,
                nominal_from, theta, window, alpha, conf, radio,
                adaptive: bool, parametric: bool, enable_fast: bool,
                has_burn: bool, has_send: bool,
-               st: EventState, active) -> EventState:
+               st: EventState, active, plan=None) -> EventState:
     """One event on every lane: one charge of the current row, or the
     row's closed-form remainder when eligible, or a whole BURN/CALIB row.
-    An inactive lane (``i >= s_real``) passes through bitwise."""
+    An inactive lane (``i >= s_real``) passes through bitwise.  With a
+    ``(P, S, F)`` pack, ``plan`` is each lane's plan index."""
     s_pad = packed.shape[-2]
     i = torch.clamp(st.i, max=s_pad - 1)
-    row = unpack_row(packed, layout, i)
+    row = unpack_row(packed, layout, i, plan)
     ctx = row_ctx(row, cap, theta, adaptive, parametric,
                   conf=conf, radio=radio, has_send=has_send)
     fresh = st.fresh & active
@@ -708,22 +757,33 @@ OUTPUTS = ("live", "reboots", "dead", "classes", "wasted", "stuck", "rem",
            "belief", "tx_bytes", "msgs_sent", "msgs_deferred")
 
 
-def event_replay(rows: dict, cap, rem0, trace_cum, tail_s, charge_cum,
+def event_replay(rows, cap, rem0, trace_cum, tail_s, charge_cum,
                  nominal_from, s_real, theta, window, alpha, *,
-                 adaptive: bool, parametric: bool, shared_rows: bool,
+                 adaptive: bool, parametric: bool, shared_rows,
                  enable_fast: bool = True, has_burn: bool = True,
                  has_send: bool = False, conf=None, radio=None,
-                 chunk: int = EVENT_CHUNK) -> dict:
+                 chunk: int = EVENT_CHUNK, plan_idx=None) -> dict:
     """Replay every lane's plan as a masked event stream (the plain
     PyTorch version of the kernel).
 
-    ``rows`` is the plan's field dict, ``(S, ...)`` per field when
-    ``shared_rows`` (one plan broadcast to every lane) or ``(N, S, ...)``
-    (one plan per lane).  Every other per-lane input is ``(N,)`` or
-    ``(N, R)`` float64 on the same device; ``theta``/``window``/``alpha``
-    are python floats.  The loop runs until every lane has
-    ``i >= s_real``, checking every ``chunk`` events."""
-    packed, layout = pack_rows(rows, shared_rows)
+    ``rows`` is the plan's field dict (or a :class:`PackedRows`),
+    ``(S, ...)`` per field when ``shared_rows`` is ``True`` (one plan
+    broadcast to every lane), ``(N, S, ...)`` when ``False`` (one plan per
+    lane), or ``(P, S, ...)`` when ``"plan"``: a pack of candidate plans,
+    lane ``l`` replaying plan ``plan_idx[l]`` (``(N,)`` integers), as the
+    JAX package's ``event_replay(..., plan_idx=)``.  Every other per-lane
+    input is ``(N,)`` or ``(N, R)`` float64 on the same device;
+    ``theta``/``window``/``alpha`` are python floats.  The loop runs until
+    every lane has ``i >= s_real``, checking every ``chunk`` events."""
+    if (row_mode(shared_rows) == "plan") != (plan_idx is not None):
+        raise ValueError("plan_idx goes with shared_rows='plan', and only "
+                         "with it")
+    packed, layout = _packed(rows, shared_rows)
+    plan = None if plan_idx is None else plan_idx.to(torch.int64)
+    if plan is not None and plan.numel() and not (
+            0 <= int(plan.min()) and int(plan.max()) < packed.shape[0]):
+        raise ValueError(f"plan_idx holds a plan out of "
+                         f"[0, {packed.shape[0]})")
     n_lanes = cap.shape[0]
     if conf is None:
         conf = torch.zeros_like(cap)
@@ -747,7 +807,8 @@ def event_replay(rows: dict, cap, rem0, trace_cum, tail_s, charge_cum,
             st = event_step(packed, layout, cap, trace_cum, tail_s,
                             charge_cum, nominal_from, theta, window, alpha,
                             conf, radio, adaptive, parametric, enable_fast,
-                            has_burn, has_send, st, active=st.i < s_real)
+                            has_burn, has_send, st, active=st.i < s_real,
+                            plan=plan)
     return dict(live=st.live, reboots=st.reboots, dead=st.dead,
                 classes=st.classes, wasted=st.wasted, stuck=st.stuck,
                 rem=st.rem, belief=st.bhat,
@@ -794,7 +855,8 @@ def _library():
         raise RuntimeError("csrc/charge_replay.cu was built for another "
                            "number of op classes")
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    common = ([p, ctypes.c_longlong, p]          # rows, lane stride, layout
+    common = ([p, ctypes.c_longlong, p, p]       # rows, lane stride, plan
+              #                                    index, layout
               + [p, p, p, i, p, p, i, p, p]      # lane inputs and traces
               + [d, d, d, p, p]                  # theta, window, alpha, ...
               + [i] * 5                          # static flags
@@ -829,16 +891,21 @@ def lane_block(n_lanes: int) -> int:
     return max(1, min(LANE_MAX_BLOCK, -(-n_lanes // SMS)))
 
 
-def hoisted_table(packed, shared_rows: bool):
+def hoisted_table(packed, shared_rows):
     """The row table as the hoisted design reads it, with its strides:
-    ``(table, lane_stride, rs, cs)``, element (i, j) of lane l's rows at
-    ``table.view(-1)[l * lane_stride + i * rs + j * cs]``.  The shared
-    plan's ``(S, F)`` table goes column-major (rs = 1, cs = S): the lanes
-    of a warp, a few rows apart, then read a column from a few cache lines.
+    ``(table, lane_stride, rs, cs)``, element (i, j) of a lane's rows at
+    ``table.view(-1)[base * lane_stride + i * rs + j * cs]``, where ``base``
+    is the lane, or its plan index in ``"plan"`` mode.  The shared plan's
+    ``(S, F)`` table goes column-major (rs = 1, cs = S): the lanes of a
+    warp, a few rows apart, then read a column from a few cache lines.  A
+    pack of candidate plans goes column-major plan by plan, ``(P, F, S)``.
     A lane's own ``(N, S, F)`` table stays row-major (rs = F, cs = 1)."""
     s_pad, f = packed.shape[-2:]
-    if shared_rows:
+    mode = row_mode(shared_rows)
+    if mode == "shared":
         return packed.T.contiguous(), 0, 1, s_pad
+    if mode == "plan":
+        return packed.transpose(1, 2).contiguous(), s_pad * f, 1, s_pad
     return packed, s_pad * f, f, 1
 
 
@@ -892,22 +959,31 @@ def _check_lane(name, t, n_lanes, dtype, device, ndim=1):
         raise ValueError(f"{name} must be contiguous")
 
 
-def charge_replay(rows: dict, cap, rem0, trace_cum, tail_s, charge_cum,
+def charge_replay(rows, cap, rem0, trace_cum, tail_s, charge_cum,
                   nominal_from, s_real, theta, window, alpha, *,
-                  adaptive: bool, parametric: bool, shared_rows: bool,
+                  adaptive: bool, parametric: bool, shared_rows,
                   enable_fast: bool = True, has_burn: bool = True,
                   has_send: bool = False, conf=None, radio=None,
-                  chunk: int = EVENT_CHUNK, design: str = "hoisted") -> dict:
+                  chunk: int = EVENT_CHUNK, plan_idx=None,
+                  design: str = "hoisted", host_checked: bool = False
+                  ) -> dict:
     """The fused replay: the CUDA lane kernel for CUDA tensors, the plain
     PyTorch version (:func:`event_replay`) for CPU tensors.
 
     Arguments are :func:`event_replay`'s.  On the card the wrapper packs
-    the row table once (:func:`pack_rows`), checks every input's device,
-    dtype, shape and contiguity, allocates the 11 outputs, launches one
-    thread per lane of kernel design ``design`` (:data:`DESIGNS`) on the
-    current stream, raises if the launch failed, and counts the launch in
-    ``charge_replay.launches`` and ``charge_replay.launches_by_design``.
-    ``chunk`` only paces the plain version."""
+    the row table (:func:`pack_rows`, unless ``rows`` is a
+    :class:`PackedRows`), checks every input's device, dtype, shape and
+    contiguity, allocates the 11 outputs, launches one thread per lane of
+    kernel design ``design`` (:data:`DESIGNS`) on the current stream,
+    raises if the launch failed, and counts the launch in
+    ``charge_replay.launches``, ``launches_by_design`` and
+    ``launches_by_mode`` (:data:`MODES`).  ``plan_idx`` must then be an
+    int32 tensor on the device with every index in ``[0, P)``.  The checks
+    of ``s_real``, ``plan_idx`` and the rows' op classes against the table
+    read the tensors back, a wait on the card; ``host_checked=True`` says
+    the caller has made them on the host before the upload (the streamed
+    pipeline does, so its launches never wait).  ``chunk`` only paces the
+    plain version."""
     if design not in DESIGNS:
         raise ValueError(f"no lane kernel design {design!r}; the designs "
                          f"are {DESIGNS}")
@@ -918,7 +994,7 @@ def charge_replay(rows: dict, cap, rem0, trace_cum, tail_s, charge_cum,
                             shared_rows=shared_rows,
                             enable_fast=enable_fast, has_burn=has_burn,
                             has_send=has_send, conf=conf, radio=radio,
-                            chunk=chunk)
+                            chunk=chunk, plan_idx=plan_idx)
     if cap.device.type != "cuda":
         raise ValueError(f"charge_replay runs on CUDA or CPU tensors, "
                          f"got {cap.device}")
@@ -927,17 +1003,19 @@ def charge_replay(rows: dict, cap, rem0, trace_cum, tail_s, charge_cum,
                    adaptive=adaptive, parametric=parametric,
                    shared_rows=shared_rows, enable_fast=enable_fast,
                    has_burn=has_burn, has_send=has_send, conf=conf,
-                   radio=radio, design=design)
+                   radio=radio, plan_idx=plan_idx, design=design,
+                   host_checked=host_checked)
 
 
 def _launch(rows, cap, rem0, trace_cum, tail_s, charge_cum, nominal_from,
             s_real, theta, window, alpha, *, adaptive, parametric,
             shared_rows, enable_fast, has_burn, has_send, conf, radio,
-            design):
+            design, plan_idx=None, host_checked=False):
     """The kernel half of :func:`charge_replay`: check, pack, allocate,
     launch and count, on the device of ``cap``."""
     device = cap.device
     n_lanes = cap.shape[0]
+    mode = row_mode(shared_rows)
     if conf is None:
         conf = torch.zeros_like(cap)
     if radio is None:
@@ -948,17 +1026,27 @@ def _launch(rows, cap, rem0, trace_cum, tail_s, charge_cum, nominal_from,
     _check_lane("s_real", s_real, n_lanes, torch.int32, device)
     _check_lane("trace_cum", trace_cum, n_lanes, F64, device, ndim=2)
     _check_lane("charge_cum", charge_cum, n_lanes, F64, device, ndim=2)
+    if (mode == "plan") != (plan_idx is not None):
+        raise ValueError("plan_idx goes with shared_rows='plan', and only "
+                         "with it")
+    if plan_idx is not None:
+        _check_lane("plan_idx", plan_idx, n_lanes, torch.int32, device)
     if radio.shape != (N_RADIO,) or radio.dtype != F64 \
             or radio.device != device or not radio.is_contiguous():
         raise ValueError(f"radio must be a contiguous ({N_RADIO},) float64 "
                          f"tensor on {device}")
     if trace_cum.shape[1] < 1 or charge_cum.shape[1] < 1:
         raise ValueError("trace tables need at least one column")
-    for k, v in rows.items():
-        if v.device != device:
-            raise ValueError(f"rows[{k!r}] is on {v.device}, "
-                             f"expected {device}")
-    packed, layout = pack_rows(rows, shared_rows)
+    if isinstance(rows, PackedRows):
+        if rows.device != device:
+            raise ValueError(f"rows are on {rows.device}, expected {device}")
+    else:
+        for k, v in rows.items():
+            if v.device != device:
+                raise ValueError(f"rows[{k!r}] is on {v.device}, "
+                                 f"expected {device}")
+        rows = PackedRows(rows, shared_rows)
+    packed, layout = _packed(rows, shared_rows)
     shapes = {k: s for k, _off, s in layout}
     if shapes["entry_class"] != (_N_CLASSES,):
         raise ValueError(f"rows carry {shapes['entry_class']} op classes, "
@@ -966,22 +1054,30 @@ def _launch(rows, cap, rem0, trace_cum, tail_s, charge_cum, nominal_from,
     if parametric != ("tile_sel_cost" in shapes):
         raise ValueError("parametric must match the presence of tile tables")
     s_pad = packed.shape[-2]
-    if not shared_rows and packed.shape[0] != n_lanes:
+    if mode == "lane" and packed.shape[0] != n_lanes:
         raise ValueError(f"per-lane rows hold {packed.shape[0]} lanes, "
                          f"expected {n_lanes}")
-    if n_lanes and int(s_real.max()) > s_pad:
-        raise ValueError(f"s_real exceeds the {s_pad}-row table")
-    seg_cls = rows["entry_seg_class"]
-    if seg_cls.numel() and not (0 <= int(seg_cls.min())
-                                and int(seg_cls.max()) < _N_CLASSES):
-        raise ValueError("entry_seg_class holds an op class out of range")
     g = shapes["entry_seg_cycles"][0]
+    if not host_checked:
+        if n_lanes and int(s_real.max()) > s_pad:
+            raise ValueError(f"s_real exceeds the {s_pad}-row table")
+        off = dict((k, o) for k, o, _s in layout)["entry_seg_class"]
+        seg_cls = packed[..., off:off + g]
+        if seg_cls.numel() and not (0 <= float(seg_cls.min())
+                                    and float(seg_cls.max()) < _N_CLASSES):
+            raise ValueError("entry_seg_class holds an op class out of "
+                             "range")
+        if plan_idx is not None and n_lanes and not (
+                0 <= int(plan_idx.min())
+                and int(plan_idx.max()) < packed.shape[0]):
+            raise ValueError(f"plan_idx holds a plan out of "
+                             f"[0, {packed.shape[0]})")
     k = shapes["tile_n"][0] if parametric else 0
     f = packed.shape[-1]
     layout_c = (ctypes.c_int * 21)(*_layout_ints(layout, f, g, k))
     if s_pad * f >= 2**31:
         raise ValueError("a lane's row table exceeds 2**31 elements")
-    lane_stride = 0 if shared_rows else s_pad * f
+    lane_stride = 0 if mode == "shared" else s_pad * f
 
     out = dict(live=torch.empty_like(cap), reboots=torch.empty_like(cap),
                dead=torch.empty_like(cap),
@@ -996,8 +1092,11 @@ def _launch(rows, cap, rem0, trace_cum, tail_s, charge_cum, nominal_from,
     lib = _library()
     table = packed
     if design == "hoisted":
-        table, lane_stride, rs, cs = hoisted_table(packed, shared_rows)
-    args = (table.data_ptr(), lane_stride, layout_c,
+        if rows.hoisted is None:
+            rows.hoisted = hoisted_table(packed, shared_rows)
+        table, lane_stride, rs, cs = rows.hoisted
+    args = (table.data_ptr(), lane_stride,
+            None if plan_idx is None else plan_idx.data_ptr(), layout_c,
             cap.data_ptr(), rem0.data_ptr(), trace_cum.data_ptr(),
             trace_cum.shape[1], tail_s.data_ptr(), charge_cum.data_ptr(),
             charge_cum.shape[1], nominal_from.data_ptr(), s_real.data_ptr(),
@@ -1017,6 +1116,7 @@ def _launch(rows, cap, rem0, trace_cum, tail_s, charge_cum, nominal_from,
                            f"CUDA error {err}")
     _wrapper.launches += 1
     _wrapper.launches_by_design[design] += 1
+    _wrapper.launches_by_mode[mode] += 1
     # `table` may be freed now: PyTorch's caching allocator hands its
     # memory only to later work on the same stream, after the kernel.
     return out
@@ -1024,8 +1124,10 @@ def _launch(rows, cap, rem0, trace_cum, tail_s, charge_cum, nominal_from,
 
 #: ``charge_replay.launches`` counts launches of the CUDA kernel (calls that
 #: take the plain version do not count), ``launches_by_design`` each
-#: design's.  The wrapper counts through this alias, so a caller that wraps
+#: design's and ``launches_by_mode`` each row mode's (:data:`MODES`).  The
+#: wrapper counts through this alias, so a caller that wraps
 #: ``charge_replay`` still reads the counts off the original function.
 _wrapper = charge_replay
 charge_replay.launches = 0
 charge_replay.launches_by_design = {d: 0 for d in DESIGNS}
+charge_replay.launches_by_mode = {m: 0 for m in MODES}

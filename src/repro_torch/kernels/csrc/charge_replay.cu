@@ -51,6 +51,12 @@
 //   row-major from global memory, the class loop branching inside, the
 //   five flags at run time, 128 lanes a block.
 //
+// A lane finds its rows in one of three ways, the same in both designs:
+// one table shared by every lane (a fleet sweep), a table of its own
+// (replay_plans), or its candidate's table in a (P, S, F) pack of plans, by
+// a per-lane plan index (a PlanSet design sweep; the hoisted design gets
+// each plan column-major, as it gets a shared table).
+//
 // Both designs do the same float operations in the same order on every
 // lane, so they give the same bits; each is held against the plain version
 // and the other on the card (chip_smoke.py, tests/test_torch_cuda.py).
@@ -515,7 +521,8 @@ __device__ void fast_forward(const Ctx& x, const Layout& L, const Flags& fl,
 }
 
 __global__ void charge_replay_kernel(
-    const double* __restrict__ rows, long long lane_stride, Layout L,
+    const double* __restrict__ rows, long long lane_stride,
+    const int* __restrict__ plan_idx, Layout L,
     Flags fl, const double* __restrict__ caps,
     const double* __restrict__ rem0, const double* __restrict__ trace_cum,
     int r_trace, const double* __restrict__ tail_s,
@@ -536,7 +543,10 @@ __global__ void charge_replay_kernel(
   const int n_real = s_real[lane];
   const double* tcum = trace_cum + (long long)lane * r_trace;
   const double* ccum = charge_cum + (long long)lane * r_charge;
-  const double* lane_rows = rows + (long long)lane * lane_stride;
+  // a lane's table: its own (lane_stride apart), or its plan's in a
+  // (P, S, F) pack of candidate plans when plan_idx is given
+  const double* lane_rows =
+      rows + (long long)(plan_idx ? plan_idx[lane] : lane) * lane_stride;
 
   State st;
   st.i = 0;
@@ -1108,12 +1118,17 @@ __device__ __forceinline__ void fast_forward(const Ctx& x, const Layout& L,
 // table is at lane_rows[i * rs + j * cs]: the shared plan's table comes
 // column-major (rs = 1, cs = S), so the lanes of a warp, a few rows apart,
 // read a column from a few cache lines where row-major rows would take one
-// line a lane (an L1 wavefront each); a lane's own table comes row-major
-// (rs = F, cs = 1).
-template <bool PARAM, bool SEND>
+// line a lane (an L1 wavefront each); so does each plan of a pack of
+// candidate plans ((P, F, S), a plan F * S apart); a lane's own table
+// comes row-major (rs = F, cs = 1).  PLAN: a lane finds its table by its
+// plan index (a template parameter, so that the other modes compile to the
+// code they had before plan_idx existed: a run-time test of plan_idx cost
+// the main path 7 % at 255 registers, PERF.md).
+template <bool PARAM, bool SEND, bool PLAN>
 __global__ void __launch_bounds__(LANE_MAX_BLOCK, 1) charge_replay_kernel(
-    const double* __restrict__ rows, long long lane_stride, int rs, int cs,
-    Layout L, Flags fl, const double* __restrict__ caps,
+    const double* __restrict__ rows, long long lane_stride,
+    const int* __restrict__ plan_idx, int rs, int cs, Layout L, Flags fl,
+    const double* __restrict__ caps,
     const double* __restrict__ rem0, const double* __restrict__ trace_cum,
     int r_trace, const double* __restrict__ tail_s,
     const double* __restrict__ charge_cum, int r_charge,
@@ -1134,7 +1149,10 @@ __global__ void __launch_bounds__(LANE_MAX_BLOCK, 1) charge_replay_kernel(
   const int n_real = s_real[lane];
   const double* tcum = trace_cum + (long long)lane * r_trace;
   const double* ccum = charge_cum + (long long)lane * r_charge;
-  const double* lane_rows = rows + (long long)lane * lane_stride;
+  // a lane's table: its own (lane_stride apart, 0 for a shared one), or
+  // its plan's in a (P, S, F) pack of candidate plans
+  const double* lane_rows =
+      rows + (long long)(PLAN ? plan_idx[lane] : lane) * lane_stride;
 
   State st;
   st.i = 0;
@@ -1348,10 +1366,14 @@ int charge_replay_profile_read(unsigned long long* host) {
 #endif
 
 // The direct design: one thread per lane, 128 to a block, on `stream`.
-// `layout` is 21 ints in Layout's field order.  Returns cudaGetLastError()
-// after the launch.
+// Lane l's row-major table starts at rows + l * lane_stride (0 for one
+// shared table) or, where plan_idx (device, one int a lane) is not null,
+// at rows + plan_idx[l] * lane_stride: its candidate's plan in a (P, S, F)
+// pack.  `layout` is 21 ints in Layout's field order.  Returns
+// cudaGetLastError() after the launch.
 int charge_replay_launch(
-    const double* rows, long long lane_stride, const int* layout,
+    const double* rows, long long lane_stride, const int* plan_idx,
+    const int* layout,
     const double* caps, const double* rem0, const double* trace_cum,
     int r_trace, const double* tail_s, const double* charge_cum,
     int r_charge, const double* nominal_from, const int* s_real,
@@ -1370,22 +1392,24 @@ int charge_replay_launch(
   const int block = 128;
   const int grid = (n_lanes + block - 1) / block;
   direct::charge_replay_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      rows, lane_stride, L, fl, caps, rem0, trace_cum, r_trace, tail_s,
-      charge_cum, r_charge, nominal_from, s_real, theta, window, alpha, conf,
-      radio, live, reboots, dead, classes, wasted, stuck, rem, belief,
-      tx_bytes, msgs_sent, msgs_deferred, n_lanes);
+      rows, lane_stride, plan_idx, L, fl, caps, rem0, trace_cum, r_trace,
+      tail_s, charge_cum, r_charge, nominal_from, s_real, theta, window,
+      alpha, conf, radio, live, reboots, dead, classes, wasted, stuck, rem,
+      belief, tx_bytes, msgs_sent, msgs_deferred, n_lanes);
   return (int)cudaGetLastError();
 }
 
 // The hoisted design, on `stream`: `block` lanes a block (1 to
 // LANE_MAX_BLOCK); `variant` is the instantiation, 2 * parametric +
-// has_send (charge_replay.py:kernel_variant); element (i, j) of a lane's
+// has_send (charge_replay.py:kernel_variant), in plan mode where plan_idx
+// is not null; element (i, j) of a lane's
 // table at i * rs + j * cs.  The other arguments are charge_replay_launch's
 // (`layout`'s F is the row width whatever the strides).  Returns cudaErrorInvalidValue for a block or
 // variant these flags do not allow, else cudaGetLastError() after the
 // launch.
 int charge_replay_hoisted_launch(
-    const double* rows, long long lane_stride, const int* layout,
+    const double* rows, long long lane_stride, const int* plan_idx,
+    const int* layout,
     const double* caps, const double* rem0, const double* trace_cum,
     int r_trace, const double* tail_s, const double* charge_cum,
     int r_charge, const double* nominal_from, const int* s_real,
@@ -1405,18 +1429,24 @@ int charge_replay_hoisted_launch(
       block > LANE_MAX_BLOCK)
     return (int)cudaErrorInvalidValue;
   if (n_lanes <= 0) return 0;
-  using Kernel = decltype(&hoisted::charge_replay_kernel<false, false>);
-  static const Kernel kernels[4] = {
-      &hoisted::charge_replay_kernel<false, false>,
-      &hoisted::charge_replay_kernel<false, true>,
-      &hoisted::charge_replay_kernel<true, false>,
-      &hoisted::charge_replay_kernel<true, true>};
+  using Kernel =
+      decltype(&hoisted::charge_replay_kernel<false, false, false>);
+  static const Kernel kernels[8] = {
+      &hoisted::charge_replay_kernel<false, false, false>,
+      &hoisted::charge_replay_kernel<false, true, false>,
+      &hoisted::charge_replay_kernel<true, false, false>,
+      &hoisted::charge_replay_kernel<true, true, false>,
+      &hoisted::charge_replay_kernel<false, false, true>,
+      &hoisted::charge_replay_kernel<false, true, true>,
+      &hoisted::charge_replay_kernel<true, false, true>,
+      &hoisted::charge_replay_kernel<true, true, true>};
   const int grid = (n_lanes + block - 1) / block;
-  kernels[variant]<<<grid, block, 0, (cudaStream_t)stream>>>(
-      rows, lane_stride, rs, cs, L, fl, caps, rem0, trace_cum, r_trace, tail_s,
-      charge_cum, r_charge, nominal_from, s_real, theta, window, alpha, conf,
-      radio, live, reboots, dead, classes, wasted, stuck, rem, belief,
-      tx_bytes, msgs_sent, msgs_deferred, n_lanes);
+  const int k = variant + (plan_idx ? 4 : 0);
+  kernels[k]<<<grid, block, 0, (cudaStream_t)stream>>>(
+      rows, lane_stride, plan_idx, rs, cs, L, fl, caps, rem0, trace_cum,
+      r_trace, tail_s, charge_cum, r_charge, nominal_from, s_real, theta,
+      window, alpha, conf, radio, live, reboots, dead, classes, wasted, stuck,
+      rem, belief, tx_bytes, msgs_sent, msgs_deferred, n_lanes);
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,11 @@ attention has two kernels, the matmul and the block-sparse FC three each
 case checks which one its operands take and counts that one's launch.
 The 3xTF32 outputs are also held to ``chip_smoke.py``'s ``tf32x3`` rule
 against the f64 product, and the matmul's are run twice to show they are
-the same bit for bit.  Every test skips, from
+the same bit for bit.  The lane kernel in plan mode (a ``PlanSet``
+design sweep) must equal the plain version, the direct design and every
+candidate's own sweep; the statistics fold kernel its plain version
+bitwise; a streamed ``reduce="stats"`` sweep on the card the same sweep on
+the CPU, whatever its prefetch depth.  Every test skips, from
 inside the test, where no card is visible; run them on the card with
 ``python -m pytest -m gpu``."""
 
@@ -219,6 +223,167 @@ def test_cpu_tensors_with_cuda_backend_raise():
 # --------------------------------------------------------------------------
 # the compute kernels: dense matmul, block-sparse FC, FIR
 # --------------------------------------------------------------------------
+
+DESIGN_ARRAYS = ("completed", "live_s", "dead_s", "reboots", "energy_j",
+                 "wasted_cycles", "belief_cycles", "tx_bytes", "msgs_sent",
+                 "msgs_deferred")
+
+
+def _planset(net, x):
+    plans = [tfs.build_plan(net, x, s, p) for s in ("sonic", "tails", "tile-8")
+             for p in ("100uF", "1mF")]
+    return plans, tfs.PlanSet.from_plans(plans)
+
+
+def test_plan_mode_kernel_equals_plain_direct_and_solo(monkeypatch):
+    """A ``PlanSet`` design sweep launches the hoisted design once in
+    ``"plan"`` mode (a per-lane plan index into one ``(P, S, F)`` pack);
+    the plain version, the direct design in plan mode and every
+    candidate's own fleet sweep give the same bits."""
+    _need_card()
+    net, x = _net()
+    plans, ps = _planset(net, x)
+    kw = dict(n_devices=64, seed=7, charge_cv=0.25, charge_reboots=16,
+              trace_reboots=8, policy="adaptive", batch_rows=4,
+              belief_alpha=0.2, device="cuda")
+    by_mode = dict(cr.charge_replay.launches_by_mode)
+    res = tfs.fleet_sweep(plan=ps, **kw)
+    assert cr.charge_replay.launches_by_mode == dict(
+        by_mode, plan=by_mode["plan"] + 1)
+    plain = tfs.fleet_sweep(plan=ps, backend="torch", **kw)
+    for name in DESIGN_ARRAYS:
+        np.testing.assert_array_equal(getattr(res, name),
+                                      getattr(plain, name), err_msg=name)
+    for p, plan in enumerate(plans):
+        solo = tfs.fleet_sweep(plan=plan, **kw)
+        for name in DESIGN_ARRAYS[:7]:
+            np.testing.assert_array_equal(getattr(res, name)[p],
+                                          getattr(solo, name), err_msg=name)
+    pairs = _both_designs(monkeypatch, lambda: tfs.fleet_sweep(plan=ps, **kw))
+    for hoisted, direct in pairs:
+        for k, a in hoisted.items():
+            b = direct[k]
+            same = a == b
+            if a.is_floating_point():
+                same |= a.isnan() & b.isnan()
+            assert bool(same.all()), k
+
+
+def test_plan_index_out_of_range_raises():
+    _need_card()
+    net, x = _net()
+    _plans, ps = _planset(net, x)
+    dev = torch.device("cuda")
+    rows = {k: torch.as_tensor(v, device=dev) for k, v in ps.rows.items()}
+    n = 4
+    f = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=dev)
+    args = (rows, f(n) + 1e5, f(n) + 1e5, f(n, 1), f(n), f(n, 1), f(n),
+            torch.ones(n, dtype=torch.int32, device=dev), 0.5, 1.0, 0.0)
+    kw = dict(adaptive=False, parametric=False, shared_rows="plan")
+    for bad in ([0, 1, 2, len(ps)], [-1, 0, 0, 0]):
+        idx = torch.tensor(bad, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="plan_idx"):
+            cr.charge_replay(*args, plan_idx=idx, **kw)
+    with pytest.raises(TypeError, match="plan_idx"):
+        cr.charge_replay(*args, plan_idx=torch.zeros(n, dtype=torch.int64,
+                                                     device=dev), **kw)
+
+
+def _fold_inputs(n, groups, seed):
+    from repro_torch.core.fleetstats import default_stat_edges
+
+    rng = np.random.default_rng(seed)
+    out = {"live": rng.integers(1, 10**6, n) * 1.0 + rng.random(n),
+           "dead": rng.random(n) * 50,
+           "reboots": rng.integers(0, 99, n) * 1.0,
+           "wasted": rng.integers(0, 500, n) * 1.0,
+           "belief": rng.random(n) * 1e4,
+           "tx_bytes": rng.random(n) * 30,
+           "msgs_sent": rng.integers(0, 3, n) * 1.0,
+           "msgs_deferred": rng.integers(0, 3, n) * 1.0,
+           "stuck": rng.random(n) < 0.1,
+           "classes": rng.random((n, tfs._N_CLASSES)) * 100}
+    gid = rng.integers(-1, groups + 1, n).astype(np.int32)  # some dropped
+    valid = rng.random(n) < 0.9
+    edges = default_stat_edges(5e5, 1e4, 0.5, 16)
+    edges["reboots"] = np.asarray([0.0, 10.0, 40.0, 98.0])   # 3 bins
+    if n >= 300:
+        # signed zeros and NaNs, which numpy's minimum.at / maximum.at
+        # order their own way (a tie takes the later lane, the first NaN
+        # stays)
+        out["wasted"][::3] = 0.0
+        out["wasted"][1::3] = -0.0
+        out["tx_bytes"][[17, 101, 240]] = np.nan
+    return out, gid, valid, edges
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit (NaNs and the sign of zero included)."""
+    if a.dtype == torch.float64:
+        return torch.equal(a.contiguous().view(torch.int64),
+                           b.contiguous().view(torch.int64))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,groups", [(0, 1), (1, 1), (300, 1), (5000, 3),
+                                      (777, 6), (4000, 200)])
+def test_stats_fold_kernel_bitwise_equals_plain(n, groups):
+    """The fold kernel against its plain version on the host (whose sums
+    run in lane order): every statistic bitwise, one launch counted.  The
+    last case's histograms do not fit a block's shared memory and count in
+    device memory."""
+    _need_card()
+    from repro_torch.kernels import stats_fold as sf
+
+    out, gid, valid, edges = _fold_inputs(n, groups, seed=n + groups)
+    dev = torch.device("cuda")
+    t_out = {k: torch.as_tensor(v, device=dev) for k, v in out.items()}
+    t_edges = {k: torch.as_tensor(v, dtype=torch.float64, device=dev)
+               for k, v in edges.items()}
+    before = sf.stats_fold.launches
+    got = sf.stats_fold(t_out, torch.as_tensor(gid, device=dev),
+                        torch.as_tensor(valid, device=dev), t_edges, groups)
+    torch.cuda.synchronize()
+    assert sf.stats_fold.launches == before + 1
+    want = sf.stats_fold_plain(
+        {k: torch.as_tensor(v) for k, v in out.items()},
+        torch.as_tensor(gid), torch.as_tensor(valid), edges, groups)
+    for g_part, w_part in zip(got, want):
+        assert g_part.keys() == w_part.keys()
+        for k in g_part:
+            assert _same_bits(g_part[k].cpu(), w_part[k]), k
+
+
+def test_streamed_stats_on_card_equal_the_cpu_run():
+    """``reduce="stats"`` with ``lane_chunk`` on the card: prefetch 0, 1
+    and 2 give the same bits, and so does the same sweep on the CPU (the
+    lane kernel and the fold kernel each equal their plain versions); one
+    fold launch a chunk."""
+    _need_card()
+    from repro_torch.core.fleetstats import STAT_CHANNELS
+    from repro_torch.kernels import stats_fold as sf
+
+    net, x = _net()
+    plan = tfs.build_plan(net, x, "tails", "100uF")
+    kw = dict(plan=plan, n_devices=250, seed=4, charge_cv=0.25,
+              charge_reboots=16, policy="adaptive", batch_rows=4,
+              belief_alpha=0.2, reduce="stats", lane_chunk=64)
+    runs = []
+    for prefetch in (0, 1, 2):
+        before = sf.stats_fold.launches
+        runs.append(tfs.fleet_sweep(prefetch=prefetch, device="cuda", **kw))
+        assert sf.stats_fold.launches == before + 4
+    runs.append(tfs.fleet_sweep(device="cpu", **kw))
+    for st in runs[1:]:
+        for f in ("count", "completed", "class_sums"):
+            np.testing.assert_array_equal(getattr(st, f),
+                                          getattr(runs[0], f), err_msg=f)
+        for f in ("sums", "sumsqs", "mins", "maxs", "hists"):
+            for ch in STAT_CHANNELS:
+                np.testing.assert_array_equal(getattr(st, f)[ch],
+                                              getattr(runs[0], f)[ch],
+                                              err_msg=(f, ch))
+
 
 def _kmod(name):
     """A kernel module by its full path (``repro_torch.kernels`` exports

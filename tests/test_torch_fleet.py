@@ -7,7 +7,8 @@ traces, radio off and on); ``fleet_evaluate`` must equal the JAX
 package's bitwise and the scalar ``evaluate`` to the tolerances of
 ``tests/test_fleetsim.py`` (the scalar simulator sums in another order).
 Entry points refuse to run without a card unless asked for the CPU, and
-refuse the options the port does not cover yet.
+refuse the options the port does not cover yet (``mesh=`` and the legacy
+``backend="_while"``).
 """
 
 import dataclasses
@@ -211,9 +212,6 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(reduce="stats"), "reduce='stats'"),
-    (dict(lane_chunk=8), "lane_chunk"),
-    (dict(prefetch=1), "lane_chunk"),
     (dict(backend="_while"), "_while"),
 ])
 def test_unported_options_raise(one_plan, kw, item):
@@ -225,14 +223,24 @@ def test_unported_options_raise(one_plan, kw, item):
 
 
 def test_unported_surfaces_raise(one_plan):
+    """``mesh=`` is still refused by name; a design sweep and a capacitor
+    sweep raise where the JAX package's raise: a ``plan`` that is neither a
+    ``FleetPlan`` nor a ``PlanSet``, an empty ``PlanSet``, a capacitor
+    sweep of a plan without tile tables."""
     _tnet, _x, plan = one_plan
     with pytest.raises(NotImplementedError, match="mesh"):
         tfs.fleet_sweep(plan=plan, n_devices=2, mesh=object(),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="PlanSet"):
+    with pytest.raises(AttributeError):
+        jfs.fleet_sweep(plan=object(), n_devices=2)
+    with pytest.raises(AttributeError):
         tfs.fleet_sweep(plan=object(), n_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="capacitor_sweep"):
-        tfs.capacitor_sweep(plan, [1e4, 2e4])
+    for ps in (jfs.PlanSet, tfs.PlanSet):
+        with pytest.raises(ValueError, match="at least one plan"):
+            ps.from_plans(())
+    with pytest.raises(ValueError, match="parametric"):
+        tfs.capacitor_sweep(None, None, [1e4, 2e4], plan=plan,
+                            device="cpu")
 
 
 def test_bad_knobs_raise(one_plan):

@@ -28,6 +28,8 @@ def test_import_loads_no_jax_and_no_repro():
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.device\n"
         "import repro_torch.core, repro_torch.core.fleetsim\n"
+        "import repro_torch.core.fleetstats\n"
+        "import repro_torch.kernels.stats_fold\n"
         "import repro_torch.kernels, repro_torch.kernels.charge_replay\n"
         "import repro_torch.kernels._build, repro_torch.kernels._launch\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.calibrate\n"
@@ -56,8 +58,10 @@ def test_import_loads_no_jax_and_no_repro():
 def test_port_files_found():
     assert "repro_torch/kernels/charge_replay.py" in PORT_FILES
     assert "repro_torch/core/fleetsim.py" in PORT_FILES
+    assert "repro_torch/core/fleetstats.py" in PORT_FILES
     for name in ("ops", "calibrate", "ref", "dense_matmul", "sparse_fc",
-                 "fir_conv1d", "_launch", "flash_attention", "ssd_intra"):
+                 "fir_conv1d", "_launch", "flash_attention", "ssd_intra",
+                 "stats_fold"):
         assert f"repro_torch/kernels/{name}.py" in PORT_FILES
     assert "repro_torch/compress/prune.py" in PORT_FILES
     for name in ("config", "layers", "transformer", "api", "counting"):
