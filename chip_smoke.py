@@ -55,17 +55,43 @@ prints one JSON line per phase; any failure exits non-zero.
    to ``stats_from_outputs`` of its lanes; its rows, table bytes and the
    six solo launches' ms.  Then streamed_stats: ``fleet_sweep`` of
    ``mnist_net()`` under tails/1mF adaptive with ``reduce="stats"`` in
-   65,536-lane chunks, at 262,144 lanes (prefetch 0 and 1, bitwise equal)
+   65,536-lane chunks, at 262,144 lanes (one warm-up run at prefetch 0 and
+   one at 1, then the two in turns, the minimum of 2 a mode: bitwise
+   equal, and prefetch 1 at least ``OVERLAP_FLOOR`` = 0.95 times as fast)
    and 1,048,576 (prefetch 1), counts zeroed before and read after each
-   (one fold and one lane-kernel launch a chunk), the producer thread's
-   share of the wall and the peak device memory over its baseline, which
-   must agree within 10 % between the two sizes; the fold kernel bitwise
+   (one fold and one lane-kernel launch a chunk), host seconds by thread
+   and function (wall and CPU, ``HostTimer``) and the peak device memory
+   over its baseline, which must agree within 10 % between the two sizes;
+   the fold kernel bitwise
    against its plain version (on the host) on one chunk's outputs, timed
    beside its bound (the bytes at 3.35 TB/s) and the lane-order chain
    (lanes x the f64 add's latency); a ``capacitor_sweep`` of the
    parametric tails plan over 5 capacitors x 4,096 devices, its
    ``reduce="stats"`` groups bitwise equal to ``stats_from_outputs`` of
-   its lanes.
+   its lanes.  Then overlap: the JAX package's own overlap protocol and
+   gate (``benchmarks/fleet.py`` ``_overlap_comparison``) through the port
+   -- its device network rebuilt from its seed, sonic/1mF, seed 7,
+   ``reduce="stats"``, 256 recharges a lane, 100,000 lanes in 8,192-lane
+   chunks (the closed-form scan), one warm-up, the minimum of 2 runs at
+   prefetch 0 then at 1: bitwise equal, with the sampler fraction, both
+   peaks, the single-chunk footprint, host seconds by thread and
+   function and the host's cores and thread pools; it fails below 0.95x
+   or above twice the footprint.  Then genesis: GENESIS end to end --
+   ``sweep`` of ``mnist_net()`` over the JAX benchmark's fig4_5 MNIST
+   task (768 / 256 samples, noise 0.85, 2 epochs, 10 configurations):
+   every candidate retrained on the card (TF32 off), the grid priced by
+   one plan-mode launch of the lane kernel and one fold (counts zeroed
+   just before the sweep and read just after), then ``pareto_frontier``
+   and ``select`` (non-empty, within ``DEVICE_WEIGHT_BYTES``); the
+   pricing bitwise against the same sweep with ``device="cpu"``; the
+   closed-form scan timed on the sweep's PlanSet (median of 5 between
+   CUDA events; one CUDA graph a row) and held bitwise against the CPU's
+   loop; the chosen configuration's first 8 training steps on the
+   card against the CPU's (``TRAIN_RTOL``, ``TRAIN_ATOL`` on float64
+   weights and inputs; the float32 distance reported); and the JAX
+   benchmark's svm_vs_dnn MNIST pair (``train_svm`` and ``svm_impj``
+   against ``train`` of the compressed net and ``estimate_energy``).  It
+   prints ``PYTHONHASHSEED``, on which ``make_task``'s data depends.
 6. kernels_vs_plain -- the ``repro_torch.kernels`` entry points
    (``dense_matmul``, ``BlockSparseFC``, ``fir_conv1d``) at small seeded
    shapes (odd sizes, explicit tiles, f32, bf16 and both mixed pairs, an
@@ -166,6 +192,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1945,14 +1972,234 @@ def design_sweep(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
     return line
 
 
+class HostTimer:
+    """Host seconds by function and by thread while the streamed pipeline
+    runs: each named module function is wrapped for the ``with`` block,
+    and every call adds its wall seconds (``perf_counter``) and the CPU
+    seconds of its thread (``thread_time``) under its thread's role:
+    ``"producer"`` (the ``fleetsim-prefetch`` thread) or ``"caller"``.  A
+    call's wall time well above its CPU time was spent waiting for a core
+    or for the interpreter lock.  The totals count only outermost timed
+    calls, so nested ones (``_dispatch`` around ``_scan_replay``) are not
+    counted twice."""
+
+    FAILURES = ("initial_charge_fraction_stream", "harvest_jitter_stream",
+                "reboot_recharge_times_stream",
+                "charge_capacity_jitter_stream", "charge_trace_cumulative",
+                "recharge_trace_cumulative", "pad_charge_trace_columns",
+                "charge_trace_nominal_from")
+    FLEETSIM = ("_prepare", "_bucket_rows", "_upload", "_chunk_tensors",
+                "_device_rows", "_stats_inputs", "_dispatch", "_scan_replay",
+                "reduce_lane_outputs", "merge_parts", "parts_numpy")
+
+    def __init__(self, fleetsim, failures):
+        self.local = threading.local()
+        self.lock = threading.Lock()
+        self.names = [(failures, n) for n in self.FAILURES] + \
+            [(fleetsim, n) for n in self.FLEETSIM]
+        self.saved = []
+        self.reset()
+
+    def reset(self) -> None:
+        self.by = {"producer": {}, "caller": {}}
+        self.total = {"producer": [0.0, 0.0], "caller": [0.0, 0.0]}
+
+    def wrap(self, fn, name):
+        def run(*a, **k):
+            depth = getattr(self.local, "depth", 0)
+            self.local.depth = depth + 1
+            t, c = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt, dc = time.perf_counter() - t, time.thread_time() - c
+                self.local.depth = depth
+                role = "producer" if threading.current_thread().name == \
+                    "fleetsim-prefetch" else "caller"
+                with self.lock:
+                    w = self.by[role].setdefault(name, [0.0, 0.0, 0])
+                    w[0] += dt
+                    w[1] += dc
+                    w[2] += 1
+                    if depth == 0:
+                        self.total[role][0] += dt
+                        self.total[role][1] += dc
+        return run
+
+    def __enter__(self):
+        self.saved = [(mod, n, getattr(mod, n)) for mod, n in self.names]
+        for mod, n, fn in self.saved:
+            setattr(mod, n, self.wrap(fn, n))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
+
+    def report(self) -> dict:
+        return {role: {"s": self.total[role][0],
+                       "cpu_s": self.total[role][1],
+                       "by_function": {n: {"s": w[0], "cpu_s": w[1],
+                                           "calls": w[2]}
+                                       for n, w in self.by[role].items()}}
+                for role in ("caller", "producer")}
+
+
+def host_threads(torch, np) -> dict:
+    """The host's cores and the thread pools that share them."""
+    info = {"os_cpu_count": os.cpu_count(),
+            "affinity_cores": len(os.sched_getaffinity(0)),
+            "torch_threads": torch.get_num_threads(),
+            "torch_interop_threads": torch.get_num_interop_threads(),
+            "env": {k: os.environ.get(k) for k in (
+                "OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                "CUDA_DEVICE_MAX_CONNECTIONS") if os.environ.get(k)},
+            "switch_interval_s": sys.getswitchinterval()}
+    try:
+        cfg = np.show_config(mode="dicts")
+        info["numpy_blas"] = cfg["Build Dependencies"]["blas"].get("name")
+    except (TypeError, KeyError):
+        info["numpy_blas"] = "not reported"
+    try:
+        from threadpoolctl import threadpool_info
+        info["blas_threads"] = [(p.get("internal_api"), p.get("num_threads"))
+                                for p in threadpool_info()]
+    except ImportError:
+        info["blas_threads"] = "threadpoolctl is not installed"
+    return info
+
+
+#: The ``overlap`` phase: the JAX package's own overlap protocol
+#: (``benchmarks/fleet.py`` ``_overlap_comparison`` and its smoke gate) run
+#: through the port -- its device network, sonic/1mF, seed 7,
+#: ``reduce="stats"``, this many recharges a lane, lanes in chunks of
+#: ``SCALING_LANE_CHUNK``; one warm-up, then the minimum of 2 runs a mode.
+OVERLAP_LANES = 100_000
+OVERLAP_CHUNK = 8192
+OVERLAP_TRACE_REBOOTS = 256
+#: The gate of that protocol: prefetch=1 at least this many times as fast
+#: as prefetch=0, and its peak lane bytes at most twice the single-chunk
+#: footprint.
+OVERLAP_FLOOR = 0.95
+
+
+def device_net(np, classes):
+    """The JAX benchmark's mid-sized device network (``benchmarks/fleet.py``
+    ``_device_net``), rebuilt from its seed: a 4-filter 5x5 conv, a 2x2
+    pool and a 256 -> 10 dense layer over a 20 x 20 input."""
+    Conv2D, DenseFC, MaxPool2D, SimNet = classes[:4]
+    rng = np.random.default_rng(0)
+    net = SimNet([
+        Conv2D((rng.normal(size=(4, 1, 5, 5)) * 0.3).astype(np.float32),
+               rng.normal(size=4).astype(np.float32)),
+        MaxPool2D(2),
+        DenseFC((rng.normal(size=(10, 256)) * 0.1).astype(np.float32),
+                rng.normal(size=10).astype(np.float32), relu=False),
+    ], input_shape=(1, 20, 20), name="fleetdev")
+    x = rng.normal(size=(1, 20, 20)).astype(np.float32)
+    return net, x
+
+
+def timed_sweep(torch, fleetsim, timer, **kw) -> tuple:
+    """One streamed ``fleet_sweep`` on the card: its statistics, and its
+    wall seconds, peak device memory over the baseline and host seconds
+    by thread and function."""
+    timer.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    st = fleetsim.fleet_sweep(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return st, {"wall_s": wall, "sweep_wall_s": st.wall_s,
+                "peak_over_base_bytes": torch.cuda.max_memory_allocated()
+                - base, "peak_lane_bytes": st.peak_lane_bytes,
+                "host": timer.report()}
+
+
+def overlap(torch, np, emit, fleetsim, classes) -> dict:
+    """Phase 5d: the overlapped chunk pipeline (prefetch=1) against the
+    synchronous loop (prefetch=0) under the JAX package's own protocol and
+    gate; exits non-zero below ``OVERLAP_FLOOR`` or above twice the
+    single-chunk footprint."""
+    from repro_torch.core.fleetstats import default_stat_edges, \
+        partial_nbytes
+    from repro_torch.runtime import failures
+
+    net, x = device_net(np, classes)
+    kw = dict(net=net, x=x, strategy="sonic", power="1mF",
+              n_devices=OVERLAP_LANES, seed=7, reduce="stats",
+              lane_chunk=OVERLAP_CHUNK, trace_reboots=OVERLAP_TRACE_REBOOTS,
+              device="cuda")
+    timer = HostTimer(fleetsim, failures)
+    runs = {0: [], 1: []}
+    with timer:
+        timed_sweep(torch, fleetsim, timer, prefetch=0, **kw)   # warm-up
+        for prefetch in (0, 0, 1, 1):
+            runs[prefetch].append(timed_sweep(torch, fleetsim, timer,
+                                              prefetch=prefetch, **kw))
+    seq = min(runs[0], key=lambda r: r[0].wall_s)
+    ovl = min(runs[1], key=lambda r: r[0].wall_s)
+    bad = stats_equal(np, seq[0], ovl[0])
+    if bad:
+        raise SystemExit(f"overlap: prefetch 0 != 1 on {bad}")
+    # the hideable host time: the chunk samplers alone
+    plan = fleetsim.build_plan(net, x, "sonic", "1mF")
+    t0 = time.perf_counter()
+    for lo in range(0, OVERLAP_LANES, OVERLAP_CHUNK):
+        m = min(OVERLAP_CHUNK, OVERLAP_LANES - lo)
+        failures.initial_charge_fraction_stream(m, seed=7, lane_lo=lo)
+        jm = failures.harvest_jitter_stream(m, seed=7, cv=0.25, lane_lo=lo)
+        tr = failures.reboot_recharge_times_stream(
+            m, OVERLAP_TRACE_REBOOTS, plan.recharge_s, seed=7, lane_lo=lo)
+        failures.recharge_trace_cumulative(tr * jm[:, None])
+    sampler_s = time.perf_counter() - t0
+    edges = default_stat_edges(plan.total_cycles, plan.capacity,
+                               plan.recharge_s, 64)
+    footprint = int(seq[0].peak_lane_bytes) + partial_nbytes(edges, 1)
+    speedup = seq[0].wall_s / ovl[0].wall_s
+    line = {"phase": "overlap", "protocol": "benchmarks/fleet.py "
+            "_overlap_comparison: device net, sonic/1mF, seed 7, one "
+            "warm-up, min of 2 a mode", "plan_rows": len(plan),
+            "lanes": OVERLAP_LANES, "lane_chunk": OVERLAP_CHUNK,
+            "trace_reboots": OVERLAP_TRACE_REBOOTS,
+            "seq_wall_s": seq[0].wall_s, "overlapped_wall_s": ovl[0].wall_s,
+            "seq_walls_s": [r[0].wall_s for r in runs[0]],
+            "overlapped_walls_s": [r[0].wall_s for r in runs[1]],
+            "seq_lanes_per_sec": OVERLAP_LANES / seq[0].wall_s,
+            "overlapped_lanes_per_sec": OVERLAP_LANES / ovl[0].wall_s,
+            "overlap_speedup": speedup,
+            "sampler_fraction": sampler_s / seq[0].wall_s,
+            "seq_peak_lane_bytes": int(seq[0].peak_lane_bytes),
+            "overlapped_peak_lane_bytes": int(ovl[0].peak_lane_bytes),
+            "single_chunk_footprint_bytes": footprint,
+            "seq_peak_device_over_base_bytes":
+                seq[1]["peak_over_base_bytes"],
+            "overlapped_peak_device_over_base_bytes":
+                ovl[1]["peak_over_base_bytes"],
+            "seq_host": seq[1]["host"], "overlapped_host": ovl[1]["host"],
+            "stats_bitwise_equal": True,
+            "default_prefetch": fleetsim.DEFAULT_PREFETCH,
+            "host_threads": host_threads(torch, np)}
+    emit(line)
+    if speedup < OVERLAP_FLOOR:
+        raise SystemExit(f"overlap: the overlapped pipeline ran "
+                         f"{speedup:.3f}x as fast as the synchronous loop "
+                         f"(floor {OVERLAP_FLOOR})")
+    if ovl[0].peak_lane_bytes > 2 * footprint:
+        raise SystemExit(f"overlap: overlapped peak {ovl[0].peak_lane_bytes}"
+                         f" B exceeds twice the single-chunk footprint "
+                         f"{footprint} B")
+    return line
+
+
 def streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
                    plan_tails, lat) -> dict:
     """Phase 5c: the memory-flat streamed sweep (reduce="stats",
     lane_chunk, prefetch) of MNIST under tails/1mF adaptive, the fold
     kernel against its plain version on one chunk, and a capacitor sweep's
     statistics; returns the fold's entry of the kernels line."""
-    import threading
-
     from repro_torch.core.fleetstats import stats_from_outputs
     from repro_torch.kernels import stats_fold as sf
     from repro_torch.runtime import failures
@@ -1961,94 +2208,68 @@ def streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
               trace_reboots=64, policy="adaptive", theta=0.5, batch_rows=4,
               belief_alpha=0.2, reduce="stats", lane_chunk=STREAM_CHUNK,
               device="cuda")
-
-    # the host's share: time in the chunk builders on the producer thread
-    # (and on the caller's, for the first chunk)
-    host_s = {"producer": 0.0, "caller": 0.0}
-    by_fn: dict = {}                      # producer seconds by function
-    timed = [(failures, n) for n in (
-        "initial_charge_fraction_stream", "harvest_jitter_stream",
-        "reboot_recharge_times_stream", "charge_capacity_jitter_stream",
-        "charge_trace_cumulative", "recharge_trace_cumulative")]
-    timed += [(fleetsim, "_prepare"), (fleetsim, "_chunk_tensors")]
-    saved = [(mod, n, getattr(mod, n)) for mod, n in timed]
-
-    def timing(fn, name):
-        def run(*a, **k):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                dt = time.perf_counter() - t
-                if threading.current_thread().name == "fleetsim-prefetch":
-                    host_s["producer"] += dt
-                    by_fn[name] = by_fn.get(name, 0.0) + dt
-                else:
-                    host_s["caller"] += dt
-        return run
-
+    timer = HostTimer(fleetsim, failures)
     cr.charge_replay = wrapper            # no recorder in the timed runs
-    runs = []
     fold_launches = replay_launches = 0
-    try:
-        for mod, n, fn in saved:
-            setattr(mod, n, timing(fn, n))
-        for lanes, prefetch in ((STREAM_LANES[0], 0), (STREAM_LANES[0], 1),
-                                (STREAM_LANES[1], 1)):
-            host_s.update(producer=0.0, caller=0.0)
-            by_fn.clear()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            sf.stats_fold.launches = 0    # just before the streamed run
-            zero_counts(wrapper)
-            t0 = time.perf_counter()
-            st = fleetsim.fleet_sweep(n_devices=lanes, prefetch=prefetch,
-                                      **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            chunks = -(-lanes // STREAM_CHUNK)
-            launches = (sf.stats_fold.launches, wrapper.launches)  # after
-            if launches != (chunks, chunks) \
-                    or wrapper.launches_by_design["hoisted"] != chunks:
-                raise SystemExit(f"streamed_stats: {lanes} lanes in {chunks} "
-                                 f"chunks launched the fold and the lane "
-                                 f"kernel {launches} times")
-            fold_launches += launches[0]
-            replay_launches += launches[1]
-            peak = torch.cuda.max_memory_allocated()
-            done = st.completed.sum()
-            if int(st.count.sum()) != lanes or not np.isfinite(
-                    st.sums["live_cycles"]).all():
-                raise SystemExit("streamed_stats: counts or sums are off")
-            row = {"phase": "streamed_stats", "lanes": lanes,
-                   "lane_chunk": STREAM_CHUNK, "prefetch": prefetch,
-                   "chunks": chunks, "wall_s": wall,
-                   "lanes_per_s": lanes / wall,
-                   "producer_s": host_s["producer"],
-                   "caller_host_s": host_s["caller"],
-                   "producer_share_of_wall": host_s["producer"] / wall,
-                   "producer_s_by_function": dict(by_fn),
-                   "peak_bytes": peak, "base_bytes": base,
-                   "peak_over_base_bytes": peak - base,
-                   "peak_lane_bytes": st.peak_lane_bytes,
-                   "completion_rate": float(done / st.count.sum()),
-                   "fold_launches": launches[0],
-                   "replay_launches": launches[1]}
-            emit(row)
-            runs.append((st, row))
-    finally:
-        for mod, n, fn in saved:
-            setattr(mod, n, fn)
-    bad = stats_equal(np, runs[0][0], runs[1][0])
+
+    def run(lanes, prefetch):
+        nonlocal fold_launches, replay_launches
+        sf.stats_fold.launches = 0        # just before the streamed run
+        zero_counts(wrapper)
+        st, m = timed_sweep(torch, fleetsim, timer, n_devices=lanes,
+                            prefetch=prefetch, **kw)
+        chunks = -(-lanes // STREAM_CHUNK)
+        launches = (sf.stats_fold.launches, wrapper.launches)  # after
+        if launches != (chunks, chunks) \
+                or wrapper.launches_by_design["hoisted"] != chunks:
+            raise SystemExit(f"streamed_stats: {lanes} lanes in {chunks} "
+                             f"chunks launched the fold and the lane "
+                             f"kernel {launches} times")
+        fold_launches += launches[0]
+        replay_launches += launches[1]
+        if int(st.count.sum()) != lanes or not np.isfinite(
+                st.sums["live_cycles"]).all():
+            raise SystemExit("streamed_stats: counts or sums are off")
+        return st, dict(m, lanes=lanes, prefetch=prefetch, chunks=chunks,
+                        lanes_per_s=lanes / m["wall_s"],
+                        completion_rate=float(st.completed.sum()
+                                              / st.count.sum()),
+                        fold_launches=launches[0],
+                        replay_launches=launches[1])
+
+    # one warm-up a mode, then the modes in turns, the minimum of 2 a mode
+    small = STREAM_LANES[0]
+    runs = {0: [], 1: []}
+    with timer:
+        run(small, 0)
+        run(small, 1)
+        for prefetch in (0, 1, 0, 1):
+            runs[prefetch].append(run(small, prefetch))
+        big = run(STREAM_LANES[1], 1)
+    seq = min(runs[0], key=lambda r: r[1]["wall_s"])
+    ovl = min(runs[1], key=lambda r: r[1]["wall_s"])
+    for st, row in (seq, ovl, big):
+        emit({"phase": "streamed_stats", "lane_chunk": STREAM_CHUNK, **row})
+    bad = stats_equal(np, seq[0], ovl[0])
     if bad:
         raise SystemExit(f"streamed_stats: prefetch 0 != 1 on {bad}")
-    small, large = runs[1][1]["peak_over_base_bytes"], \
-        runs[2][1]["peak_over_base_bytes"]
-    if abs(large - small) > MEMORY_FLAT * small:
-        raise SystemExit(f"streamed_stats: peak device memory {large} B at "
-                         f"{STREAM_LANES[1]} lanes vs {small} B at "
-                         f"{STREAM_LANES[0]}: not flat")
+    speedup = seq[1]["wall_s"] / ovl[1]["wall_s"]
+    emit({"phase": "streamed_stats", "lanes": small,
+          "protocol": "one warm-up a mode, then the modes in turns, min of "
+                      "2 a mode",
+          "seq_walls_s": [r[1]["wall_s"] for r in runs[0]],
+          "overlapped_walls_s": [r[1]["wall_s"] for r in runs[1]],
+          "overlap_speedup": speedup, "stats_bitwise_equal": True})
+    if speedup < OVERLAP_FLOOR:
+        raise SystemExit(f"streamed_stats: the overlapped pipeline ran "
+                         f"{speedup:.3f}x as fast as the synchronous loop "
+                         f"(floor {OVERLAP_FLOOR})")
+    small_peak = ovl[1]["peak_over_base_bytes"]
+    large_peak = big[1]["peak_over_base_bytes"]
+    if abs(large_peak - small_peak) > MEMORY_FLAT * small_peak:
+        raise SystemExit(f"streamed_stats: peak device memory {large_peak} "
+                         f"B at {STREAM_LANES[1]} lanes vs {small_peak} B at "
+                         f"{small}: not flat")
 
     # the fold kernel against its plain version on one chunk's outputs
     folds = []
@@ -2161,6 +2382,316 @@ def streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
         "chain_floor_ms": chain_ms, "library_ms": None,
         "shape": f"{n} lanes, {n_groups} group, "
                  f"{sum(e.numel() - 1 for e in edges.values())} bins"}
+
+
+#: Phase 5e: GENESIS end to end -- the JAX benchmark's fig4_5 MNIST call
+#: (``benchmarks/paper_figs.py``: ``make_task("mnist", n_train=768,
+#: n_test=256, noise=0.85)``, 2 epochs, 10 configurations) at MNIST's
+#: published widths, and its svm_vs_dnn MNIST pair.
+GENESIS_TASK = dict(n_train=768, n_test=256, noise=0.85)
+GENESIS_EPOCHS = 2
+GENESIS_CONFIGS = 10
+SVM_TASK = dict(n_train=768, n_test=256, noise=0.6, sign_flip=True)
+SVM_DNN_EPOCHS = 3
+#: The card's training against the CPU's over the first 8 steps from the
+#: same weights and batches, held on float64 weights and inputs, where the
+#: two devices' convolutions and products agree to float64 rounding (the
+#: optimizer still steps in f32, as the JAX module does): the rule the CPU
+#: tests hold the port to against the JAX package.  In float32 a max-pool
+#: or ReLU decision that one rounding flips, or a gradient near AdamW's
+#: eps, makes a step differ by up to the learning rate, so the float32
+#: run's distance (each layer's update against the CPU run's, in the
+#: 2-norm) is reported, not held.
+TRAIN_STEPS = 8
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5
+
+
+def compressed_mnist(gen, net):
+    """The JAX benchmark's ``compressed_net("mnist")``: the first conv
+    separated, the deep conv pruned to 90 %, the large dense layers pruned
+    to 95 % and 90 %, the last kept."""
+    Conv2D, DenseFC = type(net.layers[0]), type(net.layers[-1])
+    choices = []
+    for layer in net.layers:
+        if isinstance(layer, Conv2D):
+            co, ci, kh, kw = layer.w.shape
+            choices.append(gen.LayerChoice(
+                "separate", max(2, min(ci * kh, co * kw) // 6)) if ci == 1
+                else gen.LayerChoice("prune", 0.9))
+        elif isinstance(layer, DenseFC) and layer.w.size > 20_000:
+            choices.append(gen.LayerChoice("prune", 0.95))
+        elif isinstance(layer, DenseFC) and layer.w.size > 4_000:
+            choices.append(gen.LayerChoice("prune", 0.9))
+        else:
+            choices.append(gen.LayerChoice("keep"))
+    return gen.apply_config(net, tuple(choices))
+
+
+def genesis(torch, np, emit, fleetsim, cr, wrapper) -> dict:
+    """Phase 5e: GENESIS through the port on the card -- ``sweep`` (every
+    candidate retrained, the grid priced by one ``fleet_sweep`` of a
+    ``PlanSet``: the lane kernel in plan mode over all-nominal charges,
+    then the statistics fold), ``pareto_frontier`` and ``select``, then
+    the SVM-against-DNN pair (its DNN priced by ``estimate_energy``'s
+    one-lane replay: the closed-form scan).  The pricing is held bitwise
+    against the same sweep on the CPU and the card's first 8 training
+    steps against the CPU's; the closed-form scan is timed on the sweep's
+    PlanSet.  Returns the phase's line, with the launches counted from
+    just before the sweep to just after."""
+    import copy
+    import dataclasses
+
+    from repro_torch.compress import genesis as gen
+    from repro_torch.compress import svm_baseline, train_small
+    from repro_torch.core import WILDLIFE
+    from repro_torch.core.imp import AppModel
+    from repro_torch.data import make_task
+    from repro_torch.kernels import stats_fold as sf
+    from repro_torch.models.dnn import mnist_net
+
+    seconds = {"train": 0.0, "class_rates": 0.0, "build_plan": 0.0,
+               "fleet_sweep": 0.0}
+    priced = []
+    real = {(mod, n): getattr(mod, n) for mod, n in (
+        (train_small, "train"), (train_small, "class_rates"),
+        (fleetsim, "build_plan"), (fleetsim, "fleet_sweep"))}
+
+    def timed(mod, name):
+        fn = real[(mod, name)]
+
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t
+            if name == "fleet_sweep":
+                priced.append((k, out))
+            return out
+        return run
+
+    net = mnist_net()
+    data = make_task("mnist", **GENESIS_TASK)
+    rec = Recorder(torch, wrapper)
+    try:
+        for mod, n in real:
+            setattr(mod, n, timed(mod, n))
+        cr.charge_replay = rec
+        sf.stats_fold.launches = 0        # just before the sweep
+        zero_counts(wrapper)
+        t0 = time.perf_counter()
+        results = gen.sweep(net, data, WILDLIFE, epochs=GENESIS_EPOCHS,
+                            max_configs=GENESIS_CONFIGS, device="cuda")
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        fold_launches = sf.stats_fold.launches      # read just after
+        lane_launches = wrapper.launches
+        by_mode = dict(wrapper.launches_by_mode)
+        by_design = dict(wrapper.launches_by_design)
+    finally:
+        for (mod, n), fn in real.items():
+            setattr(mod, n, fn)
+        cr.charge_replay = wrapper
+    if fold_launches != 1 or len(priced) != 1 or len(rec.calls) != 1:
+        raise SystemExit(f"genesis: the pricing folded {fold_launches} "
+                         f"times over {len(priced)} sweeps and "
+                         f"{len(rec.calls)} replays, not once")
+    if lane_launches != 1 or by_mode["plan"] != 1 \
+            or by_design["hoisted"] != 1:
+        raise SystemExit(f"genesis: the pricing launched {by_design} in "
+                         f"modes {by_mode}, not the hoisted design once in "
+                         f"plan mode")
+    front = gen.pareto_frontier(results)
+    if not front:
+        raise SystemExit("genesis: empty Pareto frontier")
+    best = gen.select(results)
+    if best.params_bytes > gen.DEVICE_WEIGHT_BYTES:
+        raise SystemExit(f"genesis: select chose {best.params_bytes} B of "
+                         f"weights, over {gen.DEVICE_WEIGHT_BYTES}")
+    accs = [r.accuracy for r in front]
+    if accs != sorted(accs):
+        raise SystemExit("genesis: the frontier's accuracy falls with energy")
+    call = rec.calls[0]
+    ev0, ev1 = call["events"]
+    pricing_kernel_ms = ev0.elapsed_time(ev1)
+
+    # the pricing against the same sweep on the CPU (the plain event
+    # stream and the plain fold), bitwise
+    kw, st = priced[0]
+    t0 = time.perf_counter()
+    st_cpu = fleetsim.fleet_sweep(**dict(kw, device="cpu"))
+    cpu_pricing_s = time.perf_counter() - t0
+    for what, a, b in (
+            ("completion", st.completion_rate, st_cpu.completion_rate),
+            ("mean live_cycles", st.mean("live_cycles"),
+             st_cpu.mean("live_cycles")),
+            ("mean total_s", st.mean("total_s"), st_cpu.mean("total_s"))):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise SystemExit(f"genesis: the card's {what} != the CPU's")
+    bad = stats_equal(np, st, st_cpu)
+    if bad:
+        raise SystemExit(f"genesis: the card's statistics != the CPU's on "
+                         f"{bad}")
+    for g, r in enumerate(results):
+        if r.completion > 0 and r.e_infer_j != gen.estimate_energy(
+                r.net, stats=st, group=g, device="cuda"):
+            raise SystemExit(f"genesis: estimate_energy(stats=) != "
+                             f"e_infer_j of candidate {g}")
+
+    emit({"phase": "genesis", "sweep_s": sweep_s,
+          "pricing_kernel_ms": pricing_kernel_ms,
+          "pricing_bitwise_equal_cpu": True, "cpu_pricing_s": cpu_pricing_s,
+          "seconds": dict(seconds)})
+
+    # the closed-form scan over the sweep's PlanSet and lanes (its charges
+    # the nominal ones), 5 runs between CUDA events
+    a, k = call["args"], call["kw"]
+    scan_args = (a[0], a[1], a[2], a[3], a[4], a[8], k["conf"], k["radio"])
+    scan_kw = dict(adaptive=k["adaptive"], parametric=k["parametric"],
+                   shared_rows=k["shared_rows"], has_send=k["has_send"],
+                   plan_idx=k["plan_idx"])
+    times = []
+    for _ in range(5):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        scan_out = fleetsim._scan_replay(*scan_args, **scan_kw)
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1))
+    scan_ms = sorted(times)[2]
+    if not bool(torch.isfinite(scan_out["live"]).all()):
+        raise SystemExit("genesis: the closed-form scan gave non-finite "
+                         "live cycles")
+    table = a[0].packed
+    # the card's scan (CUDA graph replays) against the CPU's loop, bitwise
+    rows_cpu = copy.copy(a[0])
+    rows_cpu.packed, rows_cpu.hoisted = table.cpu(), None
+    t0 = time.perf_counter()
+    scan_cpu = fleetsim._scan_replay(
+        rows_cpu, *(v.cpu() for v in scan_args[1:5]), scan_args[5],
+        *(v.cpu() for v in scan_args[6:]),
+        **dict(scan_kw, plan_idx=scan_kw["plan_idx"].cpu()))
+    cpu_scan_s = time.perf_counter() - t0
+    ok, _err, bad = compare(torch, {k: v.cpu() for k, v in
+                                    scan_out.items()}, scan_cpu)
+    if not ok:
+        raise SystemExit(f"genesis: the closed-form scan on the card != the "
+                         f"CPU's on {bad}")
+
+    # the card's first 8 training steps against the CPU's, same weights
+    # and batches: held in float64, reported in float32
+    cnet = gen.apply_config(net, best.choices)
+    batch = GENESIS_TASK["n_train"] // TRAIN_STEPS
+    net64 = type(cnet)([dataclasses.replace(
+        l, **{k: getattr(l, k).astype(np.float64) for k in ("w", "b")})
+        if hasattr(l, "w") else l for l in cnet.layers], cnet.input_shape,
+        cnet.name)
+    data64 = dataclasses.replace(
+        data, x_train=data.x_train.astype(np.float64),
+        x_test=data.x_test.astype(np.float64))
+    steps = []
+    for dtype, n_, d_ in (("float64", net64, data64),
+                          ("float32", cnet, data)):
+        on_card, _ = train_small.train(n_, d_, epochs=1, batch=batch,
+                                       device="cuda")
+        on_cpu, _ = train_small.train(n_, d_, epochs=1, batch=batch,
+                                      device="cpu")
+        for i, (lc, lh, l0) in enumerate(zip(on_card.layers, on_cpu.layers,
+                                             n_.layers)):
+            if not hasattr(l0, "w"):
+                continue
+            d_card = np.concatenate([(lc.w - l0.w).ravel(), lc.b - l0.b])
+            d_cpu = np.concatenate([(lh.w - l0.w).ravel(), lh.b - l0.b])
+            pruned = l0.w == 0
+            steps.append({
+                "dtype": dtype, "layer": i, "kind": type(l0).__name__,
+                "update_rel_diff": float(np.linalg.norm(d_card - d_cpu)
+                                         / np.linalg.norm(d_cpu)),
+                "max_abs_diff": float(np.abs(d_card - d_cpu).max()),
+                "max_abs_update": float(np.abs(d_cpu).max()),
+                "within_rule": bool(
+                    np.allclose(lc.w, lh.w, rtol=TRAIN_RTOL,
+                                atol=TRAIN_ATOL)
+                    and np.allclose(lc.b, lh.b, rtol=TRAIN_RTOL,
+                                    atol=TRAIN_ATOL)),
+                "pruned_zeros_kept": bool((lc.w[pruned] == 0).all()
+                                          and (lh.w[pruned] == 0).all())})
+    emit({"phase": "genesis", "train_vs_cpu": steps,
+          "choices": [(c.kind, c.arg) for c in best.choices],
+          "steps": TRAIN_STEPS, "batch": batch,
+          "rule": f"float64: rtol {TRAIN_RTOL}, atol {TRAIN_ATOL}; both "
+                  f"dtypes: pruned zeros kept"})
+    for st_ in steps:
+        if not st_["pruned_zeros_kept"] or (
+                st_["dtype"] == "float64" and not st_["within_rule"]):
+            raise SystemExit(f"genesis: layer {st_['layer']} after "
+                             f"{TRAIN_STEPS} steps on the card != the CPU's: "
+                             f"{st_}")
+
+    # svm_vs_dnn's MNIST pair, on the sign-flipped task
+    task = make_task("mnist", **SVM_TASK)
+    t0 = time.perf_counter()
+    w, b, svm_acc = svm_baseline.train_svm(task, device="cuda")
+    svm = svm_baseline.svm_impj(w, b, task, WILDLIFE)
+    svm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dnn, dnn_acc = train_small.train(compressed_mnist(gen, net), task,
+                                     epochs=SVM_DNN_EPOCHS, device="cuda")
+    tp, tn = train_small.class_rates(dnn, task, 0, device="cuda")
+    dnn_train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_dnn = gen.estimate_energy(dnn, device="cuda")
+    energy_s = time.perf_counter() - t0
+    dnn_impj = AppModel(WILDLIFE.p, WILDLIFE.e_sense, WILDLIFE.e_comm,
+                        e_dnn).inference(tp, tn)
+    pair = [svm["impj"], svm_acc, dnn_impj, dnn_acc, e_dnn]
+    if not all(np.isfinite(pair)) or e_dnn <= 0:
+        raise SystemExit(f"genesis: svm_vs_dnn gave {pair}")
+
+    line = {"phase": "genesis", "network": "mnist_net() (Table 2 widths)",
+            "task": GENESIS_TASK, "epochs": GENESIS_EPOCHS,
+            "configs": len(results),
+            "PYTHONHASHSEED": os.environ.get("PYTHONHASHSEED", "unset"),
+            "sweep_s": sweep_s, "train_s": seconds["train"],
+            "class_rates_s": seconds["class_rates"],
+            "plan_build_s": seconds["build_plan"],
+            "pricing_s": seconds["fleet_sweep"],
+            "pricing_kernel_ms": pricing_kernel_ms,
+            "pricing_lanes": int(a[1].shape[0]),
+            "planset_table_shape": list(table.shape),
+            "lane_kernel_launches": lane_launches,
+            "lane_kernel_launches_by_mode": by_mode,
+            "stats_fold_launches": fold_launches,
+            "pricing_bitwise_equal_cpu": True,
+            "cpu_pricing_s": cpu_pricing_s,
+            "closed_form_scan_ms": scan_ms, "closed_form_scan_runs_ms": times,
+            "closed_form_scan_rows": int(table.shape[1]),
+            "closed_form_scan_bitwise_equal_cpu": True,
+            "closed_form_scan_cpu_s": cpu_scan_s,
+            "closed_form_scan_ms_per_row": scan_ms / table.shape[1],
+            "frontier": [{"choices": [(c.kind, c.arg) for c in r.choices],
+                          "accuracy": r.accuracy, "e_infer_j": r.e_infer_j,
+                          "params_bytes": r.params_bytes, "impj": r.impj}
+                         for r in front],
+            "completion": [r.completion for r in results],
+            "selected": {"choices": [(c.kind, c.arg) for c in best.choices],
+                         "impj": best.impj,
+                         "params_bytes": best.params_bytes,
+                         "accuracy": best.accuracy,
+                         "e_infer_j": best.e_infer_j,
+                         "latency_s": best.latency_s},
+            "train_steps_vs_cpu": TRAIN_STEPS,
+            "train_update_rel_diff_vs_cpu": {
+                dt: max(x["update_rel_diff"] for x in steps
+                        if x["dtype"] == dt)
+                for dt in ("float64", "float32")},
+            "svm_vs_dnn": {"svm_impj": svm["impj"], "svm_acc": svm_acc,
+                           "svm_s": svm_s, "dnn_impj": dnn_impj,
+                           "dnn_acc": dnn_acc, "dnn_train_s": dnn_train_s,
+                           "dnn_e_infer_j": e_dnn,
+                           "estimate_energy_s": energy_s}}
+    emit(line)
+    return line
 
 
 def main() -> int:
@@ -2547,6 +3078,11 @@ def main() -> int:
     fold_entry = streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper,
                                 net, x, plan_tails, lat)
     cr.charge_replay = wrapper
+    # ---- 5d. the overlapped pipeline under the JAX package's protocol
+    overlap(torch, np, emit, fleetsim, classes)
+    # ---- 5e. GENESIS end to end: the sweep's pricing folds on the card
+    genesis_line = genesis(torch, np, emit, fleetsim, cr, wrapper)
+    fold_entry["launches"] += genesis_line["stats_fold_launches"]
 
     # ---- 6, 7. the compute kernels: against their plain versions, then at
     # full width with their launches counted
@@ -2570,6 +3106,7 @@ def main() -> int:
         "chain_floor_ms": headline["chain_floor_ms"], "library_ms": None,
         "design": "hoisted", "previous_design": "direct",
         "plan_mode_launches": design_line["launches"],
+        "genesis_plan_mode_launches": genesis_line["lane_kernel_launches"],
         "plan_mode_ms": design_line["kernel_ms"],
         "plan_mode_solo_ms_sum": design_line["solo_ms_sum"],
         "plan_mode_shape": f"{len(design_line['candidates'])} candidates "

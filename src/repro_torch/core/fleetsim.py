@@ -23,7 +23,8 @@ Two replay paths:
   the CPU (``backend="auto"``), or the plain version on either device
   (``backend="torch"``).
 * **Deterministic** replays run the closed-form row scan
-  (:func:`_scan_step`) in plain PyTorch, one row per step.
+  (:func:`_scan_step`) in plain PyTorch, one row per step (on the card
+  replayed from one CUDA graph of a row's launches).
 
 Both are bit-identical to the JAX package's replay on the same inputs.
 The entry points cover the JAX package's surface: ``replay_plans``,
@@ -723,7 +724,10 @@ def _scan_replay(rows, cap, rem0, trace_cum, tail_s, theta, conf,
                  radio, *, adaptive: bool, parametric: bool,
                  shared_rows, has_send: bool, plan_idx=None) -> dict:
     """The deterministic closed-form replay: :func:`_scan_step` over every
-    row of the (padded) table, all lanes at once."""
+    row of the (padded) table, all lanes at once.  On the card the first
+    row runs eagerly and the rest replay one CUDA graph of that row's
+    launches (:func:`_replay_rows`): the same kernels in the same order,
+    so the same bits, for one launch a row instead of some hundred."""
     from ..kernels.charge_replay import _packed, unpack_row
 
     packed, layout = _packed(rows, shared_rows)
@@ -737,17 +741,55 @@ def _scan_replay(rows, cap, rem0, trace_cum, tail_s, theta, conf,
               stuck=torch.zeros(n, dtype=torch.bool, device=cap.device),
               pend=zero, pend_class=zc, pend_rows=zero, bhat=cap + zero,
               chg=zero, tx_bytes=zero, sent=zero, deferred=zero)
-    for s in range(packed.shape[-2]):
-        row = unpack_row(packed, layout,
-                         torch.full((n,), s, dtype=torch.int64,
-                                    device=cap.device), plan)
-        st = _scan_step(cap, trace_cum, tail_s, theta, conf, radio,
-                        adaptive, parametric, has_send, st, row)
+    # every state entry its own tensor, advanced in place row by row
+    st = {k: v.clone() for k, v in st.items()}
+    cursor = torch.zeros(n, dtype=torch.int64, device=cap.device)
+
+    def row_step():
+        new = _scan_step(cap, trace_cum, tail_s, theta, conf, radio,
+                         adaptive, parametric, has_send, st,
+                         unpack_row(packed, layout, cursor, plan))
+        for k, v in new.items():
+            st[k].copy_(v)
+        cursor.add_(1)
+
+    _replay_rows(row_step, packed.shape[-2], cap.device)
     return dict(live=st["live"], reboots=st["reboots"], dead=st["dead"],
                 classes=st["classes"], wasted=st["wasted"],
                 stuck=st["stuck"], rem=st["rem"], belief=st["bhat"],
                 tx_bytes=st["tx_bytes"], msgs_sent=st["sent"],
                 msgs_deferred=st["deferred"])
+
+
+def _replay_rows(row_step, n_rows: int, dev) -> None:
+    """Run ``row_step`` (which advances its state in place) ``n_rows``
+    times: on the CPU as a loop; on the card the first time eagerly, then
+    as replays of one CUDA graph captured from it on a side stream (its
+    allocations in the graph's own pool; only this thread's CUDA calls
+    are barred while it captures, so a pipeline's producer may go on
+    copying)."""
+    if n_rows < 1:
+        return
+    row_step()
+    if dev.type != "cuda":
+        for _ in range(n_rows - 1):
+            row_step()
+        return
+    if n_rows == 1:
+        return
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            row_step()
+        finally:
+            graph.capture_end()
+    main.wait_stream(side)
+    for _ in range(n_rows - 1):
+        graph.replay()
 
 
 def _validate_replay_knobs(policy: str, batch_rows: int,
@@ -1178,19 +1220,26 @@ def _overlapped_replay(plan_rows: dict, n_rows, starts: list, build,
 
     A producer thread builds chunk k+1 (sampler draws, padding, the host
     half of the replay call) and, on a card, copies it through pinned
-    memory on a side stream, while chunk k runs.  The replay stream waits
-    on the copy's event, and every uploaded tensor is ``record_stream``-ed
-    on it, so the caching allocator cannot hand its memory to the next
-    chunk's copy before the replay that reads it has run.  A semaphore
-    bounds the chunks alive to ``prefetch + 1``.  Under ``reduce="stats"``
-    each chunk's partial folds into a device-resident accumulator through
-    :func:`~repro_torch.core.fleetstats.merge_parts`: the launches never
-    wait on the card (the lane kernel's wrapper is told the host checked
-    the bounds), and the only wait is on the partial ``prefetch`` chunks
-    back, to release its slot.  The row tables are bucketed and uploaded
-    once a sweep (a per-lane row batch, chunk by chunk).  An exception in
-    the producer reaches the caller.  Results are bitwise those of
-    ``prefetch=0``."""
+    memory on a side stream, while chunk k runs; it starts at once, so
+    chunk 1 is drawn while the caller draws chunk 0 (the host half waits
+    for the caller to put the sweep's tables on the device).  The replay
+    stream waits on the copy's event, and every uploaded tensor is
+    ``record_stream``-ed on it, so the caching allocator cannot hand its
+    memory to the next chunk's copy before the replay that reads it has
+    run.  At most
+    ``prefetch + 1`` chunks are alive: the producer starts chunk j only
+    once chunk ``j - prefetch - 1`` has retired, and it waits for that
+    itself, on the event the caller records after the chunk's last launch
+    (on the CPU, the caller's return from the chunk's replay).  So the
+    caller never waits on the card before the end, and a chunk is built
+    while the caller still issues the one before it.  Under
+    ``reduce="stats"`` each chunk's partial folds into a device-resident
+    accumulator through :func:`~repro_torch.core.fleetstats.merge_parts`
+    (the lane kernel's wrapper is told the host checked the bounds, so
+    its launches never wait either).  The row tables are bucketed and
+    uploaded once a sweep (a per-lane row batch, chunk by chunk).  An
+    exception in the producer reaches the caller.  Results are bitwise
+    those of ``prefetch=0``."""
     import queue as queue_mod
     import threading
 
@@ -1203,26 +1252,15 @@ def _overlapped_replay(plan_rows: dict, n_rows, starts: list, build,
     per_lane_rows = shared_rows is False
     stats = reduce == "stats"
     depth = prefetch + 1                    # chunks alive at once
-    tokens = threading.Semaphore(depth)
-    q: queue_mod.Queue = queue_mod.Queue()
+    q: queue_mod.Queue = queue_mod.Queue()  # built chunks, in order
+    retired: queue_mod.Queue = queue_mod.Queue()  # a chunk's end, in order
     fail = threading.Event()
     done_sentinel = object()
 
-    first = build(starts[0])
+    setup = threading.Event()               # the sweep's tables are up
     adaptive = policy == "adaptive"
-    stochastic = first["ccum"] is not None or (adaptive and batch_rows > 1)
     lane_axis = "plan" if plan_mode else not (shared_rows is True)
-    rows_h = plan_rows
-    if stochastic and not per_lane_rows:
-        rows_h = _bucket_rows(plan_rows, lane_axis=lane_axis)
-    rows_dev = None if per_lane_rows else \
-        _device_rows(rows_h, dev, shared_rows, stochastic)
-    edges_dev = None
-    if stats:
-        edges_dev = {k: torch.tensor(np.asarray(e, np.float64), device=dev)
-                     for k, e in edges.items()}
-    side = torch.cuda.Stream(dev) if cuda else None
-    main = torch.cuda.current_stream(dev) if cuda else None
+    stochastic = rows_h = rows_dev = edges_dev = side = main = None
 
     def prep(c):
         """Stage 1 (producer thread): the host half of the replay call
@@ -1249,25 +1287,48 @@ def _overlapped_replay(plan_rows: dict, n_rows, starts: list, build,
 
     def producer():
         try:
-            for lo in starts[1:]:
-                tokens.acquire()
+            for j in range(1, len(starts)):
+                if j >= depth:
+                    # chunk j takes the slot of chunk j - depth: wait for
+                    # that chunk's last launch to end on the card
+                    end = retired.get()
+                    if end is not None:
+                        end.synchronize()
                 if fail.is_set():
                     return
-                q.put(prep(build(lo)))
+                c = build(starts[j])
+                setup.wait()                # chunk 1 is built beside chunk 0
+                if fail.is_set():
+                    return
+                q.put(prep(c))
             q.put(done_sentinel)
         except BaseException as e:          # relay to the consumer
             q.put(e)
 
-    tokens.acquire()                        # the first chunk's slot
-    item0 = prep(first)
     thread = threading.Thread(target=producer, name="fleetsim-prefetch",
                               daemon=True)
     thread.start()
     acc = None
     outs: list[dict] = []
     peak_chunk = 0
-    pending: list = []                      # partials not yet waited on
     try:
+        first = build(starts[0])
+        stochastic = first["ccum"] is not None or \
+            (adaptive and batch_rows > 1)
+        rows_h = plan_rows
+        if stochastic and not per_lane_rows:
+            rows_h = _bucket_rows(plan_rows, lane_axis=lane_axis)
+        if not per_lane_rows:
+            rows_dev = _device_rows(rows_h, dev, shared_rows, stochastic)
+        if stats:
+            edges_dev = {k: torch.tensor(np.asarray(e, np.float64),
+                                         device=dev)
+                         for k, e in edges.items()}
+        if cuda:
+            side = torch.cuda.Stream(dev)
+            main = torch.cuda.current_stream(dev)
+        setup.set()
+        item0 = prep(first)
         for i in range(len(starts)):
             item = item0 if i == 0 else q.get()
             if isinstance(item, BaseException):
@@ -1282,28 +1343,21 @@ def _overlapped_replay(plan_rows: dict, n_rows, starts: list, build,
                             batch_rows, belief_alpha, backend, reduce,
                             t["stats_in"], host_checked=True)
             del item, t
+            end = None
             if stats:
                 acc = res if acc is None else merge_parts(acc, res)
-                done = None
                 if cuda:
-                    done = torch.cuda.Event()
-                    done.record(main)
-                pending.append(done)
-                if len(pending) > prefetch:
-                    # the partial (i - prefetch) chunks back is ready:
-                    # that chunk has retired, its slot is free
-                    done = pending.pop(0)
-                    if done is not None:
-                        done.synchronize()
-                    tokens.release()
+                    end = torch.cuda.Event()
+                    end.record(main)
             else:
                 outs.append({k: v[:c["m"]].cpu().numpy()
                              for k, v in res.items()})
-                tokens.release()
+            retired.put(end)                # the chunk's slot, once it ends
     except BaseException:
         fail.set()
-        for _ in range(depth):              # unblock a waiting producer
-            tokens.release()
+        setup.set()                         # unblock a waiting producer
+        for _ in range(depth):
+            retired.put(None)
         raise
     finally:
         thread.join()

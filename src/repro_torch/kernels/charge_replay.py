@@ -164,10 +164,12 @@ def torn_prefix(entry_class, seg_class, seg_cycles, p):
 
 
 def _torn_or_zero(ctx, entered, p):
-    """``where(entered, 0, torn_prefix(..., p))``, skipping the walk when
-    no lane is torn (the walk is then discarded on every lane)."""
+    """``where(entered, 0, torn_prefix(..., p))``, skipping the walk on the
+    CPU when no lane is torn (the walk is then discarded on every lane).
+    On the card the walk always runs: testing for a torn lane would wait
+    on the device at every row."""
     zc = torch.zeros_like(ctx.entry_class)
-    if not bool((~entered).any()):
+    if zc.device.type == "cpu" and not bool((~entered).any()):
         return zc
     return _where(entered, zc, torn_prefix(ctx.entry_class, ctx.seg_class,
                                            ctx.seg_cycles, p))

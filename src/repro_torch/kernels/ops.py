@@ -143,6 +143,33 @@ def fir_conv1d(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return _fir(x, taps, cb=fir_tiles(c, length, x.element_size()))
 
 
+def charge_replay(rows, caps, rem0, trace_cum, tail_s, charge_cum,
+                  nominal_from, s_real, theta, window, alpha,
+                  conf=None, radio=None, *,
+                  adaptive: bool, parametric: bool, shared_rows: bool,
+                  enable_fast: bool = True, has_burn: bool = True,
+                  has_send: bool = False, chunk: int = 128,
+                  interpret: bool | None = None) -> dict:
+    """The fused stochastic charge-loop replay, one lane a device (the JAX
+    package's ``ops.charge_replay``, same arguments): a thin wrapper over
+    :func:`repro_torch.kernels.charge_replay.charge_replay`, the CUDA lane
+    kernel for CUDA tensors and its plain PyTorch version for CPU tensors.
+    ``rows`` maps the plan's fields to tensors; the scalar knobs ``theta``,
+    ``window`` (cross-charge ``batch_rows``) and ``alpha`` may be numbers
+    or one-element arrays.  ``interpret`` is the JAX package's Pallas
+    switch: it is accepted and ignored, since the tensors' device chooses
+    the path here.  Returns the 11 per-lane output tensors by name."""
+    from .charge_replay import charge_replay as _replay
+
+    del interpret
+    return _replay(rows, caps, rem0, trace_cum, tail_s, charge_cum,
+                   nominal_from, s_real, float(theta), float(window),
+                   float(alpha), adaptive=adaptive, parametric=parametric,
+                   shared_rows=shared_rows, enable_fast=enable_fast,
+                   has_burn=has_burn, has_send=has_send, conf=conf,
+                   radio=radio, chunk=chunk)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int = 128,
                     bk: int = 128) -> torch.Tensor:

@@ -16,7 +16,8 @@ the same bit for bit.  The lane kernel in plan mode (a ``PlanSet``
 design sweep) must equal the plain version, the direct design and every
 candidate's own sweep; the statistics fold kernel its plain version
 bitwise; a streamed ``reduce="stats"`` sweep on the card the same sweep on
-the CPU, whatever its prefetch depth.  Every test skips, from
+the CPU, whatever its prefetch depth; the closed-form scan (one CUDA
+graph a row) the CPU's loop bitwise.  Every test skips, from
 inside the test, where no card is visible; run them on the card with
 ``python -m pytest -m gpu``."""
 
@@ -87,6 +88,30 @@ def test_kernel_equals_plain_fleet_sweep(strategy, policy):
         kw.update(batch_rows=4, belief_alpha=0.2)
     _same(tfs.fleet_sweep(backend="cuda", **kw),
           tfs.fleet_sweep(backend="torch", **kw), strategy)
+
+
+@pytest.mark.parametrize("strategy,policy", [
+    ("sonic", "fixed"), ("tails", "adaptive"), ("tile-8", "adaptive"),
+    ("naive", "fixed")])
+def test_closed_form_on_card_equals_the_cpu(strategy, policy):
+    """A deterministic sweep (no charge jitter) runs the closed-form scan,
+    on the card as replays of one CUDA graph a row: every channel equals
+    the CPU's loop bitwise, for a shared plan with recharge traces and for
+    one plan a lane (``replay_plans``, 100uF)."""
+    _need_card()
+    net, x = _net(5)
+    kw = dict(n_devices=200, seed=4, trace_reboots=12, policy=policy,
+              theta=0.5)
+    _same(tfs.fleet_sweep(net, x, strategy, "1mF", device="cuda", **kw),
+          tfs.fleet_sweep(net, x, strategy, "1mF", device="cpu", **kw),
+          strategy)
+    plans = [tfs.build_plan(net, x, strategy, "100uF")] * 3
+    frac = np.array([0.2, 0.6, 1.0])
+    for a, b in zip(tfs.replay_plans(plans, init_frac=frac, policy=policy,
+                                     device="cuda"),
+                    tfs.replay_plans(plans, init_frac=frac, policy=policy,
+                                     device="cpu")):
+        assert a == b
 
 
 def test_kernel_equals_plain_per_lane_rows():

@@ -44,6 +44,13 @@ def test_import_loads_no_jax_and_no_repro():
         "from repro_torch.configs import ARCHS, get_config\n"
         "[get_config(a) for a in ARCHS]\n"
         "import repro_torch.compress, repro_torch.compress.prune\n"
+        "import repro_torch.compress.genesis, repro_torch.compress.svd\n"
+        "import repro_torch.compress.tucker\n"
+        "import repro_torch.compress.train_small\n"
+        "import repro_torch.compress.svm_baseline\n"
+        "import repro_torch.core.imp, repro_torch.data\n"
+        "import repro_torch.data.synthetic\n"
+        "import repro_torch.optim, repro_torch.optim.adamw\n"
         "import repro_torch.models, repro_torch.runtime\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
@@ -63,7 +70,12 @@ def test_port_files_found():
                  "fir_conv1d", "_launch", "flash_attention", "ssd_intra",
                  "stats_fold"):
         assert f"repro_torch/kernels/{name}.py" in PORT_FILES
-    assert "repro_torch/compress/prune.py" in PORT_FILES
+    for name in ("prune", "genesis", "svd", "tucker", "train_small",
+                 "svm_baseline"):
+        assert f"repro_torch/compress/{name}.py" in PORT_FILES
+    for name in ("core/imp", "data/__init__", "data/synthetic",
+                 "optim/__init__", "optim/adamw"):
+        assert f"repro_torch/{name}.py" in PORT_FILES
     for name in ("config", "layers", "transformer", "api", "counting"):
         assert f"repro_torch/models/{name}.py" in PORT_FILES
     for name in ("__init__", "qwen3_0_6b", "qwen1_5_0_5b", "mamba2_370m"):

@@ -16,6 +16,7 @@ the side-stream uploads (``tests/test_torch_cuda.py``).
 
 import sys
 import threading
+import time
 
 import jax
 import jax.experimental
@@ -316,3 +317,52 @@ def test_deep_pipeline_under_thread_switching(small_net):
     assert isinstance(s4, FleetStats) and int(s4.count.sum()) == 120
     assert not any(t.name == "fleetsim-prefetch" and t.is_alive()
                    for t in threading.enumerate())
+
+
+def test_overlapped_chunk_built_while_the_caller_replays(small_net,
+                                                         monkeypatch):
+    """The pipeline's schedule on the closed-form scan (no charge
+    jitter), which holds the caller for a whole chunk: chunk 1 is drawn
+    while the caller draws chunk 0; chunk j is built while the caller
+    still replays chunk j - 1, and never before chunk j - 2 has retired
+    (prefetch=1: two chunks alive).  150 lanes in 32-lane chunks end on a
+    ragged 22-lane chunk, and the statistics are bitwise those of the
+    synchronous loop."""
+    from repro_torch.runtime import failures
+
+    net, _jnet, x = small_net
+    kw = dict(n_devices=150, seed=7, trace_reboots=16, lane_chunk=32,
+              reduce="stats", device="cpu")
+    s0 = tfs.fleet_sweep(net, x, "sonic", "1mF", prefetch=0, **kw)
+    real_prepare, real_dispatch = tfs._prepare, tfs._dispatch
+    real_draw = failures.initial_charge_fraction_stream
+    builds, replays, draws = [], [], {}
+
+    def draw(n, seed=0, lane_lo=0):
+        t0 = time.perf_counter()
+        if lane_lo == 0:
+            time.sleep(0.05)              # a first chunk slow to draw
+        draws[lane_lo] = (t0, time.perf_counter())
+        return real_draw(n, seed=seed, lane_lo=lane_lo)
+
+    def prepare(*a, **k):
+        builds.append(time.perf_counter())
+        return real_prepare(*a, **k)
+
+    def dispatch(*a, **k):
+        t0 = time.perf_counter()
+        time.sleep(0.05)                  # a replay that holds the caller
+        out = real_dispatch(*a, **k)
+        replays.append((t0, time.perf_counter()))
+        return out
+
+    monkeypatch.setattr(tfs, "_prepare", prepare)
+    monkeypatch.setattr(tfs, "_dispatch", dispatch)
+    monkeypatch.setattr(failures, "initial_charge_fraction_stream", draw)
+    s1 = tfs.fleet_sweep(net, x, "sonic", "1mF", prefetch=1, **kw)
+    _assert_stats_bitexact(s0, s1)
+    assert int(s1.count.sum()) == 150
+    assert len(builds) == len(replays) == len(draws) == 5
+    assert draws[32][0] < draws[0][1]
+    for j in range(2, 5):
+        assert replays[j - 2][1] < builds[j] < replays[j - 1][1], j
