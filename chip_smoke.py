@@ -92,6 +92,23 @@ prints one JSON line per phase; any failure exits non-zero.
    benchmark's svm_vs_dnn MNIST pair (``train_svm`` and ``svm_impj``
    against ``train`` of the compressed net and ``estimate_energy``).  It
    prints ``PYTHONHASHSEED``, on which ``make_task``'s data depends.
+   Then while_oracle: the legacy ``backend="_while"`` oracle (a row scan
+   with a data-dependent charge loop a row, eager on the card) on a small
+   seeded network with charge jitter (cv 0.25, 16 charge draws, 64 lanes
+   a run): tails adaptive (batch_rows=2), sonic fixed, tails with the
+   uplink under the topk-hedge radio and a 3-candidate ``PlanSet`` design
+   sweep, each bitwise against ``backend="cuda"`` (the lane kernel) and
+   ``backend="torch"`` on every channel, with each backend's wall time
+   and the oracle's charge steps.  Then mesh: ``make_fleet_mesh()`` (a
+   ``(1,)`` mesh on one card) under ``fleet_sweep`` of ``mnist_net()``
+   (tails/1mF adaptive, charge cv 0.25, 16,387 lanes) with
+   ``reduce="none"``, ``"stats"`` and ``"stats"`` in 4,096-lane chunks,
+   and a ``capacitor_sweep`` of 5 capacitors x 1,024 devices with
+   ``reduce="stats"``: each bitwise against the call without ``mesh=``,
+   with both walls, the shard count and the launches of the lane kernel
+   and the fold (counted from just before each meshed run to just after;
+   they join the kernels line's ``launches``).  With more than one card
+   the mesh over every card is also held to the multi-shard rule.
 6. kernels_vs_plain -- the ``repro_torch.kernels`` entry points
    (``dense_matmul``, ``BlockSparseFC``, ``fir_conv1d``) at small seeded
    shapes (odd sizes, explicit tiles, f32, bf16 and both mixed pairs, an
@@ -2384,6 +2401,211 @@ def streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
                  f"{sum(e.numel() - 1 for e in edges.values())} bins"}
 
 
+#: Phase 5f: the legacy ``backend="_while"`` oracle on the card -- lanes a
+#: run and a design candidate, the charge jitter and its draws.
+WHILE_LANES = 64
+WHILE_CHARGES = 16
+WHILE_CV = 0.25
+#: Phase 5g: ``mesh=`` -- lanes (not a power of two), the streamed chunk,
+#: and the capacitor grid's devices (capacitors from CAP_SWEEP).
+MESH_LANES = 16387
+MESH_CHUNK = 4096
+MESH_CAP_DEVICES = 1024
+#: The result arrays of a fleet sweep and of a design sweep.
+SWEEP_ARRAYS = ("completed", "live_s", "dead_s", "reboots", "energy_j",
+                "wasted_cycles", "belief_cycles", "tx_bytes", "msgs_sent",
+                "msgs_deferred", "tx_joules", "classes")
+GRID_ARRAYS = ("completed", "live_s", "dead_s", "reboots", "energy_j",
+               "wasted_cycles", "belief_cycles")
+
+
+def arrays_differ(np, a, b, names) -> list:
+    """The result arrays (of two sweep results) that differ in any bit."""
+    return [n for n in names if not np.array_equal(
+        getattr(a, n), getattr(b, n), equal_nan=True)]
+
+
+def while_oracle(torch, np, emit, fleetsim, wrapper, classes) -> dict:
+    """Phase 5f: the legacy oracle (``backend="_while"``: a row scan with a
+    data-dependent charge loop a row, eager on the card) against the lane
+    kernel (``backend="cuda"``) and the plain event stream
+    (``backend="torch"``) on a small network with charge jitter: tails
+    adaptive (batch_rows=2), sonic fixed, a ``with_uplink`` plan under the
+    topk-hedge radio, and a 3-candidate ``PlanSet`` design sweep; every
+    channel bitwise."""
+    from repro_torch.core.energy import rf_recharge_seconds
+    from repro_torch.runtime.radio import RadioModel, SEND_POLICIES, \
+        pack_radio
+
+    net, x = random_net(3, classes)
+
+    def restamp(strategy, frac):
+        """The plan on a capacitor of ``frac`` of its work, so that every
+        lane reboots."""
+        p = fleetsim.build_plan(net, x, strategy, "1mF")
+        cap = max(2000.0, float(np.rint(frac * p.total_cycles)))
+        return fleetsim.dataclasses.replace(
+            p, capacity=cap, recharge_s=float(rf_recharge_seconds(cap)))
+
+    radio = pack_radio(RadioModel(window_period_s=0.05, window_duty=0.3),
+                       SEND_POLICIES[1])
+    jitter = dict(seed=11, charge_cv=WHILE_CV, charge_reboots=WHILE_CHARGES,
+                  trace_reboots=8, device="cuda")
+    tails = restamp("tails", 0.15)
+    runs = [
+        ("tails/adaptive/batch_rows=2", dict(
+            plan=tails, policy="adaptive", theta=0.5, batch_rows=2,
+            belief_alpha=0.2), SWEEP_ARRAYS),
+        ("sonic/fixed", dict(plan=restamp("sonic", 0.2), policy="fixed"),
+         SWEEP_ARRAYS),
+        ("tails/adaptive/uplink-topk-hedge", dict(
+            plan=tails, policy="adaptive", theta=0.5, batch_rows=2,
+            radio=radio), SWEEP_ARRAYS),
+        ("planset/3-candidates", dict(
+            plan=fleetsim.PlanSet.from_plans(
+                [restamp("sonic", 0.08), tails, restamp("tile-8", 0.3)]),
+            policy="adaptive", theta=0.5, batch_rows=2),
+         GRID_ARRAYS + ("tx_bytes", "msgs_sent", "msgs_deferred")),
+    ]
+    lines = []
+    for label, kw, names in runs:
+        res, wall = {}, {}
+        for backend in ("_while", "cuda", "torch"):
+            steps = fleetsim._while_replay.charge_steps
+            launches = wrapper.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[backend] = fleetsim.fleet_sweep(
+                n_devices=WHILE_LANES, backend=backend, **jitter, **kw)
+            torch.cuda.synchronize()
+            wall[backend] = time.perf_counter() - t0
+            if backend == "_while":
+                charge_steps = fleetsim._while_replay.charge_steps - steps
+                if charge_steps < 1 or wrapper.launches != launches:
+                    raise SystemExit(f"while_oracle: {label} ran "
+                                     f"{charge_steps} charges and launched "
+                                     f"{wrapper.launches - launches} kernels")
+            elif backend == "cuda" and wrapper.launches != launches + 1:
+                raise SystemExit(f"while_oracle: {label} on backend='cuda' "
+                                 f"did not launch the lane kernel once")
+        for other in ("cuda", "torch"):
+            bad = arrays_differ(np, res["_while"], res[other], names)
+            if bad:
+                raise SystemExit(f"while_oracle: {label}: _while != "
+                                 f"{other} on {bad}")
+        done = res["_while"].completed
+        line = {"phase": "while_oracle", "run": label,
+                "lanes": int(done.size), "charge_steps": charge_steps,
+                "wall_s": wall, "completion_rate": float(done.mean()),
+                "mean_reboots": float(res["_while"].reboots.mean()),
+                "bitwise_equal_cuda": True, "bitwise_equal_torch": True,
+                "channels": list(names)}
+        emit(line)
+        lines.append(line)
+    return {"runs": len(lines),
+            "charge_steps": sum(ln["charge_steps"] for ln in lines)}
+
+
+def mesh(torch, np, emit, fleetsim, wrapper, net, x, plan_tails) -> dict:
+    """Phase 5g: ``mesh=`` on the card.  ``make_fleet_mesh()`` (every
+    visible card; one card: a ``(1,)`` mesh, the same sharded code) under
+    ``fleet_sweep`` of ``mnist_net()`` (tails/1mF adaptive, charge cv
+    0.25) over 16,387 lanes with ``reduce="none"``, ``"stats"`` and
+    ``"stats"`` in 4,096-lane chunks, and ``capacitor_sweep`` of 5
+    capacitors x 1,024 devices with ``reduce="stats"``: each held against
+    the same call without ``mesh=``, the launches of both kernels counted
+    from just before each meshed run to just after (one a shard and
+    chunk).  A one-shard mesh must be bitwise equal; with more than one
+    card, a ``(1,)`` mesh runs first and the mesh over every card is held
+    to the multi-shard rule (``reduce="none"`` bitwise; statistics:
+    counts, histograms and extremes exact, f64 sums to rtol 1e-12).
+    Returns the launches of the meshed runs."""
+    from repro_torch.kernels import stats_fold as sf
+    from repro_torch.launch.mesh import make_fleet_mesh, mesh_chips
+
+    meshes = [make_fleet_mesh()]
+    if mesh_chips(meshes[0]) > 1:
+        meshes.insert(0, make_fleet_mesh(1))
+    else:
+        emit({"phase": "mesh", "multi_card": "one card is visible: the "
+              "mesh over every card is the (1,) mesh"})
+    kw = dict(plan=plan_tails, n_devices=MESH_LANES, seed=42,
+              charge_cv=0.25, charge_reboots=64, trace_reboots=16,
+              policy="adaptive", theta=0.5, batch_rows=4, belief_alpha=0.2,
+              device="cuda")
+    pplan = fleetsim.build_plan(net, x, "tails", "1mF", parametric=True)
+    cap_kw = dict(plan=pplan, n_devices=MESH_CAP_DEVICES, seed=5,
+                  charge_cv=0.25, charge_reboots=64, reduce="stats",
+                  device="cuda")
+    chunks = -(-MESH_LANES // MESH_CHUNK)
+    runs = (("fleet_sweep/none", False, {}, 1),
+            ("fleet_sweep/stats", False, dict(reduce="stats"), 1),
+            (f"fleet_sweep/stats/lane_chunk={MESH_CHUNK}", False,
+             dict(reduce="stats", lane_chunk=MESH_CHUNK), chunks),
+            ("capacitor_sweep/stats", True, {}, 1))
+
+    def call(cap, extra, **more):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cap:
+            r = fleetsim.capacitor_sweep(None, None, CAP_SWEEP, **cap_kw,
+                                         **more)
+        else:
+            r = fleetsim.fleet_sweep(**kw, **extra, **more)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def differ(a, b, exact: bool) -> list:
+        if not hasattr(a, "sums"):
+            return arrays_differ(np, a, b, GRID_ARRAYS if isinstance(
+                a, fleetsim.CapacitorSweepResult) else SWEEP_ARRAYS)
+        if exact:
+            return stats_equal(np, a, b)
+        bad = [f for f in ("count", "completed")
+               if not np.array_equal(getattr(a, f), getattr(b, f))]
+        for f in ("hists", "mins", "maxs", "sums", "sumsqs"):
+            for ch, v in getattr(a, f).items():
+                w = getattr(b, f)[ch]
+                if not (np.allclose(v, w, rtol=1e-12, atol=0.0)
+                        if f in ("sums", "sumsqs")
+                        else np.array_equal(v, w)):
+                    bad.append((f, ch))
+        if not np.allclose(a.class_sums, b.class_sums, rtol=1e-12,
+                           atol=0.0):
+            bad.append("class_sums")
+        return bad
+
+    totals = {"charge_replay": 0, "stats_fold": 0}
+    for m in meshes:
+        shards = mesh_chips(m)
+        for label, cap, extra, per_shard in runs:
+            plain, plain_s = call(cap, extra)
+            sf.stats_fold.launches = 0       # just before the meshed run
+            zero_counts(wrapper)
+            got, mesh_s = call(cap, extra, mesh=m)
+            launches = {"charge_replay": wrapper.launches,  # just after
+                        "stats_fold": sf.stats_fold.launches}
+            stats = cap or "reduce" in extra
+            want = {"charge_replay": per_shard * shards,
+                    "stats_fold": per_shard * shards if stats else 0}
+            if launches != want or wrapper.launches_by_design["direct"]:
+                raise SystemExit(f"mesh: {label} over {shards} shards "
+                                 f"launched {launches}, expected {want}")
+            bad = differ(got, plain, exact=shards == 1 or not stats)
+            if bad:
+                raise SystemExit(f"mesh: {label} over {shards} shards != "
+                                 f"the unmeshed call on {bad}")
+            for k, v in launches.items():
+                totals[k] += v
+            emit({"phase": "mesh", "run": label, "shards": shards,
+                  "lanes": len(CAP_SWEEP) * MESH_CAP_DEVICES if cap
+                  else MESH_LANES, "wall_s": mesh_s,
+                  "unmeshed_wall_s": plain_s, "launches": launches,
+                  "rule": "bitwise" if shards == 1 or not stats
+                  else "multi-shard"})
+    return totals
+
+
 #: Phase 5e: GENESIS end to end -- the JAX benchmark's fig4_5 MNIST call
 #: (``benchmarks/paper_figs.py``: ``make_task("mnist", n_train=768,
 #: n_test=256, noise=0.85)``, 2 epochs, 10 configurations) at MNIST's
@@ -3083,6 +3305,19 @@ def main() -> int:
     # ---- 5e. GENESIS end to end: the sweep's pricing folds on the card
     genesis_line = genesis(torch, np, emit, fleetsim, cr, wrapper)
     fold_entry["launches"] += genesis_line["stats_fold_launches"]
+    # ---- 5f. the legacy _while oracle against the lane kernel
+    t0 = time.perf_counter()
+    while_line = while_oracle(torch, np, emit, fleetsim, wrapper, classes)
+    emit({"phase": "while_oracle", **while_line,
+          "seconds": time.perf_counter() - t0})
+    # ---- 5g. mesh= on the card: each shard's lane kernel and fold
+    t0 = time.perf_counter()
+    mesh_launches = mesh(torch, np, emit, fleetsim, wrapper, net, x,
+                         plan_tails)
+    emit({"phase": "mesh", "launches": mesh_launches,
+          "seconds": time.perf_counter() - t0})
+    fold_entry["launches"] += mesh_launches["stats_fold"]
+    fold_entry["mesh_launches"] = mesh_launches["stats_fold"]
 
     # ---- 6, 7. the compute kernels: against their plain versions, then at
     # full width with their launches counted
@@ -3098,7 +3333,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/charge_replay.cu",
         "replaces": "src/repro/kernels/charge_replay.py:907",
         "replaces_function": "pallas_replay",
-        "launches": main_launches, "max_abs_err": max_err,
+        "launches": main_launches + mesh_launches["charge_replay"],
+        "mesh_launches": mesh_launches["charge_replay"],
+        "max_abs_err": max_err,
         "max_abs_diff_vs_plain": max_err,
         "ms": headline["ms"], "previous_ms": headline["previous_ms"],
         "plain_ms": plain_ms, "bound_ms": headline["bound_ms"],

@@ -1,10 +1,14 @@
 """Host-side intermittent simulator, the IMpJ application model and the
 fleet replay (PyTorch).
 
-The JAX package's ``repro.core`` names, except ``LoopOrderedBuffer``,
-``SparseUndoLog``, ``ResumableLoop`` and ``run_intermittent``
-(``buffering``, ``continuation``; see ``ROADMAP.md`` Queue 1, item 7).
+The JAX package's ``repro.core`` names: SONIC-style loop continuation and
+idempotence (buffering, undo logging), the Alpaca task-based baseline
+(``tasks``), the device energy model, the IMpJ application model and the
+vectorized fleet-scale replay.
 """
+
+from .buffering import LoopOrderedBuffer, SparseUndoLog
+from .continuation import ResumableLoop, run_intermittent
 
 from .energy import (CostTable, Device, DeviceStats, LEA_COSTS,
                      NonTermination, OP_CLASSES, PowerFailure, PowerSystem,
@@ -26,12 +30,15 @@ __all__ = [
     "AppModel", "CapacitorSweepResult", "Conv2D", "CostTable", "DenseFC",
     "DesignSweepResult", "Device", "DeviceStats", "FleetPlan",
     "FleetStats", "FleetSweepResult", "KIND_SEND", "LEA_COSTS",
+    "LoopOrderedBuffer",
     "MaxPool2D", "NVStore", "NonTermination", "OP_CLASSES",
     "POWER_SYSTEMS", "PlanSet", "PowerFailure", "PowerSystem",
-    "REPLAY_POLICIES", "REPLAY_REDUCES", "ReplayOut", "RunResult",
-    "STAT_CHANNELS", "STRATEGIES", "SOFTWARE_COSTS", "SimNet", "SparseFC",
+    "REPLAY_POLICIES", "REPLAY_REDUCES",
+    "ReplayOut", "ResumableLoop", "RunResult", "STAT_CHANNELS",
+    "STRATEGIES", "SOFTWARE_COSTS", "SimNet", "SparseFC", "SparseUndoLog",
     "WILDLIFE", "accuracy_sweep", "build_plan", "capacitor_sweep",
     "class_cycle_vector", "custom_power_system", "default_stat_edges",
     "evaluate", "fleet_evaluate", "fleet_sweep", "make_power_system",
-    "replay_plans", "stats_from_outputs", "with_uplink",
+    "replay_plans", "run_intermittent", "stats_from_outputs",
+    "with_uplink",
 ]

@@ -33,17 +33,21 @@ lane reading its candidate's rows through a plan index), ``fleet_evaluate``
 and ``capacitor_sweep``; ``reduce="stats"`` (a fixed-size
 :class:`~repro_torch.core.fleetstats.FleetStats`, folded on the device by
 the ``kernels/stats_fold`` kernel) and ``lane_chunk``/``prefetch`` (the
-memory-flat streamed sweep, its host work overlapped with the card).  Not
-ported yet, and refused with ``NotImplementedError``: ``mesh=`` and the
-legacy ``backend="_while"`` (``ROADMAP.md`` Queue 1, items 10 and 9).
+memory-flat streamed sweep, its host work overlapped with the card),
+``mesh=`` (a :class:`~repro_torch.launch.mesh.FleetMesh`: the lanes split
+across its shards from this one process, the statistics all-reduced) and
+the legacy ``backend="_while"`` oracle (:func:`_while_replay`).  The row
+scan's carry is the JAX package's named :class:`ScanState`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -90,9 +94,11 @@ _TILE_FIELDS = ("tile_n", "tile_iter_cycles", "tile_iter_class",
 #: Replay backends: "auto" runs the CUDA lane kernel for stochastic replays
 #: on a CUDA device and the plain PyTorch version on the CPU; "torch" runs
 #: the plain version on either device; "cuda" runs the kernel and refuses
-#: CPU tensors.  Deterministic replays take the closed-form scan whatever
-#: the backend.
-REPLAY_BACKENDS = ("auto", "torch", "cuda")
+#: CPU tensors; "_while" runs the legacy row scan with a data-dependent
+#: charge loop a row (:func:`_while_replay`), the differential oracle that
+#: "auto" never picks.  Deterministic replays take the closed-form scan
+#: whatever the backend.
+REPLAY_BACKENDS = ("auto", "torch", "cuda", "_while")
 
 #: ``"none"``: per-lane result arrays; ``"stats"``: one fixed-size
 #: :class:`~repro_torch.core.fleetstats.FleetStats` folded on the device.
@@ -624,32 +630,84 @@ class PlanSet:
 # Replay
 # ==========================================================================
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: see ROADMAP.md Queue 1, {item!r}")
+class ScanState(NamedTuple):
+    """Named carry of the row scan (the JAX package's ``ScanState``): one
+    ``(N,)`` tensor a lane scalar, ``(N, C)`` for the class vectors."""
+    rem: torch.Tensor           # actual remaining budget this charge
+    bel: torch.Tensor           # believed remaining budget this charge
+    live: torch.Tensor
+    reboots: torch.Tensor
+    dead: torch.Tensor
+    classes: torch.Tensor
+    wasted: torch.Tensor
+    stuck: torch.Tensor
+    pend: torch.Tensor          # pending-window cycles (cross-charge batching)
+    pend_class: torch.Tensor
+    pend_rows: torch.Tensor
+    bhat: torch.Tensor          # EWMA believed per-charge budget
+    chg: torch.Tensor           # cycles spent so far in the current charge
+    tx: torch.Tensor            # uplink bytes shipped (decision 5)
+    sent: torch.Tensor          # uplink transmissions completed
+    deferred: torch.Tensor      # sends deferred past a closed window
+
+
+def _scan_state0(cap, rem0) -> ScanState:
+    """The row scan's initial carry: a full believed budget, nothing
+    spent, every state entry its own tensor (the scan advances it in
+    place)."""
+    n = cap.shape[0]
+    zero = torch.zeros_like(rem0)
+    zc = torch.zeros((n, _N_CLASSES), dtype=torch.float64,
+                     device=cap.device)
+    st = ScanState(
+        rem=rem0, bel=rem0, live=zero, reboots=zero, dead=zero,
+        classes=zc, wasted=zero,
+        stuck=torch.zeros(n, dtype=torch.bool, device=cap.device),
+        pend=zero, pend_class=zc, pend_rows=zero, bhat=cap + zero,
+        chg=zero, tx=zero, sent=zero, deferred=zero)
+    return ScanState(*(v.clone() for v in st))
+
+
+def _scan_outputs(st: ScanState) -> dict:
+    return dict(live=st.live, reboots=st.reboots, dead=st.dead,
+                classes=st.classes, wasted=st.wasted, stuck=st.stuck,
+                rem=st.rem, belief=st.bhat, tx_bytes=st.tx,
+                msgs_sent=st.sent, msgs_deferred=st.deferred)
 
 
 def _scan_step(cap, trace_cum, tail_s, theta, conf, radio,
                adaptive: bool, parametric: bool, has_send: bool,
-               st: dict, row: dict) -> dict:
-    """Advance every lane over one plan row on the deterministic path:
-    every charge delivers exactly ``cap``, so an ``n``-iteration row's
-    reboots collapse to the closed form (the event stream's
+               st: ScanState, row: dict, charge_cum=None,
+               window: float = 1.0, alpha: float = 0.0,
+               stochastic: bool = False) -> ScanState:
+    """Advance every lane over one plan row.
+
+    Deterministic (``stochastic=False``): every charge delivers exactly
+    ``cap``, so an ``n``-iteration row's reboots collapse to the closed
+    form (the event stream's
     :func:`~repro_torch.kernels.charge_replay.fast_forward` applied to a
-    fresh row), and BURN/CALIB rows burn whole nominal charges."""
-    from ..kernels.charge_replay import (ChargeState, _add_at, _where,
-                                         fast_forward, row_ctx,
-                                         send_defer_wait, trace_window)
+    fresh row), and BURN/CALIB rows burn whole nominal charges.
+
+    Stochastic (the legacy ``backend="_while"`` oracle): the row runs
+    charge by charge (:func:`~repro_torch.kernels.charge_replay.charge_once`)
+    until every lane is done, a done lane keeping its state; refill ``r``
+    delivers ``trace_window(charge_cum, r - 1, r, cap)``.  Every row step
+    is a fresh row entry, so a SEND row's closed-window check is
+    unconditional here."""
+    from ..kernels.charge_replay import (ChargeState, _add_at, _select,
+                                         _where, charge_once, fast_forward,
+                                         row_ctx, send_defer_wait,
+                                         trace_window)
 
     ctx = row_ctx(row, cap, theta, adaptive, parametric,
                   conf=conf, radio=radio, has_send=has_send)
     zero = torch.zeros_like(cap)
-    send_wait = torch.zeros_like(st["dead"])
-    defer_now = torch.zeros_like(st["stuck"])
+    send_wait = torch.zeros_like(st.dead)
+    defer_now = torch.zeros_like(st.stuck)
     if has_send:
         is_send = row["kind"] == KIND_SEND
         want_send = is_send & (ctx.send_bytes > 0.0) & ~ctx.row_stuck
-        closed, wait = send_defer_wait(st["live"], st["dead"], radio)
+        closed, wait = send_defer_wait(st.live, st.dead, radio)
         defer_now = want_send & closed
         send_wait = torch.where(defer_now, wait, zero)
 
@@ -657,38 +715,61 @@ def _scan_step(cap, trace_cum, tail_s, theta, conf, radio,
     if has_send:
         passthrough = passthrough & (row["kind"] != KIND_SEND)
     cs0 = ChargeState(
-        rem=st["rem"], bel=st["bel"], left=ctx.n, live=st["live"],
-        reboots=st["reboots"], classes=st["classes"], wasted=st["wasted"],
-        pend=st["pend"], pend_class=st["pend_class"],
-        pend_rows=st["pend_rows"], bhat=st["bhat"], chg=st["chg"],
-        debt=torch.zeros_like(cap),
-        debt_class=torch.zeros_like(st["pend_class"]),
-        stuck=st["stuck"], done=passthrough)
-    out = fast_forward(ctx, cap, theta, adaptive, cs0)
-    rem, bel, live, reboots = st["rem"], st["bel"], st["live"], st["reboots"]
-    classes, bhat = st["classes"], st["bhat"]
+        rem=st.rem, bel=st.bel, left=ctx.n, live=st.live,
+        reboots=st.reboots, classes=st.classes, wasted=st.wasted,
+        pend=st.pend, pend_class=st.pend_class, pend_rows=st.pend_rows,
+        bhat=st.bhat, chg=st.chg, debt=torch.zeros_like(cap),
+        debt_class=torch.zeros_like(st.pend_class),
+        stuck=st.stuck, done=passthrough)
+    if not stochastic:
+        out = fast_forward(ctx, cap, theta, adaptive, cs0)
+    else:
+        out = cs0
+        while bool((~out.done).any()):     # one host check a charge
+            out = _select(out.done, out,
+                          charge_once(ctx, cap, charge_cum, theta, window,
+                                      alpha, adaptive, out))
+            _while_replay.charge_steps += 1
+
+    def refill_sum(r0, r1):
+        """Total capacity of refills (r0, r1]; past-trace refills fall
+        back to the nominal ``cap``."""
+        return trace_window(charge_cum, r0, r1, cap)
+
+    rem, bel, live, reboots = st.rem, st.bel, st.live, st.reboots
+    classes, bhat = st.classes, st.bhat
     new_rem, new_bel, new_live = out.rem, out.bel, out.live
     new_reboots, new_classes = out.reboots, out.classes
     new_stuck, new_wasted, new_chg = out.stuck, out.wasted, out.chg
 
     # BURN rows: a failed calibration attempt drains the whole buffer
     is_burn = row["kind"] == KIND_BURN
-    new_rem = torch.where(is_burn, cap, new_rem)
+    new_rem = torch.where(is_burn, refill_sum(reboots, reboots + 1.0)
+                          if stochastic else cap, new_rem)
     new_bel = torch.where(is_burn, bhat, new_bel)
     new_live = torch.where(is_burn, live + rem, new_live)
     new_reboots = torch.where(is_burn, reboots + 1.0, new_reboots)
     burn_vec = _add_at(torch.zeros_like(classes), _BURN_IDX, rem)
     new_classes = _where(is_burn, classes + burn_vec, new_classes)
-    new_stuck = torch.where(is_burn, st["stuck"], new_stuck)
-    new_wasted = torch.where(is_burn, st["wasted"], new_wasted)
+    new_stuck = torch.where(is_burn, st.stuck, new_stuck)
+    new_wasted = torch.where(is_burn, st.wasted, new_wasted)
     new_chg = torch.where(is_burn, zero, new_chg)
 
     # CALIB rows: per-lane burn count from the capacitor (Sec. 7.1)
     if parametric:
         is_calib = row["kind"] == KIND_CALIB
         burns = ctx.k.to(rem.dtype)
-        calib_live = torch.where(burns > 0, rem + (burns - 1.0) * cap, zero)
-        calib_rem = torch.where(burns > 0, cap, rem)
+        if stochastic:
+            calib_live = torch.where(
+                burns > 0,
+                rem + refill_sum(reboots, reboots + burns - 1.0), zero)
+            calib_rem = torch.where(
+                burns > 0,
+                refill_sum(reboots + burns - 1.0, reboots + burns), rem)
+        else:
+            calib_live = torch.where(burns > 0, rem + (burns - 1.0) * cap,
+                                     zero)
+            calib_rem = torch.where(burns > 0, cap, rem)
         new_rem = torch.where(is_calib, calib_rem, new_rem)
         new_bel = torch.where(is_calib, torch.where(burns > 0, bhat, bel),
                               new_bel)
@@ -696,15 +777,15 @@ def _scan_step(cap, trace_cum, tail_s, theta, conf, radio,
         new_reboots = torch.where(is_calib, reboots + burns, new_reboots)
         calib_vec = _add_at(torch.zeros_like(classes), _BURN_IDX, calib_live)
         new_classes = _where(is_calib, classes + calib_vec, new_classes)
-        new_stuck = torch.where(is_calib, st["stuck"], new_stuck)
-        new_wasted = torch.where(is_calib, st["wasted"], new_wasted)
+        new_stuck = torch.where(is_calib, st.stuck, new_stuck)
+        new_wasted = torch.where(is_calib, st.wasted, new_wasted)
         new_chg = torch.where(is_calib & (burns > 0), zero, new_chg)
 
     # decision 3: per-reboot dead time (the window wait adds first)
-    new_dead = (st["dead"] + send_wait) + trace_window(
+    new_dead = (st.dead + send_wait) + trace_window(
         trace_cum, reboots, new_reboots, tail_s)
 
-    tx, sent, deferred = st["tx_bytes"], st["sent"], st["deferred"]
+    tx, sent, deferred = st.tx, st.sent, st.deferred
     if has_send:
         adv_tx = is_send & ~ctx.row_stuck
         tx = tx + torch.where(adv_tx, ctx.send_bytes, zero)
@@ -712,12 +793,10 @@ def _scan_step(cap, trace_cum, tail_s, theta, conf, radio,
                                   torch.ones_like(cap), zero)
         deferred = deferred + torch.where(defer_now, torch.ones_like(cap),
                                           zero)
-    return dict(rem=new_rem, bel=new_bel, live=new_live,
-                reboots=new_reboots, dead=new_dead, classes=new_classes,
-                wasted=new_wasted, stuck=new_stuck, pend=out.pend,
-                pend_class=out.pend_class, pend_rows=out.pend_rows,
-                bhat=out.bhat, chg=new_chg, tx_bytes=tx, sent=sent,
-                deferred=deferred)
+    return ScanState(new_rem, new_bel, new_live, new_reboots, new_dead,
+                     new_classes, new_wasted, new_stuck, out.pend,
+                     out.pend_class, out.pend_rows, out.bhat, new_chg, tx,
+                     sent, deferred)
 
 
 def _scan_replay(rows, cap, rem0, trace_cum, tail_s, theta, conf,
@@ -732,33 +811,51 @@ def _scan_replay(rows, cap, rem0, trace_cum, tail_s, theta, conf,
 
     packed, layout = _packed(rows, shared_rows)
     plan = None if plan_idx is None else plan_idx.to(torch.int64)
-    n = cap.shape[0]
-    zero = torch.zeros_like(rem0)
-    zc = torch.zeros((n, _N_CLASSES), dtype=torch.float64,
-                     device=cap.device)
-    st = dict(rem=rem0, bel=rem0, live=zero, reboots=zero, dead=zero,
-              classes=zc, wasted=zero,
-              stuck=torch.zeros(n, dtype=torch.bool, device=cap.device),
-              pend=zero, pend_class=zc, pend_rows=zero, bhat=cap + zero,
-              chg=zero, tx_bytes=zero, sent=zero, deferred=zero)
-    # every state entry its own tensor, advanced in place row by row
-    st = {k: v.clone() for k, v in st.items()}
-    cursor = torch.zeros(n, dtype=torch.int64, device=cap.device)
+    st = _scan_state0(cap, rem0)
+    cursor = torch.zeros(cap.shape[0], dtype=torch.int64, device=cap.device)
 
     def row_step():
         new = _scan_step(cap, trace_cum, tail_s, theta, conf, radio,
                          adaptive, parametric, has_send, st,
                          unpack_row(packed, layout, cursor, plan))
-        for k, v in new.items():
-            st[k].copy_(v)
+        for dst, src in zip(st, new):
+            dst.copy_(src)
         cursor.add_(1)
 
     _replay_rows(row_step, packed.shape[-2], cap.device)
-    return dict(live=st["live"], reboots=st["reboots"], dead=st["dead"],
-                classes=st["classes"], wasted=st["wasted"],
-                stuck=st["stuck"], rem=st["rem"], belief=st["bhat"],
-                tx_bytes=st["tx_bytes"], msgs_sent=st["sent"],
-                msgs_deferred=st["deferred"])
+    return _scan_outputs(st)
+
+
+def _while_replay(rows, cap, rem0, trace_cum, tail_s, charge_cum, theta,
+                  window, alpha, conf, radio, *, adaptive: bool,
+                  parametric: bool, shared_rows, has_send: bool,
+                  plan_idx=None) -> dict:
+    """The legacy ``backend="_while"`` replay of a stochastic plan, the
+    differential oracle of the fused event stream: a scan over every row
+    of the (bucket-padded) table in which each row runs a data-dependent
+    charge loop (:func:`_scan_step` with ``stochastic=True``).  With a
+    ``(P, S, F)`` pack each lane's candidate rows are gathered first, as
+    the JAX package's legacy path does.  Eager on either device, one host
+    check of the lanes' ``done`` a charge; ``_while_replay.charge_steps``
+    counts the charges run."""
+    from ..kernels.charge_replay import _packed, unpack_row
+
+    packed, layout = _packed(rows, shared_rows)
+    if plan_idx is not None:
+        packed = packed[plan_idx.to(torch.int64)]
+    st = _scan_state0(cap, rem0)
+    n = cap.shape[0]
+    for i in range(packed.shape[-2]):
+        cursor = torch.full((n,), i, dtype=torch.int64, device=cap.device)
+        st = _scan_step(cap, trace_cum, tail_s, theta, conf, radio,
+                        adaptive, parametric, has_send, st,
+                        unpack_row(packed, layout, cursor),
+                        charge_cum=charge_cum, window=window, alpha=alpha,
+                        stochastic=True)
+    return _scan_outputs(st)
+
+
+_while_replay.charge_steps = 0
 
 
 def _replay_rows(row_step, n_rows: int, dev) -> None:
@@ -803,8 +900,6 @@ def _validate_replay_knobs(policy: str, batch_rows: int,
     if not 0.0 <= belief_alpha < 1.0:
         raise ValueError(f"belief_alpha must be in [0, 1), "
                          f"got {belief_alpha}")
-    if backend == "_while":
-        raise _not_ported("backend='_while'", "the legacy '_while' oracle")
     if backend not in REPLAY_BACKENDS:
         raise ValueError(f"unknown replay backend {backend!r}; "
                          f"expected one of {REPLAY_BACKENDS}")
@@ -813,11 +908,22 @@ def _validate_replay_knobs(policy: str, batch_rows: int,
                          f"expected one of {REPLAY_REDUCES}")
 
 
-def _check_unported(mesh=None) -> None:
-    """Refuse the option of the JAX entry points that the port does not
-    cover yet, rather than ignoring it."""
-    if mesh is not None:
-        raise _not_ported("mesh=", "mesh sharding")
+def _check_mesh(mesh, device) -> None:
+    """A ``mesh=`` must be a :class:`~repro_torch.launch.mesh.FleetMesh`
+    whose shards are on the kind of device the call runs on."""
+    from ..launch.mesh import FleetMesh
+
+    if mesh is None:
+        return
+    if not isinstance(mesh, FleetMesh):
+        raise TypeError(f"mesh= takes a FleetMesh "
+                        f"(repro_torch.launch.mesh.make_fleet_mesh), got "
+                        f"{type(mesh).__name__}")
+    dev = resolve_device(device)
+    if any(d.type != dev.type for d in mesh.devices):
+        raise ValueError(f"the mesh's shards are on "
+                         f"{sorted({d.type for d in mesh.devices})}, the "
+                         f"call runs on {dev.type!r}")
 
 
 @dataclass
@@ -1000,7 +1106,15 @@ def _dispatch(prep: _Prepared, t: dict, rows, shared_rows, theta: float,
                   has_burn=prep.has_burn, has_send=prep.has_send,
                   conf=t["conf"], radio=t["radio"], chunk=prep.chunk,
                   plan_idx=plan_idx)
-        if backend == "torch":
+        if backend == "_while":
+            out = _while_replay(
+                rows, t["caps"], t["rem0"], t["trace_cum"], t["tail_s"],
+                t["charge_cum"], float(theta), float(batch_rows),
+                float(belief_alpha), t["conf"], t["radio"],
+                adaptive=prep.adaptive, parametric=prep.parametric,
+                shared_rows=shared_rows, has_send=prep.has_send,
+                plan_idx=plan_idx)
+        elif backend == "torch":
             out = event_replay(*args, **kw)
         elif host_checked:
             out = charge_replay(*args, host_checked=True, **kw)
@@ -1039,13 +1153,15 @@ def _run_replay(rows: dict, caps: np.ndarray, rem0: np.ndarray,
                 edges: dict | None = None, n_groups: int = 1,
                 plan_idx: np.ndarray | None = None,
                 conf: np.ndarray | None = None, radio=None,
-                device="cuda") -> dict | tuple:
+                device="cuda", mesh=None) -> dict | tuple:
     """Replay ``rows`` over every lane and return the per-lane channels as
     numpy arrays, or with ``reduce="stats"`` the ``(psums, pmins, pmaxs)``
     partial folded on the device (numpy).  ``shared_rows=True``: one plan
     broadcast to every lane (fleet sweeps); ``False``: one plan per lane
     (``replay_plans``); ``"plan"``: a ``(P, S, ...)`` pack of candidate
-    plans, lane ``l`` replaying ``plan_idx[l]`` (design sweeps)."""
+    plans, lane ``l`` replaying ``plan_idx[l]`` (design sweeps).  With a
+    ``mesh`` the lanes are split across its shards
+    (:func:`_sharded_replay`)."""
     _validate_replay_knobs(policy, batch_rows, belief_alpha, backend,
                            reduce)
     if reduce == "stats" and edges is None:
@@ -1057,6 +1173,10 @@ def _run_replay(rows: dict, caps: np.ndarray, rem0: np.ndarray,
     prep = _prepare(rows, caps, rem0, shared_rows, trace_cum, tail_s,
                     policy, batch_rows, charge_cum, n_rows, chunk, conf,
                     radio, plan_idx)
+    if mesh is not None:
+        return _sharded_replay(prep, mesh, shared_rows, theta, batch_rows,
+                               belief_alpha, backend, reduce, group_id,
+                               valid, edges, n_groups)
     t = _upload(prep, dev)
     rows_dev = _device_rows(prep.rows, dev, shared_rows, prep.stochastic)
     stats_in = (_stats_inputs(group_id, valid, caps.shape[0], edges,
@@ -1066,6 +1186,98 @@ def _run_replay(rows: dict, caps: np.ndarray, rem0: np.ndarray,
     if reduce == "stats":
         return parts_numpy(out)
     return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+#: What a padding lane of a sharded replay holds in each per-lane input:
+#: continuous power (cap = rem0 = inf completes every row in one pass), no
+#: traces, no real rows (the event stream never walks it), candidate 0.
+_PAD_FILLS = dict(caps=np.inf, rem0=np.inf, trace_cum=0.0, tail_s=0.0,
+                  charge_cum=0.0, nominal_from=0.0, s_real=0, conf=0.0,
+                  plan_idx=0)
+
+
+def _pad_lanes(prep: _Prepared, pad: int, per_lane_rows: bool) -> _Prepared:
+    """``prep`` with ``pad`` inert lanes appended (:data:`_PAD_FILLS`; a
+    per-lane row batch gets zero rows)."""
+    if not pad:
+        return prep
+    change = {}
+    for k, fill in _PAD_FILLS.items():
+        a = getattr(prep, k)
+        if a is not None:
+            change[k] = np.concatenate(
+                [a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+    if per_lane_rows:
+        change["rows"] = {k: _pad_axis0(np.asarray(v), pad)
+                          for k, v in prep.rows.items()}
+    return dataclasses.replace(prep, **change)
+
+
+def _lane_block(prep: _Prepared, lo: int, hi: int,
+                per_lane_rows: bool) -> _Prepared:
+    """Lanes ``[lo, hi)`` of ``prep``."""
+    change = {k: getattr(prep, k)[lo:hi] for k in _LANE_INPUTS
+              if getattr(prep, k) is not None}
+    if per_lane_rows:
+        change["rows"] = {k: v[lo:hi] for k, v in prep.rows.items()}
+    return dataclasses.replace(prep, **change)
+
+
+def _sharded_replay(prep: _Prepared, mesh, shared_rows, theta: float,
+                    batch_rows: int, belief_alpha: float, backend: str,
+                    reduce: str, group_id, valid, edges: dict | None,
+                    n_groups: int):
+    """One replay split across ``mesh``'s shards (the JAX package's
+    ``shard_map`` path, driven from this one process): the lane axis is
+    padded to a multiple of the shard count with inert lanes
+    (:func:`_pad_lanes`, ``valid=False`` in group 0 for the statistics),
+    cut into equal contiguous blocks, and each block replayed on its
+    shard's device through :func:`_dispatch`, every shard's launches
+    issued before any result is read.  ``reduce="none"`` concatenates the
+    outputs in lane order without the padding; ``reduce="stats"`` folds
+    each shard on its device and all-reduces the partials
+    (:func:`~repro_torch.launch.mesh.fleet_all_reduce`)."""
+    from ..launch.mesh import fleet_all_reduce
+
+    n = prep.caps.shape[0]
+    n_shards = len(mesh.devices)
+    pad = (-n) % n_shards
+    per = (n + pad) // n_shards
+    per_lane_rows = shared_rows is False
+    stats = reduce == "stats"
+    prep = _pad_lanes(prep, pad, per_lane_rows)
+    if stats:
+        gid = np.concatenate([
+            np.zeros(n, np.int32) if group_id is None
+            else np.asarray(group_id, np.int32), np.zeros(pad, np.int32)])
+        vld = np.concatenate([np.ones(n, bool) if valid is None
+                              else np.asarray(valid, bool),
+                              np.zeros(pad, bool)])
+    rows_on: dict = {}                  # a shared table, once a device
+    outs = []
+    for s, dev in enumerate(mesh.devices):
+        lo, hi = s * per, (s + 1) * per
+        sub = _lane_block(prep, lo, hi, per_lane_rows)
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            t = _upload(sub, dev)
+            if per_lane_rows:
+                rows_dev = _device_rows(sub.rows, dev, shared_rows,
+                                        sub.stochastic)
+            else:
+                if dev not in rows_on:
+                    rows_on[dev] = _device_rows(sub.rows, dev, shared_rows,
+                                                sub.stochastic)
+                rows_dev = rows_on[dev]
+            stats_in = (_stats_inputs(gid[lo:hi], vld[lo:hi], per, edges,
+                                      n_groups, dev) if stats else None)
+            outs.append(_dispatch(sub, t, rows_dev, shared_rows, theta,
+                                  batch_rows, belief_alpha, backend,
+                                  reduce, stats_in, host_checked=True))
+    if stats:
+        return parts_numpy(fleet_all_reduce(outs))
+    return {k: np.concatenate([o[k].cpu().numpy() for o in outs])[:n]
+            for k in outs[0]}
 
 
 def _lane_io_bytes(n_lanes: int, *arrays) -> int:
@@ -1085,7 +1297,7 @@ def _chunked_replay(plan_rows: dict, n_rows, n_lanes: int,
                     edges: dict | None, n_groups: int,
                     event_chunk=None, plan_idx_of=None,
                     prefetch: int = DEFAULT_PREFETCH, shared_rows=None,
-                    conf_of=None, radio=None, device="cuda"):
+                    conf_of=None, radio=None, device="cuda", mesh=None):
     """Drive one replay over the device axis in fixed-size lane chunks:
     per-chunk inputs come from ``make_inputs(lane_lo, m)`` (chunk-invariant
     counter-based samplers, so the chunking never changes a lane's
@@ -1105,7 +1317,10 @@ def _chunked_replay(plan_rows: dict, n_rows, n_lanes: int,
     ``prefetch >= 1`` overlaps the host with the card
     (:func:`_overlapped_replay`); ``prefetch=0`` is the synchronous loop,
     each chunk's partial brought to the host and merged there.  Both add
-    the same partials in the same order, so they give the same bits."""
+    the same partials in the same order, so they give the same bits.
+    With a ``mesh`` every chunk is sharded (:func:`_sharded_replay`) in
+    the synchronous loop, as the JAX package's mesh path keeps its own
+    dispatch."""
     if lane_chunk < 1:
         raise ValueError(f"lane_chunk must be >= 1, got {lane_chunk}")
     if prefetch < 0:
@@ -1174,7 +1389,7 @@ def _chunked_replay(plan_rows: dict, n_rows, n_lanes: int,
                               c["tail"], c["cum"], c["ccum"], c["gid"],
                               c["valid"], c["pidx"], c["conf"], *extra)
 
-    if prefetch == 0 or len(starts) == 1:
+    if prefetch == 0 or len(starts) == 1 or mesh is not None:
         # the synchronous loop: generate, replay, fold, repeat
         acc_stats = None
         outs: list[dict] = []
@@ -1192,7 +1407,7 @@ def _chunked_replay(plan_rows: dict, n_rows, n_lanes: int,
                 chunk=event_chunk, reduce=reduce, group_id=c["gid"],
                 valid=c["valid"], edges=edges, n_groups=n_groups,
                 plan_idx=c["pidx"], conf=c["conf"], radio=radio,
-                device=device)
+                device=device, mesh=mesh)
             if stats:
                 part = FleetStats.from_parts(res, edges)
                 acc_stats = part if acc_stats is None \
@@ -1768,7 +1983,7 @@ def _design_sweep(ps: PlanSet, n_devices: int, seed: int,
                   stats_bins: int, stats_edges: dict | None,
                   event_chunk, t0: float,
                   prefetch: int = DEFAULT_PREFETCH, radio=None,
-                  conf=None, device="cuda"):
+                  conf=None, device="cuda", mesh=None):
     """One replay over a whole :class:`PlanSet` design space.
 
     Lanes are plan-major (``lane = p * n_devices + d``).  Unchunked, each
@@ -1805,7 +2020,7 @@ def _design_sweep(ps: PlanSet, n_devices: int, seed: int,
                                ps.recharge_s, stats_bins)
     common = dict(policy=policy, theta=theta, batch_rows=batch_rows,
                   belief_alpha=belief_alpha, backend=backend,
-                  device=device)
+                  device=device, mesh=mesh)
     if lane_chunk is not None:
         def plan_of(lo, m):
             return (lo + np.arange(m)) // dev
@@ -1936,8 +2151,11 @@ def fleet_sweep(net: SimNet | None = None, x: np.ndarray | None = None,
     ``plan=`` also takes a :class:`PlanSet`: the whole candidate batch
     replays with ``n_devices`` lanes a candidate in one launch, returning
     a :class:`DesignSweepResult` or, with ``reduce="stats"``, a
-    :class:`FleetStats` with one group per candidate.  ``device`` defaults
-    to ``"cuda"``."""
+    :class:`FleetStats` with one group per candidate.  ``mesh=`` (a
+    :class:`~repro_torch.launch.mesh.FleetMesh` from ``make_fleet_mesh``)
+    splits the lanes across its shards; the results are those of the
+    unmeshed call, the statistics' f64 sums added shard by shard.
+    ``device`` defaults to ``"cuda"``."""
     from ..runtime.failures import (charge_capacity_jitter,
                                     charge_capacity_jitter_stream,
                                     charge_trace_cumulative,
@@ -1950,7 +2168,7 @@ def fleet_sweep(net: SimNet | None = None, x: np.ndarray | None = None,
                                     reboot_recharge_times_stream,
                                     recharge_trace_cumulative)
     resolve_device(device)
-    _check_unported(mesh)
+    _check_mesh(mesh, device)
     if reduce not in REPLAY_REDUCES:
         raise ValueError(f"unknown reduce mode {reduce!r}; "
                          f"expected one of {REPLAY_REDUCES}")
@@ -1962,7 +2180,7 @@ def fleet_sweep(net: SimNet | None = None, x: np.ndarray | None = None,
                              charge_reboots, backend, reduce, lane_chunk,
                              stats_bins, stats_edges, event_chunk, t0,
                              prefetch, radio=radio, conf=conf,
-                             device=device)
+                             device=device, mesh=mesh)
     if plan is None:
         if net is None or x is None or strategy is None or power is None:
             raise ValueError("fleet_sweep needs (net, x, strategy, power) "
@@ -1983,7 +2201,7 @@ def fleet_sweep(net: SimNet | None = None, x: np.ndarray | None = None,
                                plan.recharge_s, stats_bins)
     common = dict(policy=policy, theta=theta, batch_rows=batch_rows,
                   belief_alpha=belief_alpha, backend=backend,
-                  device=device)
+                  device=device, mesh=mesh)
     if lane_chunk is not None:
         def make_inputs(lo, m):
             frac = initial_charge_fraction_stream(m, seed=seed,
@@ -2135,8 +2353,8 @@ def capacitor_sweep(net: SimNet, x: np.ndarray,
     lane kernel).  ``reduce="stats"`` folds the grid into one
     :class:`FleetStats` with one group per capacitor (``group_labels``
     holds the capacities), and ``lane_chunk=``/``prefetch`` stream the
-    lane axis as in :func:`fleet_sweep`.  ``device`` defaults to
-    ``"cuda"``."""
+    lane axis as in :func:`fleet_sweep`, and ``mesh=`` shards it as
+    there.  ``device`` defaults to ``"cuda"``."""
     from ..runtime.failures import (charge_capacity_jitter,
                                     charge_capacity_jitter_stream,
                                     charge_trace_cumulative,
@@ -2144,7 +2362,7 @@ def capacitor_sweep(net: SimNet, x: np.ndarray,
                                     initial_charge_fraction,
                                     initial_charge_fraction_stream)
     resolve_device(device)
-    _check_unported(mesh)
+    _check_mesh(mesh, device)
     if reduce not in REPLAY_REDUCES:
         raise ValueError(f"unknown reduce mode {reduce!r}; "
                          f"expected one of {REPLAY_REDUCES}")
@@ -2167,7 +2385,7 @@ def capacitor_sweep(net: SimNet, x: np.ndarray,
                                stats_bins)
     common = dict(policy=policy, theta=theta, batch_rows=batch_rows,
                   belief_alpha=belief_alpha, backend=backend,
-                  device=device)
+                  device=device, mesh=mesh)
     shape = (n_caps, n_devices)
     if lane_chunk is not None:
         def make_inputs(lo, m):

@@ -6,9 +6,8 @@ not -- a power failure can leave a vector write torn, which is the consistency
 hazard SONIC's idempotence mechanisms are built to survive.  The store charges
 the device for every element moved, so energy accounting is automatic.
 
-The JAX package's fleet-scale checkpoint store (``repro.checkpoint``, not
-ported yet) implements the same interface against a directory with
-atomic-rename commits.
+The fleet-scale checkpoint store (``repro_torch.checkpoint``) implements
+the same interface against a directory with atomic-rename commits.
 """
 
 from __future__ import annotations

@@ -1,15 +1,81 @@
-"""Harvest-trace samplers of the fleet replay (numpy, no framework).
+"""Fleet intermittence model: node failures as the datacenter power trace.
 
-A copy of the sampler half of ``runtime/failures.py`` in the JAX package:
-the legacy sequential draws, the chunk-invariant Philox ``*_stream``
-draws, the cumulative trace tables the replay indexes, and the
-trace-shape helpers.  The same seed gives the same arrays in both
-packages, so the two replays can be held against each other.
+Reproduces the paper's Fig. 6/9 trade-off at cluster scale:
+
+  naive        -- no checkpoints: any failure restarts the whole job
+                  (non-termination when MTBF < job length, exactly the
+                  paper's naive baseline).
+  interval-k   -- checkpoint every k steps (the Tile-k analogue): small k
+                  pays checkpoint overhead, large k re-executes up to k
+                  steps per failure and risks never finishing a window.
+  continuation -- full checkpoint every k steps PLUS a per-microbatch
+                  cursor + in-step re-execution idempotence (SONIC): after
+                  a failure only the interrupted microbatch re-runs, at the
+                  cost of one tiny cursor commit per microbatch.
+
+The simulator is deterministic given a seed; times are in abstract seconds.
+At fleet scale the failure rate is n_hosts/MTBF_host -- at 1000+ nodes with
+a 30-day host MTBF that is one failure every ~43 minutes, which is why
+fine-grained resumability matters.
+
+The harvest-trace samplers below (the legacy sequential draws, the
+chunk-invariant Philox ``*_stream`` draws, the cumulative trace tables the
+fleet replay indexes and the trace-shape helpers) give the same arrays as
+the JAX package's for the same seed, so the two replays can be held
+against each other.  Numpy only, no framework.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+
+
+@dataclass(frozen=True)
+class FleetSpec:
+    n_hosts: int
+    mtbf_host_s: float           # per-host mean time between failures
+    restart_s: float = 120.0     # reboot + rejoin + JIT warmup
+
+    @property
+    def failure_rate(self) -> float:
+        return self.n_hosts / self.mtbf_host_s
+
+
+@dataclass(frozen=True)
+class JobSpec:
+    total_steps: int
+    step_s: float
+    microbatches: int = 8        # per step (grad accumulation loop)
+    ckpt_write_s: float = 30.0   # full checkpoint wall time
+    #: per-microbatch durable commit: cursor write + grad-accumulator flush
+    #: to local NVMe (the A/B-buffered "FRAM write" of the fleet analogue)
+    mb_commit_s: float = 0.3
+    restore_s: float = 60.0      # checkpoint read + reshard
+
+
+@dataclass
+class RunStats:
+    wall_s: float
+    useful_s: float
+    wasted_s: float              # re-executed compute
+    overhead_s: float            # checkpoints + cursors + restarts
+    failures: int
+    completed: bool
+
+    @property
+    def goodput(self) -> float:
+        return self.useful_s / self.wall_s if self.wall_s else 0.0
+
+
+def _failure_times(spec: FleetSpec, horizon_s: float, seed: int):
+    rng = np.random.default_rng(seed)
+    t, out = 0.0, []
+    while t < horizon_s:
+        t += rng.exponential(1.0 / spec.failure_rate)
+        out.append(t)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -332,3 +398,93 @@ def inference_confidence_stream(n_devices: int, seed: int = 0,
     (1 draw/lane)."""
     return _stream_uniforms(n_devices, 1, seed, _CONF_STREAM, lane_lo)[:, 0]
 
+
+def simulate(policy: str, fleet: FleetSpec, job: JobSpec, interval: int = 50,
+             seed: int = 0, horizon_factor: float = 50.0) -> RunStats:
+    """Run the job under a fault-tolerance policy against a failure trace."""
+    horizon = job.total_steps * job.step_s * horizon_factor
+    failures = _failure_times(fleet, horizon, seed)
+    fi = 0
+    now = 0.0
+    useful = wasted = overhead = 0.0
+    mb_s = job.step_s / job.microbatches
+
+    # progress state
+    step = 0                  # committed full-checkpoint step
+    done_steps = 0            # steps completed since ckpt (volatile unless
+                              # continuation tracks them)
+    done_mb = 0               # microbatches in current step (continuation)
+
+    def interrupted(start: float, dur: float) -> bool:
+        nonlocal fi
+        # failures that fired during dead/restart time are absorbed by the
+        # restart (the job was not computing); only a failure landing inside
+        # [start, start+dur) interrupts this unit of work
+        while fi < len(failures) and failures[fi] < start:
+            fi += 1
+        if fi < len(failures) and failures[fi] < start + dur:
+            fi += 1
+            return True
+        return False
+
+    n_fail = 0
+    while step + done_steps < job.total_steps:
+        if now > horizon:
+            return RunStats(now, useful, wasted, overhead, n_fail, False)
+        # run one microbatch
+        if policy == "continuation":
+            if interrupted(now, mb_s + job.mb_commit_s):
+                n_fail += 1
+                wasted += mb_s / 2            # half an mb lost on average
+                now += mb_s / 2 + fleet.restart_s + job.restore_s
+                overhead += fleet.restart_s + job.restore_s
+                continue                       # resume at same microbatch
+            now += mb_s + job.mb_commit_s
+            useful += mb_s
+            overhead += job.mb_commit_s
+            done_mb += 1
+            if done_mb == job.microbatches:
+                done_mb = 0
+                done_steps += 1
+        else:
+            # whole steps are the unit; a failure loses progress since the
+            # last durable point.  Steps completed since that point were
+            # booked as useful when they ran; once lost they move to wasted
+            # (never double-counted), so on completion ``useful_s`` is
+            # exactly ``total_steps * step_s`` and at every instant
+            # ``wall_s == useful_s + wasted_s + overhead_s``.  For naive,
+            # ``step`` is always 0 (it never checkpoints), so "since the
+            # last durable point" is the whole job.
+            if interrupted(now, job.step_s):
+                n_fail += 1
+                lost = done_steps * job.step_s
+                useful -= lost
+                wasted += lost + job.step_s / 2
+                now += job.step_s / 2 + fleet.restart_s + job.restore_s
+                overhead += fleet.restart_s + job.restore_s
+                done_steps = 0
+                continue
+            now += job.step_s
+            useful += job.step_s
+            done_steps += 1
+
+        # periodic full checkpoint (all policies except naive)
+        if policy != "naive" and done_steps and done_steps % interval == 0:
+            if interrupted(now, job.ckpt_write_s):
+                n_fail += 1
+                now += job.ckpt_write_s / 2 + fleet.restart_s + job.restore_s
+                overhead += (job.ckpt_write_s / 2 + fleet.restart_s
+                             + job.restore_s)
+                if policy != "continuation":
+                    # interval-k loses the uncheckpointed steps too
+                    lost = done_steps * job.step_s
+                    useful -= lost
+                    wasted += lost
+                    done_steps = 0
+                continue
+            now += job.ckpt_write_s
+            overhead += job.ckpt_write_s
+            step += done_steps
+            done_steps = 0
+
+    return RunStats(now, useful, wasted, overhead, n_fail, True)

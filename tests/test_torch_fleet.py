@@ -6,9 +6,9 @@ tails, fixed and adaptive commits, charge cv 0.3, 16-reboot recharge
 traces, radio off and on); ``fleet_evaluate`` must equal the JAX
 package's bitwise and the scalar ``evaluate`` to the tolerances of
 ``tests/test_fleetsim.py`` (the scalar simulator sums in another order).
-Entry points refuse to run without a card unless asked for the CPU, and
-refuse the options the port does not cover yet (``mesh=`` and the legacy
-``backend="_while"``).
+Entry points refuse to run without a card unless asked for the CPU; the
+options once refused (``mesh=`` and the legacy ``backend="_while"``) run
+with the fused replay's bits.
 """
 
 import dataclasses
@@ -215,22 +215,55 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
     (dict(backend="_while"), "_while"),
 ])
 def test_unported_options_raise(one_plan, kw, item):
+    """The options the port once refused run now, and what is still
+    wrong raises: ``backend="_while"`` replays through both entry points
+    (a charge-wise replay and the closed form) with the same bits as the
+    fused replay, and a backend the port has no such name for (the JAX
+    package's ``"xla"`` and ``"pallas"``) is refused by name."""
     _tnet, _x, plan = one_plan
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.replay_plans([plan], device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.fleet_sweep(plan=plan, n_devices=2, device="cpu", **kw)
+    ctr = np.full((2, 8), plan.capacity)
+    ctr[:, 1::2] -= 1000.0
+    for traces in (ctr, None):
+        a = tfs.replay_plans([plan] * 2, init_frac=[0.3, 0.8],
+                             charge_traces=traces, device="cpu", **kw)
+        b = tfs.replay_plans([plan] * 2, init_frac=[0.3, 0.8],
+                             charge_traces=traces, device="cpu")
+        assert a == b
+    sw = dict(plan=plan, n_devices=3, charge_cv=0.2, device="cpu")
+    a = tfs.fleet_sweep(**sw, **kw)
+    b = tfs.fleet_sweep(**sw)
+    for name in SWEEP_ARRAYS:
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                      err_msg=(item, name))
+    for backend in ("xla", "pallas"):
+        with pytest.raises(ValueError, match="backend"):
+            tfs.replay_plans([plan], backend=backend, device="cpu")
+        with pytest.raises(ValueError, match="backend"):
+            tfs.fleet_sweep(plan=plan, n_devices=2, backend=backend,
+                            device="cpu")
 
 
 def test_unported_surfaces_raise(one_plan):
-    """``mesh=`` is still refused by name; a design sweep and a capacitor
-    sweep raise where the JAX package's raise: a ``plan`` that is neither a
-    ``FleetPlan`` nor a ``PlanSet``, an empty ``PlanSet``, a capacitor
-    sweep of a plan without tile tables."""
-    _tnet, _x, plan = one_plan
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """``mesh=`` runs now and refuses what is not a mesh of the call's
+    device; a design sweep and a capacitor sweep raise where the JAX
+    package's raise: a ``plan`` that is neither a ``FleetPlan`` nor a
+    ``PlanSet``, an empty ``PlanSet``, a capacitor sweep of a plan without
+    tile tables."""
+    from repro_torch.launch.mesh import FleetMesh, make_fleet_mesh
+
+    tnet, x, plan = one_plan
+    with pytest.raises(TypeError, match="FleetMesh"):
         tfs.fleet_sweep(plan=plan, n_devices=2, mesh=object(),
                         device="cpu")
+    with pytest.raises(ValueError, match="shards"):
+        tfs.fleet_sweep(plan=plan, n_devices=2, device="cpu",
+                        mesh=FleetMesh((torch.device("cuda", 0),)))
+    sw = dict(plan=plan, n_devices=5, charge_cv=0.2, device="cpu")
+    a = tfs.fleet_sweep(mesh=make_fleet_mesh(2, device="cpu"), **sw)
+    b = tfs.fleet_sweep(**sw)
+    for name in SWEEP_ARRAYS:
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                      err_msg=name)
     with pytest.raises(AttributeError):
         jfs.fleet_sweep(plan=object(), n_devices=2)
     with pytest.raises(AttributeError):

@@ -52,6 +52,14 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.data.synthetic\n"
         "import repro_torch.optim, repro_torch.optim.adamw\n"
         "import repro_torch.models, repro_torch.runtime\n"
+        "import repro_torch.core.buffering, repro_torch.core.continuation\n"
+        "import repro_torch.core.tasks, repro_torch.runtime.failures\n"
+        "import repro_torch.runtime.elastic, repro_torch.runtime.straggler\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.store\n"
+        "import repro_torch.checkpoint.sparse_delta\n"
+        "import repro_torch.serving, repro_torch.serving.uplink\n"
+        "import repro_torch.launch, repro_torch.launch.mesh\n"
+        "import repro_torch.optim.compress_grads\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
         "print(repr(bad))\n")
@@ -75,6 +83,13 @@ def test_port_files_found():
         assert f"repro_torch/compress/{name}.py" in PORT_FILES
     for name in ("core/imp", "data/__init__", "data/synthetic",
                  "optim/__init__", "optim/adamw"):
+        assert f"repro_torch/{name}.py" in PORT_FILES
+    for name in ("core/buffering", "core/continuation", "core/tasks",
+                 "runtime/elastic", "runtime/straggler",
+                 "checkpoint/__init__", "checkpoint/store",
+                 "checkpoint/sparse_delta", "serving/__init__",
+                 "serving/uplink", "launch/__init__", "launch/mesh",
+                 "optim/compress_grads"):
         assert f"repro_torch/{name}.py" in PORT_FILES
     for name in ("config", "layers", "transformer", "api", "counting"):
         assert f"repro_torch/models/{name}.py" in PORT_FILES

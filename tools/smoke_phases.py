@@ -4,8 +4,10 @@
 
 PHASE is one of ``overlap`` (the JAX package's overlap protocol through the
 port), ``streamed_stats`` (the streamed sweep of ``mnist_net()``),
-``genesis`` (GENESIS end to end), or one of two diagnostics of the
-streamed pipeline's producer thread:
+``genesis`` (GENESIS end to end), ``while_oracle`` (the legacy
+``backend="_while"`` oracle against the lane kernel), ``mesh``
+(``mesh=`` sweeps against unmeshed ones), or one of two diagnostics of
+the streamed pipeline's producer thread:
 
 * ``host_alone``: three 65,536-lane chunks' host work (the samplers and
   ``_prepare``) timed on the main thread, on a second thread while the
@@ -33,7 +35,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("overlap", "streamed_stats", "genesis", "host_alone", "unpinned")
+PHASES = ("overlap", "streamed_stats", "genesis", "while_oracle", "mesh",
+          "host_alone", "unpinned")
 
 
 def emit(obj) -> None:
@@ -124,18 +127,24 @@ def main() -> int:
     wrapper = cr.charge_replay
     x = np.random.default_rng(42).normal(size=(1, 28, 28)).astype(np.float32)
     net = mnist_net()
+    classes = (Conv2D, DenseFC, MaxPool2D, SimNet, SparseFC)
     plan = None
     for phase in args:
         t0 = time.perf_counter()
         if phase == "overlap":
-            cs.overlap(torch, np, emit, fleetsim,
-                       (Conv2D, DenseFC, MaxPool2D, SimNet, SparseFC))
+            cs.overlap(torch, np, emit, fleetsim, classes)
         elif phase == "genesis":
             cs.genesis(torch, np, emit, fleetsim, cr, wrapper)
+        elif phase == "while_oracle":
+            emit({"phase": "while_oracle", **cs.while_oracle(
+                torch, np, emit, fleetsim, wrapper, classes)})
         else:
             if plan is None:
                 plan = fleetsim.build_plan(net, x, "tails", "1mF")
-            if phase == "streamed_stats":
+            if phase == "mesh":
+                emit({"phase": "mesh", "launches": cs.mesh(
+                    torch, np, emit, fleetsim, wrapper, net, x, plan)})
+            elif phase == "streamed_stats":
                 lat = cr.f64_latency(torch.device("cuda"))
                 cs.streamed_stats(torch, np, emit, fleetsim, cr,
                                   cs.Recorder(torch, wrapper), wrapper, net,
