@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fleet replay, compute kernels and LM forward on
-one CUDA card and check them.
+"""Drive the PyTorch port's fleet replay, compute kernels, LM forward and
+LM serving on one CUDA card and check them.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -198,7 +198,32 @@ prints one JSON line per phase; any failure exits non-zero.
    then at 1 to 512 cells (``small_cells``), the wgmma kernel at the
    heads a CTA ``ssd_plan`` gives beside the first design, and from CUDA
    graphs at 1, 2, 4 and 8 heads a CTA beside the first design.
-10. the kernels line, the ``nvidia-smi`` line, and the result line.
+10. serving -- the card's name and power limit, then qwen3-0.6b as
+   published (28 layers, bf16, the same weights, attention through the
+   kernel): ``prefill`` of 2 x 4,096 tokens into a 4,160-slot cache, the
+   attention kernel's launches zeroed just before and read just after (one
+   a layer, all on the wgmma kernel), its last logits and 32
+   teacher-forced ``decode_step``s each held against one forward over the
+   4,128 tokens at that position (``lm_bf16``); prefill ms, decode ms a
+   step (device and host), tokens/s and a step's byte bound (weights and
+   the valid K/V at 3.35 TB/s), the decode step's f32 LM head alone.
+   ``ServeEngine`` (4 requests, 64-token prompts, 32 new tokens) twice and
+   preempted after 8 tokens then resumed by a fresh engine on the same
+   state: the tokens equal bit for bit; each run's wall split into decode
+   and cursor commits.  Then mamba2-370m as published (48 layers, bf16):
+   ``forward`` over 2 x 4,096 tokens with ``ssd_intra``'s launches zeroed
+   just before and read just after (one a layer, all on the wgmma kernel),
+   each launch held at once against the plain cell on its inputs (``ssd``
+   and ``ssd_f64``), the logits against the same forward with the plain
+   cell swapped into ``models.mamba2`` for that run only (``lm_bf16``);
+   teacher-forced decode over 2 x 256 tokens against the forward in bf16
+   and, on the weights widened and made live (``live_ssd``: the init
+   recipe leaves the SSD's output 1e-6 of the skip path's), over 2 x 64 in
+   f32 (``TOLERANCES``); its engine
+   (2 requests, 32-token prompts, 16 new tokens) as above; forward ms and
+   the SSD cell's ms a launch.  The phase's launches join the kernels
+   line's (``serving_launches``).
+11. the kernels line, the ``nvidia-smi`` line, and the result line.
 """
 
 from __future__ import annotations
@@ -563,7 +588,32 @@ TOLERANCES = {
                "dropped causal mask, a GQA head map in .repeat order or "
                "keys shifted by one move the logits by more than 100 %)",
     "lm_f32": "max |d| <= 1e-4 max |logit| (f32 sums in another order)",
+    "ssm_decode_bf16": "max |d| <= 0.1 max |logit| over the positions "
+                       "decoded, decode against forward in bf16: the "
+                       "recurrent and the chunked forms round at other "
+                       "points (the conv's sum, the Dskip add, decode's "
+                       "bf16 logits), and the roundings part ways layer by "
+                       "layer: on the CPU at mamba2-370m's widths, 2 to 12 "
+                       "layers gave 1.2 to 3.6 % growing as sqrt(layers), "
+                       "about 7 % at 48; a dropped conv window gives 138 % "
+                       "at 8 layers.  With the init recipe the SSD's output "
+                       "is 2e-6 of the logits, so this rule holds the conv, "
+                       "gate, norms and projections of the recurrent form; "
+                       "the f32 rule below, on live weights, the SSD",
+    "ssm_decode_f32": "max |d| <= 1e-3 max |logit|, decode against forward "
+                      "in f32 on the weights widened and made live "
+                      "(live_ssd: conv taps x 50, dt_bias 0, after which "
+                      "zeroing the SSD's output moves the logits by 159 % "
+                      "at 8 layers on the CPU): f32 sums in another order, "
+                      "2.1e-5 to 5.7e-5 at 8 to 24 layers on the CPU, "
+                      "growing with depth; a decay or Dskip 10 % off in "
+                      "decode moves them by 39 and 51 % at 8 layers",
 }
+
+#: The rules of TOLERANCES that bound max |d| by a share of max |ref|.
+SCALE_LIMITS = {"k4096": 1e-5, "logits": 1e-4, "ssd": 1e-5, "lm_bf16": 5e-2,
+                "lm_f32": 1e-4, "ssm_decode_bf16": 0.1,
+                "ssm_decode_f32": 1e-3}
 
 
 def attn_limit(torch, want):
@@ -623,9 +673,14 @@ def agree(torch, got, want, rule: str) -> tuple[bool, float]:
         return bool((d <= attn_limit(torch, w)).all()), diff
     if rule == "bf16":
         return bool((d <= bf16_limit(torch, w)).all()), diff
-    limit = {"k4096": 1e-5, "logits": 1e-4, "ssd": 1e-5, "lm_bf16": 5e-2,
-             "lm_f32": 1e-4}[rule]
-    return diff <= limit * scale, diff
+    return diff <= SCALE_LIMITS[rule] * scale, diff
+
+
+def scale_share(torch, got, want, rule: str) -> float:
+    """max |got - want| as a share of the limit of a rule of
+    :data:`SCALE_LIMITS`."""
+    return float((got - want).abs().max()) / (
+        SCALE_LIMITS[rule] * float(want.abs().max()))
 
 
 def conv_by_fir(torch, fir, x, w, b):
@@ -1849,6 +1904,397 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
                                       "plain_ms", "bound_ms", "bound_by",
                                       "f64_limit_share", "max_abs_err")})
     return out
+
+
+#: Phase 10, serving: qwen3-0.6b's prefill of LM_BATCH x SERVE_PROMPT
+#: tokens into a cache of SERVE_MAX_LEN slots, then SERVE_DECODE
+#: teacher-forced decode steps; the engine's requests, prompt length, new
+#: tokens and preemption point, on qwen3-0.6b and on mamba2-370m; mamba2's
+#: forward over LM_BATCH x LM_SEQ tokens and its teacher-forced decode over
+#: LM_BATCH x SSM_DECODE in bf16 and LM_BATCH x SSM_DECODE_F32 in f32 (a
+#: decode step is host-bound at some 12 us an eager op: lower these if the
+#: time limit forces it).
+SERVE_PROMPT, SERVE_MAX_LEN, SERVE_DECODE = 4096, 4160, 32
+ENGINE_RUNS = {"qwen3-0.6b": (4, 64, 32), "mamba2-370m": (2, 32, 16)}
+ENGINE_FAIL_AFTER = 8
+SSM_ARCH = "mamba2-370m"
+SSM_DECODE, SSM_DECODE_F32 = 256, 64
+
+def live_ssd(torch, params, conv: float = 50.0) -> dict:
+    """A copy of a mamba2 parameter tree whose SSD output matters: conv
+    taps x ``conv``, ``dt_bias`` 0 (softplus(dt) about 0.7); with the init
+    recipe (taps at std 0.02, ``dt_bias`` -4) it is 1e-6 of the skip
+    path's."""
+    layers = dict(params["layers"], conv_w=params["layers"]["conv_w"] * conv,
+                  dt_bias=torch.zeros_like(params["layers"]["dt_bias"]))
+    return dict(params, layers=layers)
+
+
+def engine_runs(torch, cfg, params, requests, root) -> dict:
+    """``ServeEngine`` on ``requests`` (rid, prompt, max_new): twice from
+    fresh state, then preempted after ENGINE_FAIL_AFTER tokens and resumed
+    by a fresh engine on the same state.  Every run's tokens must equal the
+    first's bit for bit.  Each run's wall is split into decode (each
+    ``decode_step`` call up to a ``synchronize``) and cursor commits."""
+    from repro_torch.serving import Request, ServeEngine
+
+    prompt_len, max_new = len(requests[0][1]), requests[0][2]
+
+    def run(name, state, fail_after=None):
+        eng = ServeEngine(cfg, params, root / state,
+                          max_len=prompt_len + max_new)
+        clock = {"decode_s": 0.0, "decode_steps": 0, "commit_s": 0.0,
+                 "commits": 0}
+        decode, cursor = eng._decode, eng._cursor
+
+        def timed_decode(*a):
+            t0 = time.perf_counter()
+            out = decode(*a)
+            torch.cuda.synchronize()
+            clock["decode_s"] += time.perf_counter() - t0
+            clock["decode_steps"] += 1
+            return out
+
+        def timed_cursor(rid):
+            cur = cursor(rid)
+            commit = cur.commit
+
+            def timed_commit(**fields):
+                t0 = time.perf_counter()
+                commit(**fields)
+                clock["commit_s"] += time.perf_counter() - t0
+                clock["commits"] += 1
+            cur.commit = timed_commit
+            return cur
+
+        eng._decode, eng._cursor = timed_decode, timed_cursor
+        reqs = [Request(rid, list(p), n) for rid, p, n in requests]
+        t0 = time.perf_counter()
+        if fail_after is None:
+            out = eng.run(reqs)
+        else:
+            try:
+                eng.run(reqs, fail_after_tokens=fail_after)
+            except RuntimeError as e:         # the simulated preemption
+                if str(e) != "preempted":
+                    raise
+            else:
+                raise SystemExit(f"serving: the engine was not preempted "
+                                 f"after {fail_after} tokens")
+            out = None
+        return out, dict(clock, run=name, wall_s=time.perf_counter() - t0)
+
+    first, c1 = run("first", "a")
+    second, c2 = run("second", "b")
+    _, c3 = run("preempted", "c", ENGINE_FAIL_AFTER)
+    resumed, c4 = run("resumed", "c")
+    if second != first:
+        raise SystemExit(f"serving: {cfg.name}'s engine gave other tokens "
+                         f"on a second run")
+    if resumed != first:
+        raise SystemExit(f"serving: {cfg.name}'s engine resumed after "
+                         f"preemption gave other tokens than the "
+                         f"uninterrupted run")
+    if any(len(t) != max_new for t in first.values()):
+        raise SystemExit(f"serving: {cfg.name}'s engine emitted "
+                         f"{[len(t) for t in first.values()]} tokens")
+    return {"arch": cfg.name, "requests": len(requests),
+            "prompt_len": prompt_len, "max_new": max_new,
+            "fail_after_tokens": ENGINE_FAIL_AFTER,
+            "tokens_equal_across_runs": True,
+            "tokens_equal_after_preemption": True,
+            "first_tokens": first["r0"][:8], "runs": [c1, c2, c3, c4]}
+
+
+def serving(torch, np, emit, smi_line) -> dict:
+    """Phase 10: the serving path on the card.  qwen3-0.6b as published
+    (28 layers, bf16, the flash kernel): ``prefill`` with the flash
+    kernel's launches zeroed just before and read just after (one a layer,
+    all on wgmma), its last logits and SERVE_DECODE teacher-forced
+    ``decode_step``s held against the forward's at the same positions
+    (lm_bf16), timed beside a decode step's byte bound; ``ServeEngine``
+    (``engine_runs``).  mamba2-370m as published (48 layers, bf16):
+    ``forward`` with ``ssd_intra``'s launches zeroed just before and read
+    just after (one a layer, all on wgmma), each launch held against the
+    plain cell on its inputs (``ssd_f64``), the logits against the same
+    forward with the plain cell swapped in; teacher-forced decode against
+    the forward in bf16 and in f32 (TOLERANCES); its engine.
+    Returns the launches counted on the two paths."""
+    import dataclasses
+    import importlib
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import counting, mamba2, transformer
+
+    fmod = importlib.import_module("repro_torch.kernels.flash_attention")
+    smod = importlib.import_module("repro_torch.kernels.ssd_intra")
+    f32 = torch.float32
+    t_phase = time.perf_counter()
+    emit({"phase": "serving", "nvidia_smi": smi_line})
+
+    # ---- qwen3-0.6b: prefill, then teacher-forced decode
+    cfg = dataclasses.replace(get_config(LM_ARCH), use_pallas_attention=True)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    vocab = cfg.vocab_size
+    toks = torch.from_numpy(np.random.default_rng(42).integers(
+        0, vocab, (LM_BATCH, SERVE_PROMPT + SERVE_DECODE))).cuda()
+    prompt = toks[:, :SERVE_PROMPT]
+    by_path = fmod.flash_attention.launches_by_path
+    fmod.flash_attention.launches = 0         # zero just before the path
+    for p in by_path:
+        by_path[p] = 0
+    first, cache = transformer.prefill(cfg, params, prompt, SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    flash_launches = fmod.flash_attention.launches   # read just after
+    flash_by_path = dict(by_path)
+    if flash_launches != cfg.num_layers \
+            or flash_by_path["wgmma"] != flash_launches:
+        raise SystemExit(f"serving: {flash_launches} flash_attention "
+                         f"launches in prefill ({flash_by_path} by kernel), "
+                         f"not {cfg.num_layers} on the wgmma one")
+    if first.shape != (LM_BATCH, cfg.vocab_padded) or first.dtype != f32 \
+            or cache["k"].shape != (cfg.num_layers, LM_BATCH,
+                                    cfg.num_kv_heads, SERVE_MAX_LEN, cfg.hd):
+        raise SystemExit(f"serving: prefill gave logits "
+                         f"{tuple(first.shape)} {first.dtype} and a cache "
+                         f"{tuple(cache['k'].shape)}")
+    steps = []
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    host_s = 0.0
+    ev0.record()
+    for j in range(SERVE_DECODE):
+        pos = SERVE_PROMPT + j
+        t0 = time.perf_counter()
+        logits, cache = transformer.decode_step(cfg, params, cache,
+                                                toks[:, pos], pos)
+        host_s += time.perf_counter() - t0
+        steps.append(logits)
+    ev1.record()
+    torch.cuda.synchronize()
+    decode_ms = ev0.elapsed_time(ev1) / SERVE_DECODE
+    # the forward's logits at the prompt's last position and at each
+    # decoded one (one forward over every token, the head on those rows)
+    hidden = transformer.hidden_states(cfg, params, toks)
+    want = transformer.logits_fn(cfg, params,
+                                 hidden[:, SERVE_PROMPT - 1:])[..., :vocab]
+    del hidden
+    ok, prefill_diff = agree(torch, first[:, :vocab], want[:, 0], "lm_bf16")
+    prefill_share = scale_share(torch, first[:, :vocab], want[:, 0],
+                                "lm_bf16")
+    if not ok:
+        raise SystemExit(f"serving: prefill's logits disagree with the "
+                         f"forward's ({TOLERANCES['lm_bf16']}; max abs diff "
+                         f"{prefill_diff}, {prefill_share} of the limit)")
+    decode_share = decode_diff = 0.0
+    for j, logits in enumerate(steps):
+        ok, d = agree(torch, logits[:, :vocab], want[:, 1 + j], "lm_bf16")
+        share = scale_share(torch, logits[:, :vocab], want[:, 1 + j],
+                            "lm_bf16")
+        decode_diff, decode_share = max(decode_diff, d), max(decode_share,
+                                                            share)
+        if not ok:
+            raise SystemExit(f"serving: decode step {j} disagrees with the "
+                             f"forward at position {SERVE_PROMPT + j} "
+                             f"({TOLERANCES['lm_bf16']}; max abs diff {d}, "
+                             f"{share} of the limit)")
+    del steps, want
+    prefill_ms = median_ms(torch, lambda: transformer.prefill(
+        cfg, params, prompt, SERVE_MAX_LEN), reps=3)
+    # one decode step's LM head alone (its f32 widening of the head)
+    x1 = torch.zeros((LM_BATCH, 1, cfg.d_model), dtype=torch.bfloat16,
+                     device=params["embed"].device)
+    head_ms = median_ms(torch, lambda: transformer.logits_fn(cfg, params, x1),
+                        inner=INNER)
+    n_params = counting.param_count(cfg)
+    # a decode step reads every weight once (the embedding: B rows) and
+    # the valid K/V of every layer (at the mean position decoded)
+    weight_bytes = 2 * (n_params - cfg.vocab_padded * cfg.d_model
+                        + LM_BATCH * cfg.d_model)
+    kv_bytes = 2 * 2 * cfg.num_layers * LM_BATCH * cfg.num_kv_heads \
+        * cfg.hd * (SERVE_PROMPT + (SERVE_DECODE + 1) / 2)
+    decode_bound_ms = (weight_bytes + kv_bytes) / PEAK_BYTES * 1e3
+    emit({"phase": "serving", "part": "qwen3_prefill_decode", "arch":
+          LM_ARCH, "layers": cfg.num_layers, "batch": LM_BATCH,
+          "prompt": SERVE_PROMPT, "max_len": SERVE_MAX_LEN,
+          "decode_steps": SERVE_DECODE,
+          "flash_attention_launches": flash_launches,
+          "flash_attention_launches_by_path": flash_by_path,
+          "prefill_max_abs_diff_vs_forward": prefill_diff,
+          "prefill_limit_share": prefill_share,
+          "decode_max_abs_diff_vs_forward": decode_diff,
+          "decode_limit_share": decode_share,
+          "tolerance": TOLERANCES["lm_bf16"],
+          "prefill_ms": prefill_ms,
+          "prefill_tokens_per_s": LM_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
+          "decode_ms_per_step": decode_ms,
+          "decode_host_ms_per_step": host_s / SERVE_DECODE * 1e3,
+          "decode_tokens_per_s": LM_BATCH / decode_ms * 1e3,
+          "decode_lm_head_f32_ms": head_ms,
+          "decode_bound_ms": decode_bound_ms, "decode_bound_by": "bytes",
+          "decode_bound_bytes": {"weights": weight_bytes, "kv": kv_bytes},
+          "decode_of_bound": decode_bound_ms / decode_ms})
+    del cache, first, x1
+
+    # ---- ServeEngine on qwen3-0.6b, then (below) on mamba2-370m
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+
+    def requests(arch, vocab):
+        n, plen, new = ENGINE_RUNS[arch]
+        rng = np.random.default_rng(0)
+        return [(f"r{i}", rng.integers(0, vocab, plen).tolist(), new)
+                for i in range(n)]
+
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        line = engine_runs(torch, cfg, params,
+                           requests(LM_ARCH, vocab), Path(tmp))
+    emit({"phase": "serving", "part": "engine", **line})
+    del params, prompt, toks
+    torch.cuda.empty_cache()
+
+    # ---- mamba2-370m: the forward through ssd_intra, counted and checked
+    mcfg = get_config(SSM_ARCH)
+    mparams = mamba2.init_params(mcfg, seed=0, device="cuda")
+    mvocab = mcfg.vocab_size
+    mtoks = torch.from_numpy(np.random.default_rng(42).integers(
+        0, mvocab, (LM_BATCH, LM_SEQ))).cuda()
+    wrapper = mamba2.ssd_intra
+    f64_share = plain_diff = 0.0
+    first_args = []
+
+    def checked(*args):
+        """The wrapper, each launch's outputs held at once against the plain
+        cell on the same inputs (ssd and ssd_f64)."""
+        nonlocal f64_share, plain_diff
+        got = wrapper(*args)
+        if not first_args:
+            first_args.append([a.clone() for a in args])
+        want = ref.ssd_intra_ref(*args)
+        exact = ref.ssd_intra_ref(*args, dtype=torch.float64)
+        for g, w, e in zip(got, want, exact):
+            share = tf32x3_share(torch, g, w, e)
+            ok, d = agree(torch, g, w, "ssd")
+            f64_share, plain_diff = max(f64_share, share), max(plain_diff, d)
+            if share > 1.0 or not ok:
+                raise SystemExit(f"serving: an ssd_intra launch in "
+                                 f"{SSM_ARCH}'s forward misses its rules "
+                                 f"({TOLERANCES['ssd']}; "
+                                 f"{TOLERANCES['ssd_f64']}; max abs diff "
+                                 f"{d}, {share} of the f64 limit)")
+        return got
+
+    ssd_counts = smod.ssd_intra.launches_by_path
+    smod.ssd_intra.launches = 0               # zero just before the path
+    for p in ssd_counts:
+        ssd_counts[p] = 0
+    mamba2.ssd_intra = checked
+    try:
+        logits = mamba2.forward(mcfg, mparams, mtoks)
+        torch.cuda.synchronize()
+    finally:
+        mamba2.ssd_intra = wrapper
+    ssd_launches = smod.ssd_intra.launches    # read just after
+    ssd_by_path = dict(ssd_counts)
+    if ssd_launches != mcfg.num_layers or ssd_by_path["wgmma"] != \
+            ssd_launches:
+        raise SystemExit(f"serving: {ssd_launches} ssd_intra launches in "
+                         f"{SSM_ARCH}'s forward ({ssd_by_path} by kernel), "
+                         f"not {mcfg.num_layers} on the wgmma one")
+    if logits.shape != (LM_BATCH, LM_SEQ, mcfg.vocab_padded):
+        raise SystemExit(f"serving: {SSM_ARCH} logits {tuple(logits.shape)}")
+    mamba2.ssd_intra = ref.ssd_intra_ref      # the comparison run only
+    try:
+        plain = mamba2.forward(mcfg, mparams, mtoks)
+        torch.cuda.synchronize()
+    finally:
+        mamba2.ssd_intra = wrapper
+    ok, ssm_diff = agree(torch, logits[..., :mvocab], plain[..., :mvocab],
+                         "lm_bf16")
+    ssm_share = scale_share(torch, logits[..., :mvocab], plain[..., :mvocab],
+                            "lm_bf16")
+    if not ok:
+        raise SystemExit(f"serving: {SSM_ARCH}'s logits disagree with the "
+                         f"plain SSD cell's ({TOLERANCES['lm_bf16']}; max "
+                         f"abs diff {ssm_diff}, {ssm_share} of the limit)")
+    del logits, plain
+    forward_ms = median_ms(torch, lambda: mamba2.forward(mcfg, mparams,
+                                                         mtoks), reps=3)
+    ssd_ms = median_ms(torch, lambda: smod.ssd_intra(*first_args[0]),
+                       inner=INNER)
+    del first_args
+
+    # teacher-forced decode against the forward, in bf16 and in f32
+    decode_lines = {}
+
+    def widen(tree):
+        return {k: widen(a) if isinstance(a, dict) else a.float()
+                for k, a in tree.items()}
+
+    for name, c, p, rule, n_tok in (
+            ("bf16", mcfg, mparams, "ssm_decode_bf16", SSM_DECODE),
+            ("f32_live", dataclasses.replace(mcfg, param_dtype="float32",
+                                             compute_dtype="float32"),
+             live_ssd(torch, widen(mparams)), "ssm_decode_f32",
+             SSM_DECODE_F32)):
+        dtoks = mtoks[:, :n_tok]
+        want = mamba2.forward(c, p, dtoks)[..., :mvocab]
+        cache = mamba2.init_cache(c, LM_BATCH, device="cuda")
+        worst = 0.0
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        host_s = 0.0
+        steps = []
+        ev0.record()
+        for pos in range(n_tok):
+            t0 = time.perf_counter()
+            logits, cache = mamba2.decode_step(c, p, cache, dtoks[:, pos],
+                                               pos)
+            host_s += time.perf_counter() - t0
+            steps.append(logits[:, :mvocab])
+        ev1.record()
+        torch.cuda.synchronize()
+        got = torch.stack(steps, dim=1)
+        ok, worst = agree(torch, got, want, rule)
+        share = scale_share(torch, got, want, rule)
+        if not ok:
+            raise SystemExit(f"serving: {SSM_ARCH}'s {name} decode "
+                             f"disagrees with its forward "
+                             f"({TOLERANCES[rule]}; max abs diff "
+                             f"{worst}, {share} of the limit)")
+        decode_lines[name] = {
+            "tokens": n_tok, "max_abs_diff_vs_forward": worst,
+            "limit_share": share, "tolerance": TOLERANCES[rule],
+            "decode_ms_per_step": ev0.elapsed_time(ev1) / n_tok,
+            "decode_host_ms_per_step": host_s / n_tok * 1e3}
+        del want, cache, steps, got, dtoks
+    emit({"phase": "serving", "part": "mamba2_forward_decode",
+          "arch": SSM_ARCH, "layers": mcfg.num_layers, "batch": LM_BATCH,
+          "seq": LM_SEQ, "ssd_intra_launches": ssd_launches,
+          "ssd_intra_launches_by_path": ssd_by_path,
+          "ssd_max_abs_diff_vs_plain": plain_diff,
+          "ssd_f64_max_limit_share": f64_share,
+          "ssd_tolerance": [TOLERANCES["ssd"], TOLERANCES["ssd_f64"]],
+          "logits_max_abs_diff_vs_plain_cell": ssm_diff,
+          "logits_limit_share": ssm_share,
+          "logits_tolerance": TOLERANCES["lm_bf16"],
+          "forward_ms": forward_ms,
+          "forward_tokens_per_s": LM_BATCH * LM_SEQ / forward_ms * 1e3,
+          "ssd_ms_per_launch": ssd_ms, "decode": decode_lines})
+
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        line = engine_runs(torch, mcfg, mparams,
+                           requests(SSM_ARCH, mvocab), Path(tmp))
+    emit({"phase": "serving", "part": "engine", **line})
+    del mparams, mtoks
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "serving", "seconds": seconds, "all_agree": True})
+    return {"flash_attention": flash_launches, "ssd_intra": ssd_launches,
+            "flash_attention_by_path": flash_by_path,
+            "ssd_intra_by_path": ssd_by_path, "seconds": seconds}
 
 
 #: Phase 5b: the PlanSet design sweep -- MNIST's {tile-32, sonic, tails} x
@@ -3326,8 +3772,18 @@ def main() -> int:
     # ---- 8, 9. the LM slice: attention and SSD kernels against their plain
     # versions, then the qwen3-0.6b forward at full width
     lm = lm_kernels(torch, np, emit, hopper)
+    # ---- 10. serving: prefill, KV-cache decode and the engine on
+    # qwen3-0.6b, then mamba2-370m's forward through ssd_intra, its decode
+    # and its engine; their launches join the kernels line's
+    served = serving(torch, np, emit, smi_line)
+    for entry in lm:
+        n = served[entry["name"]]
+        entry["launches"] += n
+        entry["serving_launches"] = n
+        entry["serving_launches_by_path"] = served[entry["name"]
+                                                   + "_by_path"]
 
-    # ---- 10. the kernels line, the card, the result
+    # ---- 11. the kernels line, the card, the result
     emit({"kernels": [{
         "name": "charge_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/charge_replay.cu",

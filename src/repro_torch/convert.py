@@ -33,6 +33,7 @@ from .core.fleetsim import FleetPlan
 from .core.inference import Conv2D, DenseFC, MaxPool2D, SimNet, SparseFC
 from .kernels.ops import BlockSparseFC
 from .models import transformer
+from .models.api import param_shapes
 from .models.config import ModelConfig
 from .models.layers import dt
 
@@ -127,15 +128,16 @@ def model_config_from_fields(fields: dict) -> ModelConfig:
 def lm_params_from_numpy(cfg: ModelConfig, params: dict,
                          device="cuda") -> dict:
     """The port's LM parameters from the JAX package's tree with numpy
-    leaves: ``embed``, ``final_norm``, ``lm_head`` (unless the embeddings
-    are tied) and ``layers`` with a leading L dimension on every leaf.
+    leaves, for the dense and ssm families: ``embed``, ``final_norm``,
+    ``lm_head`` (unless a dense model ties the embeddings) and ``layers``
+    with a leading L dimension on every leaf.
     Every leaf is checked against the config's shapes and copied onto
     ``device`` in ``cfg.param_dtype``, so editing the numpy tree afterwards
     changes nothing in the port."""
     from .device import resolve_device
 
     dev = resolve_device(device)
-    want = transformer.param_shapes(cfg)
+    want = param_shapes(cfg)
     flat = {}
 
     def walk(tree, prefix):

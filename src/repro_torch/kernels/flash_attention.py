@@ -113,13 +113,15 @@ def _check_shapes(q, k, v, group: int, bq: int, bk: int) -> None:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool, group: int = 1, bq: int = 128,
-                          bk: int = 128) -> torch.Tensor:
+                          bk: int = 128, q_offset: int = 0) -> torch.Tensor:
     """The kernel's function in plain PyTorch, tile by tile as the Pallas
     kernel computes it: query tiles of ``bq`` rows, KV tiles of ``bk`` keys
     ascending from 0 (tiles wholly above the causal diagonal skipped),
     scores in f32 scaled after the product, masked scores -1e30, running
     (m, l, acc) in f32, p rounded to v's dtype before the p v product, and
     acc / max(l, 1e-30) in q's dtype.  Shapes as :func:`flash_attention`.
+    ``q_offset`` is the absolute position of q's first row in the causal
+    mask (query i sees keys j <= q_offset + i; the kernel has none: 0).
     The model's blockwise path (``models.layers.blockwise_attention``) is
     this function with its chunks as the tiles."""
     bh, sq, d = q.shape
@@ -133,12 +135,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for q0 in range(0, sq, bq):
         qi = q[:, q0:q0 + bq]
         rows = qi.shape[1]
-        qpos = torch.arange(q0, q0 + rows, device=q.device)[:, None]
+        qpos = torch.arange(q_offset + q0, q_offset + q0 + rows,
+                            device=q.device)[:, None]
         m = torch.full((bh, rows), NEG_INF, dtype=f32, device=q.device)
         l = torch.zeros((bh, rows), dtype=f32, device=q.device)
         acc = torch.zeros((bh, rows, d), dtype=f32, device=q.device)
         for k0 in range(0, sk, bk):
-            if causal and k0 > q0 + bq - 1:
+            if causal and k0 > q_offset + q0 + bq - 1:
                 break
             kj, vj = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
             s = torch.matmul(qi.to(f32), kj.to(f32).transpose(1, 2)) * scale

@@ -1,1 +1,2 @@
-"""Launch-side helpers: the fleet replay's device mesh (``mesh``)."""
+"""Launch-side helpers: the fleet replay's device mesh (``mesh``) and the
+batched serving driver (``serve``)."""

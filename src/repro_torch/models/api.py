@@ -3,14 +3,18 @@
 
 Every family exposes the same entry points:
 
-  init_params(cfg, seed, device)            -> params tree
-  forward(cfg, params, tokens)              -> logits (B, S, V) f32
-  loss_fn / init_cache / decode_step        -> later slices
-  input_spec_shapes(cfg, cell)              -> {name: (shape, dtype)}
+  init_params(cfg, seed, device)              -> params tree
+  forward(cfg, params, tokens)                -> logits (B, S, V) f32
+  init_cache(cfg, batch, max_len, device)     -> cache dict (decode state)
+  decode_step(cfg, params, cache, tok, pos)   -> (logits (B, V), cache)
+  loss_fn                                     -> a later slice
+  input_spec_shapes(cfg, cell)                -> {name: (shape, dtype)}
+  cache_spec_shapes(cfg, cell)                -> {name: (shape, dtype)}
 
-The port runs the dense family's full-sequence forward so far.  The other
-families, and the entry points of later slices, raise
-``NotImplementedError`` naming their item in ``ROADMAP.md``.
+The port runs the dense (``transformer``) and ssm (``mamba2``) families;
+``decode_step`` advances the cache in place and returns it.  The other
+families, the MoE block and ``loss_fn`` raise ``NotImplementedError``
+naming their item in ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -18,17 +22,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from . import transformer
+from . import mamba2, transformer
 from .config import ModelConfig, SUBQUADRATIC, ShapeCell
 
 #: ROADMAP.md Queue 1 items of the LM stack that the port does not run yet.
 NOT_PORTED = {
-    "decode_step": "ROADMAP.md Queue 1 item 13 (decode_step / init_cache)",
-    "init_cache": "ROADMAP.md Queue 1 item 13 (decode_step / init_cache)",
     "moe": transformer.MOE_ITEM,
     "loss_fn": "ROADMAP.md Queue 1 item 16 (the losses and training)",
-    "families": "ROADMAP.md Queue 1 item 17 (the ssm, hybrid, encdec and "
-                "vlm families)",
+    "families": "ROADMAP.md Queue 1 item 17 (the hybrid, encdec and vlm "
+                "families)",
 }
 
 
@@ -58,12 +60,25 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.is_moe or fam == "moe":
         raise NotImplementedError(f"{cfg.name}: the MoE block is not ported "
                                   f"yet: {NOT_PORTED['moe']}")
+    if fam == "ssm":
+        return ModelAPI(mamba2.init_params, not_ported("loss_fn"),
+                        mamba2.forward, mamba2.init_cache,
+                        mamba2.decode_step)
     if fam != "dense":
         raise NotImplementedError(f"{cfg.name}: the {fam} family is not "
                                   f"ported yet: {NOT_PORTED['families']}")
     return ModelAPI(transformer.init_params, not_ported("loss_fn"),
-                    transformer.forward, not_ported("init_cache"),
-                    not_ported("decode_step"))
+                    transformer.forward, transformer.init_cache,
+                    transformer.decode_step)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """Every parameter's shape by its dotted name, for the families the
+    port runs (the others are refused as :func:`get_model` refuses
+    them)."""
+    get_model(cfg)
+    family = mamba2 if cfg.family == "ssm" else transformer
+    return family.param_shapes(cfg)
 
 
 def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> tuple[bool, str]:
@@ -109,3 +124,39 @@ def input_spec_shapes(cfg: ModelConfig, cell: ShapeCell) -> dict:
         return {"tokens": ((b, s), "int32")}
     # decode: one new token against a seq_len cache
     return {"token": ((b,), "int32")}
+
+
+def cache_spec_shapes(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Shapes of the decode-state dict for a cell (leading dim layers):
+    {name: (shape, dtype name)}, for every family (shape arithmetic only,
+    so the families not ported yet have theirs too)."""
+    b, s = cell.global_batch, cell.seq_len
+    kd = cfg.kv_dtype or cfg.compute_dtype
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        L, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
+        return {"k": ((L, b, kv, s, hd), kd), "v": ((L, b, kv, s, hd), kd)}
+    if fam == "ssm":
+        d_in, h, n, conv_dim = mamba2._dims(cfg)
+        return {
+            "ssm": ((cfg.num_layers, b, h, n, cfg.ssm_headdim), "float32"),
+            "conv": ((cfg.num_layers, b, cfg.conv_kernel - 1, conv_dim), kd),
+        }
+    if fam == "hybrid":
+        a = cfg.attn_every
+        n_super = cfg.num_layers // a
+        d_in, h, n, conv_dim = mamba2._dims(cfg)
+        return {
+            "ssm": ((cfg.num_layers, b, h, n, cfg.ssm_headdim), "float32"),
+            "conv": ((cfg.num_layers, b, cfg.conv_kernel - 1, conv_dim), kd),
+            "k": ((n_super, b, cfg.num_kv_heads, s, cfg.hd), kd),
+            "v": ((n_super, b, cfg.num_kv_heads, s, cfg.hd), kd),
+        }
+    if fam == "encdec":
+        L, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
+        return {
+            "k": ((L, b, kv, s, hd), kd), "v": ((L, b, kv, s, hd), kd),
+            "xk": ((L, b, kv, cfg.encoder_seq, hd), kd),
+            "xv": ((L, b, kv, cfg.encoder_seq, hd), kd),
+        }
+    raise ValueError(fam)

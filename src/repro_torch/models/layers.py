@@ -1,6 +1,6 @@
 """Common neural layers in PyTorch: norms, RoPE, attention (blockwise
-flash-style, or the CUDA flash kernel), SwiGLU MLP -- the counterpart of
-the JAX package's ``repro.models.layers`` for the full-sequence forward.
+flash-style, or the CUDA flash kernel, and cached single-token decode),
+SwiGLU MLP -- the counterpart of the JAX package's ``repro.models.layers``.
 
 Every function here operates on a *single* layer's params; the model loops
 over the layers.  The bf16 rounding points are the JAX package's: norms
@@ -9,8 +9,6 @@ are f32, and p is rounded to v's dtype before the p v product.
 
 The JAX package's ``shardctx.constrain`` calls are dropped: with no
 launcher rules installed (one device) they return their input unchanged.
-``cached_decode_attention`` and ``attention_decode`` belong to the decode
-slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -25,7 +23,8 @@ from ..kernels.ops import flash_attention
 from .config import ModelConfig
 
 F32 = torch.float32
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def dt(cfg_dtype: str) -> torch.dtype:
@@ -73,15 +72,15 @@ def apply_rope(x, positions, theta: float):
 # --------------------------------------------------------------------------
 
 def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int,
-                        k_chunk: int):
+                        k_chunk: int, q_offset: int = 0):
     """Flash-style online-softmax attention with O(chunk^2) memory, in
     plain PyTorch on either device: the attention kernel's plain version
     (``kernels.flash_attention.flash_attention_plain``) with the chunks as
     its tiles.
 
     q: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d); query head h reads kv head
-    h // g.  The causal mask is start-aligned (the JAX package's
-    ``q_offset`` = 0; decode continuation waits for its slice).  The JAX
+    h // g.  ``q_offset`` is the absolute position of q[0] (for decode or
+    prefill continuation): query i sees keys j <= q_offset + i.  The JAX
     package computes every (query chunk, key chunk) pair; the pairs wholly
     above the causal diagonal are skipped here, which changes no bit: their
     p are exp(-1e30 - m) = 0 and their correction exp(m - m) = 1."""
@@ -90,12 +89,37 @@ def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int,
     out = flash_attention_plain(
         q.reshape(b * hq, sq, d), k.reshape(b * hkv, sk, d),
         v.reshape(b * hkv, sk, d), causal=causal, group=hq // hkv,
-        bq=q_chunk, bk=k_chunk)
+        bq=q_chunk, bk=k_chunk, q_offset=q_offset)
     return out.reshape(b, hq, sq, d)
 
 
+def cached_decode_attention(q, k_cache, v_cache, cache_len: int):
+    """Single-token attention against a fixed-size KV cache.
+
+    q: (B, Hq, 1, d); caches: (B, Hkv, Smax, d); ``cache_len``: the number
+    of valid cache entries (the new token's K/V already inserted).  Plain
+    PyTorch, as XLA computes it in the JAX package: the caches are cast to
+    q's dtype (an fp8 cache dequantizes here), the scores are products of
+    q's dtype summed in f32 (both operands widened, so a bf16 model's
+    scores are not rounded to bf16) and divided by sqrt(d), the entries at
+    ``cache_len`` and beyond are set to -1e30, and p is rounded to the
+    cache's (cast) dtype before the p v product in f32."""
+    b, hq, _, d = q.shape
+    _, hkv, smax, _ = k_cache.shape
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d).to(F32)
+    kc = k_cache.to(q.dtype)
+    s = torch.matmul(qg, kc.to(F32).transpose(-1, -2)) / math.sqrt(d)
+    mask = torch.arange(smax, device=q.device) < cache_len
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    vc = v_cache.to(q.dtype)
+    out = torch.matmul(p.to(vc.dtype).to(F32), vc.to(F32))  # (B,Hkv,g,d)
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
 # --------------------------------------------------------------------------
-# Attention block (one layer): params + apply for the full sequence
+# Attention block (one layer): params + apply for full-seq and decode
 # --------------------------------------------------------------------------
 
 def attn_param_shapes(cfg: ModelConfig) -> dict:
@@ -131,25 +155,60 @@ def attn_qkv(cfg: ModelConfig, p: dict, x, positions):
     return q, k, v
 
 
-def attention_block(cfg: ModelConfig, p: dict, x, positions, *,
-                    causal: bool = True):
-    """One layer's attention over the full sequence.  With
+def attention_out(cfg: ModelConfig, p: dict, q, k, v, *,
+                  causal: bool = True):
+    """Attention of q (B,H,S,hd) over k, v (B,KV,S,hd) from position 0,
+    then the output projection: (B, S, D).  With
     ``cfg.use_pallas_attention`` it runs ``kernels.flash_attention`` --
     the CUDA kernel for CUDA tensors, its plain version for CPU tensors
     (there is no silent fallback to the blockwise path on the card);
-    otherwise :func:`blockwise_attention`."""
-    q, k, v = attn_qkv(cfg, p, x, positions)
+    otherwise :func:`blockwise_attention`.  The full-sequence forward and
+    ``transformer.prefill`` both take this choice."""
+    b, _, s, _ = q.shape
     if cfg.use_pallas_attention:
         out = flash_attention(q, k, v, causal=causal,
                               bq=min(cfg.q_chunk, 128),
                               bk=min(cfg.k_chunk, 128))
     else:
         out = blockwise_attention(q, k, v, causal=causal,
-                                  q_chunk=min(cfg.q_chunk, x.shape[1]),
-                                  k_chunk=min(cfg.k_chunk, x.shape[1]))
-    b, s, _ = x.shape
+                                  q_chunk=min(cfg.q_chunk, s),
+                                  k_chunk=min(cfg.k_chunk, s))
     out = out.transpose(1, 2).reshape(b, s, -1)
     return out @ p["wo"]
+
+
+def attention_block(cfg: ModelConfig, p: dict, x, positions, *,
+                    causal: bool = True):
+    """One layer's attention over the full sequence
+    (:func:`attention_out` of :func:`attn_qkv`)."""
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    return attention_out(cfg, p, q, k, v, causal=causal)
+
+
+def attention_decode(cfg: ModelConfig, p: dict, x, cache_k, cache_v,
+                     pos: int):
+    """x: (B, 1, D); caches (B, KV, Smax, hd); ``pos``: the index of the
+    new token.  Returns (out, cache_k, cache_v).
+
+    The new K/V rows are written into the caches **in place** (a slice
+    assignment) and the same tensors are returned: the JAX package's
+    ``dynamic_update_slice`` returns new caches and leaves the old ones as
+    they were, which here would copy the whole cache every token.  Where
+    ``dynamic_update_slice`` clamps a ``pos`` >= Smax and silently
+    overwrites the last slot, this raises ``ValueError``."""
+    pos = int(pos)
+    smax = cache_k.shape[2]
+    if not 0 <= pos < smax:
+        raise ValueError(f"decode position {pos} is outside the KV cache's "
+                         f"{smax} slots")
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    cache_k[:, :, pos] = k[:, :, 0].to(cache_k.dtype)
+    cache_v[:, :, pos] = v[:, :, 0].to(cache_v.dtype)
+    out = cached_decode_attention(q, cache_k, cache_v, pos + 1)
+    out = out.transpose(1, 2).reshape(b, 1, -1)
+    return out @ p["wo"], cache_k, cache_v
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM (dense GQA): the full-sequence forward, the
+"""Decoder-only transformer LM (dense GQA): the full-sequence forward and
+KV-cache serving (``prefill``, ``init_cache``, ``decode_step``), the
 counterpart of the JAX package's ``repro.models.transformer``.
 
 Covers the dense configs (llama3, qwen1.5, qwen2.5, qwen3).  Parameters
@@ -7,9 +8,9 @@ are a dict tree named as the JAX package's (``embed``, ``final_norm``,
 ``mlp.w_gate`` ...), every layer leaf carrying a leading L dimension, so a
 JAX tree carries across leaf for leaf (``repro_torch.convert``).  The
 stack is a Python loop over the layers in place of ``lax.scan``; ``remat``
-has no meaning without a backward pass.  The MoE block, ``prefill``,
-``decode_step``, ``init_cache`` and the losses belong to later slices
-(``ROADMAP.md``).
+has no meaning without a backward pass.  ``decode_step`` writes the cache
+in place (see :func:`decode_step`).  The MoE block and the losses belong
+to later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig
-from .layers import (F32, attn_param_shapes, attention_block, dt,
-                     init_from_shapes, mlp_block, mlp_param_shapes, rms_norm)
+from .layers import (F32, attn_param_shapes, attn_qkv, attention_block,
+                     attention_decode, attention_out, dt, init_from_shapes,
+                     mlp_block, mlp_param_shapes, rms_norm)
 
 #: Where the MoE block waits in ``ROADMAP.md``.
 MOE_ITEM = "ROADMAP.md Queue 1 item 15 (the MoE block)"
@@ -149,3 +151,81 @@ def logits_fn(cfg: ModelConfig, params: dict, x):
 def forward(cfg: ModelConfig, params: dict, tokens):
     """tokens: (B, S) integer -> f32 logits (B, S, vocab_padded)."""
     return logits_fn(cfg, params, hidden_states(cfg, params, tokens))
+
+
+# --------------------------------------------------------------------------
+# KV-cache serving
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> dict:
+    """Zero K and V caches (L, B, KV, max_len, hd) on ``device``, in
+    ``cfg.kv_dtype`` (float8_e4m3fn halves them) or the compute dtype."""
+    from ..device import resolve_device
+
+    _refuse_moe(cfg)
+    kd = dt(cfg.kv_dtype or cfg.compute_dtype)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.hd)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=kd, device=dev),
+            "v": torch.zeros(shape, dtype=kd, device=dev)}
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, token,
+                pos: int):
+    """token: (B,) integer; ``pos``: the position of the new token.  One
+    new token against the cache; returns (logits (B, V) f32, cache).
+
+    Unlike the JAX package, which returns a new cache and leaves the old
+    one as it was, the new K/V rows are written into ``cache`` in place and
+    the same dict is returned (a functional copy would move the whole
+    cache every token); a ``pos`` past the cache raises ``ValueError``
+    where ``dynamic_update_slice`` would clamp it onto the last slot
+    (``layers.attention_decode``)."""
+    _refuse_moe(cfg)
+    x = params["embed"].to(dt(cfg.compute_dtype))[token][:, None, :]
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        pl = _layer(layers, i)
+        h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+        a, _, _ = attention_decode(cfg, pl["attn"], h, cache["k"][i],
+                                   cache["v"][i], pos)
+        x = x + a
+        h = rms_norm(x, pl["ln2"], cfg.norm_eps)
+        x = x + mlp_block(pl["mlp"], h)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return logits_fn(cfg, params, x)[:, 0, :], cache
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens, max_len: int):
+    """Run the prompt, returning (last-position logits (B, V) f32, filled
+    cache).  tokens: (B, S) integer, S <= ``max_len``.
+
+    Attention takes the forward's choice (``layers.attention_out``): with
+    ``cfg.use_pallas_attention`` the flash kernel on CUDA tensors, once a
+    layer; the JAX package always calls ``blockwise_attention``, which is
+    the same causal function from position 0.  The cache holds each
+    layer's K/V in the compute dtype (the JAX package pads them, whatever
+    ``kv_dtype`` says), zero past S."""
+    _refuse_moe(cfg)
+    b, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
+                         f"{max_len} slots")
+    x = params["embed"].to(dt(cfg.compute_dtype))[tokens]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    shape = (cfg.num_layers, b, cfg.num_kv_heads, max_len, cfg.hd)
+    cache = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
+             "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        pl = _layer(layers, i)
+        h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+        q, k, v = attn_qkv(cfg, pl["attn"], h, positions)
+        x = x + attention_out(cfg, pl["attn"], q, k, v)
+        h = rms_norm(x, pl["ln2"], cfg.norm_eps)
+        x = x + mlp_block(pl["mlp"], h)
+        cache["k"][i, :, :, :s] = k
+        cache["v"][i, :, :, :s] = v
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return logits_fn(cfg, params, x[:, -1:, :])[:, 0, :], cache

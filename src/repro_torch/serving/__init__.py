@@ -1,12 +1,9 @@
-"""The host end of the edge-device uplink: at-least-once messages deduped
-by per-device sequence number, each accepted one a cursor commit.
+"""Preemption-safe serving: cursor-committed decode + undo-logged KV pages,
+plus the host end of the edge-device uplink."""
 
-The JAX package's ``repro.serving`` also holds the preemption-safe decode
-engine (``ServeEngine``, ``Request``) and its undo-logged KV pages
-(``PagedKVStore``); those wait for decode in the port (``ROADMAP.md``
-Queue 1, item 14).
-"""
-
+from .engine import Request, ServeEngine
+from .kvstore import PagedKVStore
 from .uplink import MSG_KINDS, UplinkAggregator, UplinkMessage
 
-__all__ = ["MSG_KINDS", "UplinkAggregator", "UplinkMessage"]
+__all__ = ["MSG_KINDS", "PagedKVStore", "Request", "ServeEngine",
+           "UplinkAggregator", "UplinkMessage"]

@@ -17,7 +17,12 @@ design sweep) must equal the plain version, the direct design and every
 candidate's own sweep; the statistics fold kernel its plain version
 bitwise; a streamed ``reduce="stats"`` sweep on the card the same sweep on
 the CPU, whatever its prefetch depth; the closed-form scan (one CUDA
-graph a row) the CPU's loop bitwise.  Every test skips, from
+graph a row) the CPU's loop bitwise.  Serving: ``prefill`` must launch
+the attention kernel once a layer, and prefill and decode agree with the
+forward; mamba2's forward must launch the SSD kernel once a layer (on its
+wgmma design) and agree with the plain cell's, and its decode with its
+forward; the engine's tokens must be the same on a second run and after
+preemption and resumption.  Every test skips, from
 inside the test, where no card is visible; run them on the card with
 ``python -m pytest -m gpu``."""
 
@@ -1022,3 +1027,105 @@ def test_lm_kernels_refuse_what_they_do_not_take():
     bb = torch.randn(1, 4, 5, device="cuda")
     with pytest.raises(TypeError, match="cs must be"):
         ssd_intra(x, bb, bb, torch.randn(1, 2, 4, device="cuda").double())
+
+
+def test_prefill_launches_flash_once_a_layer_and_decode_agrees():
+    """qwen3-0.6b scaled down on the card, f32: 2 launches in prefill, its
+    logits and 6 decode steps' within 2e-5 max |logit| of the forward's."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config("qwen3-0.6b").scaled_down(use_pallas_attention=True)
+    params = transformer.init_params(cfg, seed=0)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, 256, (2, 40)),
+                        device="cuda")
+    full = transformer.forward(cfg, params, toks)
+    mod = _kmod("flash_attention")
+    mod.flash_attention.launches = 0
+    got, cache = transformer.prefill(cfg, params, toks[:, :34], 48)
+    torch.cuda.synchronize()
+    assert mod.flash_attention.launches == cfg.num_layers
+    scale = float(full.abs().max())
+    assert float((got - full[:, 33]).abs().max()) <= 2e-5 * scale
+    for pos in range(34, 40):
+        got, cache = transformer.decode_step(cfg, params, cache,
+                                             toks[:, pos], pos)
+        assert float((got - full[:, pos]).abs().max()) <= 2e-5 * scale
+    assert cache["k"].device.type == "cuda"
+
+
+def _mamba2_on_card():
+    """mamba2-370m at small widths the SSD kernel's wgmma design takes
+    (P = 64, N = 64, chunk 64), f32, on the card, with the conv taps x 500
+    and ``dt_bias`` 0 so that the SSD's output matters to the logits (the
+    init recipe leaves it 1e-6 of the skip path's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2
+    cfg = get_config("mamba2-370m").scaled_down(ssm_headdim=64,
+                                                ssm_state=64, ssm_chunk=64)
+    params = mamba2.init_params(cfg, seed=0)
+    layers = params["layers"]
+    layers["conv_w"] = layers["conv_w"] * 500.0
+    layers["dt_bias"] = torch.zeros_like(layers["dt_bias"])
+    return cfg, params
+
+
+def test_mamba2_forward_launches_ssd_once_a_layer_and_decode_agrees():
+    """Two launches of the wgmma SSD kernel in one forward over 2 chunks;
+    logits within 2e-5 max |logit| of the same forward with the plain cell
+    (3xTF32 keeps f32 accuracy) and 16 decode steps within 1e-4 (the
+    recurrent form)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import ref
+    from repro_torch.models import mamba2
+    cfg, params = _mamba2_on_card()
+    toks = torch.tensor(np.random.default_rng(1).integers(0, 256, (2, 128)),
+                        device="cuda")
+    mod = _kmod("ssd_intra")
+    mod.ssd_intra.launches = 0
+    for p in mod.ssd_intra.launches_by_path:
+        mod.ssd_intra.launches_by_path[p] = 0
+    got = mamba2.forward(cfg, params, toks)
+    torch.cuda.synchronize()
+    assert mod.ssd_intra.launches == cfg.num_layers
+    assert mod.ssd_intra.launches_by_path["wgmma"] == cfg.num_layers
+    kernel = mamba2.ssd_intra
+    mamba2.ssd_intra = ref.ssd_intra_ref
+    try:
+        want = mamba2.forward(cfg, params, toks)
+    finally:
+        mamba2.ssd_intra = kernel
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2e-5 * scale
+    cache = mamba2.init_cache(cfg, 2)
+    for pos in range(16):
+        step, cache = mamba2.decode_step(cfg, params, cache, toks[:, pos],
+                                         pos)
+        assert float((step - got[:, pos]).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-370m"])
+def test_engine_on_card_repeats_and_resumes_bitwise(arch, tmp_path):
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Request, ServeEngine
+    cfg = get_config(arch).scaled_down(param_dtype="bfloat16",
+                                       compute_dtype="bfloat16")
+    params = get_model(cfg).init_params(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, 6).tolist() for _ in range(3)]
+
+    def reqs():
+        return [Request(f"r{i}", p, 8) for i, p in enumerate(prompts)]
+
+    ref = ServeEngine(cfg, params, tmp_path / "a", max_len=16).run(reqs())
+    assert ServeEngine(cfg, params, tmp_path / "b", max_len=16).run(
+        reqs()) == ref
+    with pytest.raises(RuntimeError, match="preempted"):
+        ServeEngine(cfg, params, tmp_path / "c", max_len=16).run(
+            reqs(), fail_after_tokens=3)
+    assert ServeEngine(cfg, params, tmp_path / "c", max_len=16).run(
+        reqs()) == ref

@@ -1,30 +1,21 @@
 """The port's packages export every name of their JAX twins: ``__all__``
-of ``repro_torch.core``, ``.runtime``, ``.checkpoint`` and ``.optim``
-equals that of ``repro.core``, ``.runtime``, ``.checkpoint`` and
-``.optim``, and every exported name resolves.  ``repro_torch.serving``
-exports the uplink's names (its decode engine waits for decode)."""
+of ``repro_torch.core``, ``.runtime``, ``.checkpoint``, ``.optim`` and
+``.serving`` equals that of ``repro.core``, ``.runtime``, ``.checkpoint``,
+``.optim`` and ``.serving``, and every exported name resolves."""
 
 import importlib
 
 import pytest
 
 
-@pytest.mark.parametrize("pkg", ["core", "runtime", "checkpoint", "optim"])
+@pytest.mark.parametrize("pkg", ["core", "runtime", "checkpoint", "optim",
+                                 "serving"])
 def test_all_equals_the_jax_twin(pkg):
     port = importlib.import_module(f"repro_torch.{pkg}")
     ref = importlib.import_module(f"repro.{pkg}")
     assert port.__all__ == ref.__all__
     for name in port.__all__:
         assert hasattr(port, name), name
-
-
-def test_serving_exports_the_uplink():
-    import repro.serving
-    import repro_torch.serving
-
-    names = ["MSG_KINDS", "UplinkAggregator", "UplinkMessage"]
-    assert repro_torch.serving.__all__ == names
-    assert set(names) <= set(repro.serving.__all__)
 
 
 def test_mesh_exports_the_fleet_half():

@@ -6,7 +6,9 @@ PHASE is one of ``overlap`` (the JAX package's overlap protocol through the
 port), ``streamed_stats`` (the streamed sweep of ``mnist_net()``),
 ``genesis`` (GENESIS end to end), ``while_oracle`` (the legacy
 ``backend="_while"`` oracle against the lane kernel), ``mesh``
-(``mesh=`` sweeps against unmeshed ones), or one of two diagnostics of
+(``mesh=`` sweeps against unmeshed ones), ``serving`` (qwen3-0.6b's
+prefill, decode and engine, and mamba2-370m's forward, decode and engine;
+it builds the attention and SSD kernels), or one of two diagnostics of
 the streamed pipeline's producer thread:
 
 * ``host_alone``: three 65,536-lane chunks' host work (the samplers and
@@ -36,7 +38,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("overlap", "streamed_stats", "genesis", "while_oracle", "mesh",
-          "host_alone", "unpinned")
+          "serving", "host_alone", "unpinned")
 
 
 def emit(obj) -> None:
@@ -138,6 +140,9 @@ def main() -> int:
         elif phase == "while_oracle":
             emit({"phase": "while_oracle", **cs.while_oracle(
                 torch, np, emit, fleetsim, wrapper, classes)})
+        elif phase == "serving":
+            _build.build("flash_attention", "ssd_intra")
+            cs.serving(torch, np, emit, smi)
         else:
             if plan is None:
                 plan = fleetsim.build_plan(net, x, "tails", "1mF")
