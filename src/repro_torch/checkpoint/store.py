@@ -12,7 +12,12 @@ datacenter scale.
 
 The PyTorch counterpart of the JAX package's ``checkpoint/store.py``:
 leaf files are byte for byte the ones that package writes for the same
-arrays; only the manifest's ``treedef`` string is the port's own.
+arrays; only the manifest's ``treedef`` string is the port's own, and its
+``dtypes`` field (each leaf's dtype) is the port's addition.  A leaf of a
+dtype numpy has no type for (bf16, the float8 types) is written as its
+raw bits, an unsigned integer array of the same width, and restored bit
+for bit as a tensor of the dtype the manifest names (the JAX package
+writes such an array as untyped ``|V2`` bytes).
 """
 
 from __future__ import annotations
@@ -24,6 +29,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+#: Float dtypes that numpy has no type for, by name, and the unsigned
+#: integer type of the same width their raw bits are saved as.
+_RAW_BITS = {name: np.uint16 if name == "bfloat16" else np.uint8
+             for name in ("bfloat16", "float8_e4m3fn", "float8_e4m3fnuz",
+                          "float8_e5m2", "float8_e5m2fnuz", "float8_e8m0fnu")
+             if hasattr(torch, name)}
+_SIGNED = {np.uint16: torch.int16, np.uint8: torch.uint8}
 
 
 def atomic_write_bytes(path: Path, data: bytes) -> None:
@@ -80,23 +93,27 @@ class SlotStore:
         rename leaves the committed front untouched.  ``tree`` is a nested
         dict / list / tuple of tensors or numpy arrays; leaves are written
         in the JAX package's order (dict keys sorted, sequences in order),
-        each as the ``.npy`` file that package writes."""
+        each as the ``.npy`` file that package writes (a bf16 or float8
+        leaf as its raw bits, the dtype kept in the manifest's
+        ``dtypes``)."""
         slot = self.back_slot()
         slot_dir = self.root / slot
         leaves = _flatten(tree)
-        names = []
+        names, dtypes = [], []
         for i, leaf in enumerate(leaves):
             name = f"leaf{i:05d}.npy"
-            arr = _host_array(leaf)
+            arr, dtype = _host_array(leaf)
             with open(slot_dir / (name + ".tmp"), "wb") as f:
                 np.save(f, arr)
             os.replace(slot_dir / (name + ".tmp"), slot_dir / name)
             names.append(name)
+            dtypes.append(dtype)
         manifest = {
             "slot": slot,
             "leaves": names,
             "treedef": _treedef_repr(tree),
             "meta": meta or {},
+            "dtypes": dtypes,
         }
         atomic_write_json(self.root / self.MANIFEST, manifest)
         return slot
@@ -104,14 +121,18 @@ class SlotStore:
     def restore(self, like=None):
         """Load the committed front slot.  ``like`` (a tree of the saved
         structure) supplies the structure; where its leaf is a tensor the
-        restored leaf is a tensor on that leaf's device, else a numpy
-        array.  Restore is mesh-agnostic: callers place leaves wherever
-        the current run needs them (elastic rescale)."""
+        restored leaf is a tensor of that leaf's dtype on its device, else
+        the array as saved: numpy, or a CPU tensor for a leaf saved as raw
+        bits (bf16, float8), which numpy cannot hold.  Restore is
+        mesh-agnostic: callers place leaves wherever the current run needs
+        them (elastic rescale)."""
         m = self.manifest()
         if m is None:
             return None, None
         slot_dir = self.root / m["slot"]
-        arrays = [np.load(slot_dir / n) for n in m["leaves"]]
+        dtypes = m.get("dtypes") or [None] * len(m["leaves"])
+        arrays = [_from_host(np.load(slot_dir / n), dt)
+                  for n, dt in zip(m["leaves"], dtypes)]
         if like is not None:
             tree = _unflatten(like, iter(arrays))
         else:
@@ -138,17 +159,44 @@ def _unflatten(like, leaves):
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(t, leaves) for t in like)
+        items = [_unflatten(t, leaves) for t in like]
+        # a named tuple (an optimizer state) takes its fields one by one
+        return type(like)(*items) if hasattr(like, "_fields") \
+            else type(like)(items)
     arr = next(leaves)
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(arr).to(like.device)
+        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr)
+        return t.to(device=like.device, dtype=like.dtype)
     return arr
 
 
-def _host_array(leaf) -> np.ndarray:
+def _host_array(leaf) -> tuple[np.ndarray, str]:
+    """The numpy array written for ``leaf`` and the leaf's dtype name: a
+    dtype of :data:`_RAW_BITS` as its raw bits."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        name = str(leaf.dtype).removeprefix("torch.")
+        if name in _RAW_BITS:
+            bits = _RAW_BITS[name]
+            return (leaf.contiguous().view(_SIGNED[bits]).numpy()
+                    .view(bits), name)
+        return leaf.numpy(), name
+    arr = np.asarray(leaf)
+    name = arr.dtype.name
+    if name in _RAW_BITS:                 # an ml_dtypes array
+        return np.ascontiguousarray(arr).view(_RAW_BITS[name]), name
+    return arr, name
+
+
+def _from_host(arr: np.ndarray, dtype: str | None):
+    """A loaded leaf: a CPU tensor of ``dtype`` for raw bits, else the
+    numpy array."""
+    if dtype not in _RAW_BITS:
+        return arr
+    bits = _RAW_BITS[dtype]
+    return torch.from_numpy(np.ascontiguousarray(arr).view(bits).view(
+        np.int16 if bits is np.uint16 else np.uint8)).view(
+            getattr(torch, dtype))
 
 
 def _treedef_repr(tree) -> str:

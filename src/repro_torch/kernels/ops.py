@@ -178,7 +178,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the order in which ``models.layers.blockwise_attention`` expands GQA;
     the kernel indexes it without copying k and v out.  ``bq`` and ``bk``
     are the tiles of the plain version (CPU tensors), the Pallas kernel's;
-    the CUDA kernel runs its own.  Returns (B, H, Sq, d) in q's dtype."""
+    the CUDA kernel runs its own.  Returns (B, H, Sq, d) in q's dtype.
+    On CUDA tensors the kernel runs under :class:`FlashAttentionFunction`,
+    so a loss through it has a gradient (the plain version's); on CPU
+    tensors the plain version is differentiated as it is."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[0] != q.shape[0] or k.shape[1] < 1 \
             or q.shape[1] % k.shape[1]:
@@ -187,8 +190,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(B, Hkv, Sk, d) with Hkv dividing H")
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    out = _flash(q.reshape(b * h, sq, d).contiguous(),
-                 k.reshape(b * hkv, sk, d).contiguous(),
-                 v.reshape(b * hkv, sk, d).contiguous(), causal=causal,
-                 group=h // hkv, bq=bq, bk=bk)
+    args = (q.reshape(b * h, sq, d).contiguous(),
+            k.reshape(b * hkv, sk, d).contiguous(),
+            v.reshape(b * hkv, sk, d).contiguous())
+    if q.device.type == "cpu":
+        out = _flash(*args, causal=causal, group=h // hkv, bq=bq, bk=bk)
+    else:
+        out = FlashAttentionFunction.apply(*args, causal, h // hkv, bq, bk)
     return out.reshape(b, h, sq, d)
+
+
+#: The tiles at which :class:`FlashAttentionFunction`'s backward
+#: recomputes the plain version.  Its autograd keeps every tile pair's
+#: scores, some S^2 / 2 f32 a head whatever the tiles, so larger tiles
+#: cost little memory and cut the eager operations a pair takes (36 pairs
+#: a head at 128-wide tiles over 1,024 tokens, 3 at 512).
+BACKWARD_TILE = 512
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The attention kernel under autograd: the forward is the CUDA kernel
+    (``kernels.flash_attention.flash_attention``, counted there) exactly
+    as without a gradient; the backward recomputes the plain version
+    (``flash_attention_plain`` at :data:`BACKWARD_TILE` tiles) from the
+    saved q, k and v and returns its vector-Jacobian product.  That is the
+    function the JAX package differentiates (XLA autodiff of its blockwise
+    attention, which recomputes in the backward); the Pallas kernel has no
+    backward.  ``apply(q, k, v, causal, group, bq, bk)`` on (BH, S, d)
+    operands; on CPU tensors the forward is the plain version at tiles
+    ``bq`` x ``bk``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, group, bq, bk):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.group = causal, group
+        return _flash(q, k, v, causal=causal, group=group, bq=bq, bk=bk)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        from .flash_attention import flash_attention_plain
+
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = flash_attention_plain(*ins, causal=ctx.causal,
+                                        group=ctx.group, bq=BACKWARD_TILE,
+                                        bk=BACKWARD_TILE)
+            grads = torch.autograd.grad(out, ins, d_out)
+        return (*grads, None, None, None, None)

@@ -88,8 +88,11 @@ def ssd_intra_ref(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
     xdt (BC, H, Q, P), bb/cc (BC, Q, N), cs (BC, H, Q) -> y (BC, H, Q, P),
     s (BC, H, N, P): ``G = C B^T``, ``M = G * exp(cs_i - cs_j)`` for
     j <= i (else 0), ``y = M xdt``, ``s = B^T (exp(cs_Q - cs) * xdt)``.
-    The exponential of a masked pair may overflow; ``torch.where`` drops
-    it without touching the kept entries, as ``jnp.where`` does.
+    The exponent of a masked pair (j > i) is set to -inf before the
+    exponential: where a steep decay would overflow it (cs_i - cs_j past
+    88 at realistic chunk lengths), the JAX package's ``where`` drops the
+    infinity from the value but its gradient multiplies 0 by it and is
+    NaN; here the value is the same bit for bit and the gradient finite.
 
     bf16 inputs are widened (every bf16 product is exact in f32).  A bf16
     cs is rounded to bf16 where the JAX kernel's arithmetic rounds it: its
@@ -107,8 +110,9 @@ def ssd_intra_ref(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
     xdt, bb, cc, cs = (t.to(dtype) for t in (xdt, bb, cc, cs))
     q = xdt.shape[2]
     g = torch.matmul(cc, bb.transpose(-1, -2))[:, None]       # (BC,1,Q,Q)
-    l_log = in_cs(cs[..., :, None] - cs[..., None, :])         # (BC,H,Q,Q)
     causal = torch.ones((q, q), dtype=torch.bool, device=xdt.device).tril()
+    l_log = torch.where(causal, in_cs(cs[..., :, None] - cs[..., None, :]),
+                        -math.inf)                             # (BC,H,Q,Q)
     m = torch.where(causal, g * torch.exp(l_log), 0.0)
     y = torch.matmul(m, xdt)
     decay_end = in_cs(torch.exp(in_cs(cs[..., -1:] - cs)))     # (BC,H,Q)

@@ -24,8 +24,9 @@ no path function picks it.
 
 Both evaluate the exponential of a masked pair, which overflows at
 realistic chunk lengths, never.  Each input may be f32 or bf16, as in the
-JAX package; y and S are f32.  No model of either package calls it: it is
-reached through the ``kernels`` entry point.
+JAX package; y and S are f32.  ``models.mamba2.ssd_chunked`` calls it
+once a layer; under autograd :class:`SSDIntraFunction` gives it the plain
+cell's gradient.
 """
 
 from __future__ import annotations
@@ -131,14 +132,39 @@ def ssd_intra(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
     :func:`~.ref.ssd_intra_ref` says for a bf16 cs.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    :func:`ssd_path` names on the current stream and count the launch in
-    ``ssd_intra.launches`` and ``ssd_intra.launches_by_path``.  Nothing
-    falls back."""
+    :func:`ssd_path` names on the current stream, under
+    :class:`SSDIntraFunction` (so a loss through it has the plain cell's
+    gradient), and count the launch in ``ssd_intra.launches`` and
+    ``ssd_intra.launches_by_path``.  Nothing falls back."""
     _check(xdt, bb, cc, cs)
     if xdt.device.type == "cpu":
         return ssd_intra_ref(xdt, bb, cc, cs)
     _check_cuda(xdt, bb, cc, cs)
-    return _run(xdt, bb, cc, cs, ssd_path(xdt, bb, cc, cs))
+    return SSDIntraFunction.apply(xdt, bb, cc, cs)
+
+
+class SSDIntraFunction(torch.autograd.Function):
+    """The SSD cell's kernel under autograd: the forward launches the
+    kernel :func:`ssd_path` names, exactly as without a gradient (and
+    counts it); the backward recomputes the plain cell
+    (:func:`~.ref.ssd_intra_ref`) from the saved inputs and returns its
+    vector-Jacobian product -- the function the JAX package differentiates
+    (XLA autodiff of ``ssd_chunked``'s einsums; the Pallas kernel has no
+    backward).  ``apply(xdt, bb, cc, cs)``; on CPU tensors the forward is
+    the plain cell too."""
+
+    @staticmethod
+    def forward(ctx, xdt, bb, cc, cs):
+        ctx.save_for_backward(xdt, bb, cc, cs)
+        if xdt.device.type == "cpu":
+            return ssd_intra_ref(xdt, bb, cc, cs)
+        return _run(xdt, bb, cc, cs, ssd_path(xdt, bb, cc, cs))
+
+    @staticmethod
+    def backward(ctx, d_y, d_s):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            return torch.autograd.grad(ssd_intra_ref(*ins), ins, (d_y, d_s))
 
 
 def launch(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,

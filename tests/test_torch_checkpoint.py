@@ -4,7 +4,9 @@ cursors, sparse deltas) against the JAX package's, on the CPU.
 The cases of ``tests/test_checkpoint.py``, and the leaf files: saving the
 same numpy tree with both packages' ``SlotStore`` must write byte-equal
 ``leafNNNNN.npy`` files (the manifest's ``treedef`` string is each
-package's own), whether the port is handed numpy arrays or tensors.
+package's own), whether the port is handed numpy arrays or tensors.  The
+port's bf16 and float8 leaves (which the JAX package writes as untyped
+bytes) round-trip bit for bit with their dtypes.
 """
 
 import json
@@ -15,6 +17,7 @@ import torch
 
 from repro.checkpoint import SlotStore as JaxSlotStore
 from repro_torch.checkpoint import Cursor, SlotStore, SparseDeltaFile
+from repro_torch.optim import adamw
 
 
 def _tree():
@@ -136,3 +139,61 @@ def test_sparse_delta_files_match_jax(tmp_path):
     assert up["values"].shape == (1, 8)
     np.testing.assert_array_equal(up["rows"], uj["rows"])
     np.testing.assert_array_equal(up["values"], uj["values"])
+
+
+# --------------------------------------------------------------------------
+# bf16 and float8 leaves, the dtype of every published config's weights
+# --------------------------------------------------------------------------
+
+def _every_pattern(dtype):
+    """A tensor of ``dtype`` holding every bit pattern of its width (NaNs,
+    infinities and negative zero among them)."""
+    if dtype == torch.bfloat16:
+        bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    else:
+        bits = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    return bits.view(dtype), bits
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn,
+                                   torch.float8_e5m2])
+def test_slot_store_round_trips_raw_bits_leaves(tmp_path, dtype):
+    leaf, bits = _every_pattern(dtype)
+    tree = {"w": leaf.reshape(-1, 16), "b": [torch.ones(3), leaf[:5]],
+            "n": np.arange(4, dtype=np.int32)}
+    store = SlotStore(tmp_path / "ck")
+    store.save(tree, meta={"step": 2})
+    name = str(dtype).removeprefix("torch.")
+    # leaves in the JAX package's order: keys sorted, lists in order
+    assert store.manifest()["dtypes"] == ["float32", name, "int32", name]
+    got, meta = store.restore(like=tree)
+    assert meta == {"step": 2}
+    assert got["w"].dtype == dtype and got["w"].shape == (bits.numel() // 16,
+                                                          16)
+    assert torch.equal(got["w"].reshape(-1).view(bits.dtype), bits)
+    assert torch.equal(got["b"][1].view(bits.dtype), bits[:5])
+    np.testing.assert_array_equal(got["n"], tree["n"])
+    flat, _ = store.restore()                  # no like: a tensor of dtype
+    assert flat[1].dtype == dtype and isinstance(flat[0], np.ndarray)
+    assert torch.equal(flat[1].view(bits.dtype), bits[:5])
+
+
+def test_slot_store_restores_like_s_dtype_and_device(tmp_path):
+    store = SlotStore(tmp_path / "ck")
+    store.save([torch.arange(6, dtype=torch.float32)])
+    got, _ = store.restore(like=[torch.zeros(6, dtype=torch.bfloat16)])
+    assert got[0].dtype == torch.bfloat16 and got[0].device.type == "cpu"
+    assert torch.equal(got[0], torch.arange(6, dtype=torch.bfloat16))
+
+
+def test_slot_store_restores_an_optimizer_state(tmp_path):
+    """A named tuple (the AdamW state) restores as itself."""
+    opt = adamw(lr=1e-3)
+    params = {"a": torch.ones(3, dtype=torch.bfloat16), "b": torch.zeros(2)}
+    state = opt.init(params)
+    store = SlotStore(tmp_path / "ck")
+    store.save([params, state])
+    (gp, gs), _ = store.restore(like=[params, state])
+    assert type(gs) is type(state) and gs.step.dtype == torch.int32
+    assert gp["a"].dtype == torch.bfloat16 and torch.equal(gp["a"],
+                                                           params["a"])

@@ -46,6 +46,9 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.config import ModelConfig
 from repro_torch.kernels.sparse_fc import (block_sparse_matvec_plain,
                                            to_block_csr)
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.ssd_intra import SSDIntraFunction
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 #: numpy's bf16 (the JAX package's, from ml_dtypes) and the test's names
@@ -1345,3 +1348,49 @@ def test_ssd_chunk_state_needs_three_parts_of_x_dt(seed):
     three = cs_mod.tf32x3_share(torch, _slices_3xtf32(bt, xs, b_parts=3),
                                 plain, exact)
     assert two > 1.0 and three <= 0.75, (two, three)
+
+
+# --------------------------------------------------------------------------
+# The attention and SSD kernels' autograd wrappers (their CUDA forward
+# runs on the card; on CPU tensors the same Function runs the plain
+# forward, so the backward's product is held bitwise here)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,group", [(True, 1), (True, 2), (False, 4)])
+def test_flash_attention_function_gives_the_plain_versions_gradient(
+        causal, group):
+    g = torch.Generator().manual_seed(group)
+    q = torch.randn(8, 13, 16, generator=g, requires_grad=True)
+    k = torch.randn(8 // group, 11 if not causal else 13, 16, generator=g,
+                    requires_grad=True)
+    v = torch.randn(k.shape, generator=g, requires_grad=True)
+    w = torch.randn(8, 13, 16, generator=g)
+    out = ops.FlashAttentionFunction.apply(q, k, v, causal, group, 4, 8)
+    got = torch.autograd.grad((out * w).sum(), (q, k, v))
+    plain = flash_attention_plain(q, k, v, causal=causal, group=group, bq=4,
+                                  bk=8)
+    assert torch.equal(out, plain.detach())
+    # the backward is the plain version's product at its own tiles
+    again = flash_attention_plain(q, k, v, causal=causal, group=group,
+                                  bq=ops.BACKWARD_TILE, bk=ops.BACKWARD_TILE)
+    want = torch.autograd.grad((again * w).sum(), (q, k, v))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_function_gives_the_plain_cells_gradient(dtype):
+    g = torch.Generator().manual_seed(0)
+    xdt = torch.randn(3, 2, 8, 4, generator=g).to(dtype).requires_grad_()
+    bb = torch.randn(3, 8, 5, generator=g).to(dtype).requires_grad_()
+    cc = torch.randn(3, 8, 5, generator=g).to(dtype).requires_grad_()
+    cs = torch.cumsum(-torch.rand(3, 2, 8, generator=g), -1).to(
+        dtype).requires_grad_()
+    wy, ws = torch.randn(3, 2, 8, 4), torch.randn(3, 2, 5, 4)
+    y, s = SSDIntraFunction.apply(xdt, bb, cc, cs)
+    got = torch.autograd.grad((y * wy).sum() + (s * ws).sum(),
+                              (xdt, bb, cc, cs))
+    y2, s2 = ref.ssd_intra_ref(xdt, bb, cc, cs)
+    want = torch.autograd.grad((y2 * wy).sum() + (s2 * ws).sum(),
+                               (xdt, bb, cc, cs))
+    assert all(a.dtype == dtype and torch.equal(a, b)
+               for a, b in zip(got, want))

@@ -237,3 +237,34 @@ def test_forward_on_cpu_launches_no_kernel():
     params = mamba2.init_params(cfg, seed=0, device="cpu")
     mamba2.forward(cfg, params, torch.zeros((1, 8), dtype=torch.long))
     assert mod.ssd_intra.launches == before
+
+
+def test_ssd_cell_gradient_is_finite_where_a_masked_decay_overflows():
+    """A steep decay overflows exp(cs_i - cs_j) above the diagonal (cs_i -
+    cs_j past 88 in a 64-token chunk): ``ssd_chunked``'s value is the JAX
+    package's and its gradient in dt finite, where the JAX package's
+    (``where(causal, g * exp(..), 0)``, whose gradient multiplies 0 by the
+    infinity) is NaN."""
+    from repro.models import mamba2 as jm
+    rng = np.random.default_rng(3)
+    b, s, h, p, n = 1, 64, 2, 4, 3
+    xh = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    bb = rng.normal(size=(b, s, n)).astype(np.float32)
+    cc = rng.normal(size=(b, s, n)).astype(np.float32)
+    dtv = rng.uniform(1.0, 2.0, size=(b, s, h)).astype(np.float32)
+    a_neg = -np.array([2.0, 3.0], np.float32)        # cs spans over 100
+    args = [jnp.asarray(a) for a in (xh, bb, cc)]
+
+    def jy(d):
+        return jm.ssd_chunked(*args, d, jnp.asarray(a_neg), 64)[0]
+
+    want = np.asarray(jy(jnp.asarray(dtv)))
+    jgrad = jax.grad(lambda d: jy(d).sum())(jnp.asarray(dtv))
+    assert np.isnan(np.asarray(jgrad)).any()
+    td = torch.tensor(dtv, requires_grad=True)
+    y, _ = mamba2.ssd_chunked(torch.tensor(xh), torch.tensor(bb),
+                              torch.tensor(cc), td, torch.tensor(a_neg), 64)
+    np.testing.assert_allclose(y.detach().numpy(), want, rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+    (g,) = torch.autograd.grad(y.sum(), td)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
