@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fleet replay, compute kernels, LM forward and
-LM serving on one CUDA card and check them.
+"""Drive the PyTorch port's fleet replay, compute kernels, LM forward, LM
+serving, the MoE and vlm families and LM training on one CUDA card and
+check them.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -223,7 +224,38 @@ prints one JSON line per phase; any failure exits non-zero.
    (2 requests, 32-token prompts, 16 new tokens) as above; forward ms and
    the SSD cell's ms a launch.  The phase's launches join the kernels
    line's (``serving_launches``).
-11. the kernels line, the ``nvidia-smi`` line, and the result line.
+11. moe -- qwen3-moe-30b-a3b at full width (bf16, seed 0), its depth cut
+   to 12 of 48 layers (printed as ``reduced``; no kernel or routing shape
+   depends on depth): ``forward`` of 2 x 2,048 tokens with the flash
+   kernel's launches zeroed just before and read just after (one a
+   layer, all on wgmma), against the same forward with the plain
+   attention (``lm_bf16``), each MoE block's routing recorded in both
+   (token-slots routed elsewhere; the share dropped at capacity factor
+   1.25); ``prefill`` of those tokens against the forward's last logits;
+   16 teacher-forced ``decode_step``s at batch 4 twice, bitwise, with ms
+   and aten calls a step; its ``ServeEngine`` (4 x (64 + 32) tokens)
+   twice and across preemption, bitwise; one layer's ``moe_block``
+   against ``moe_block_dense_ref`` at a capacity that drops nothing, and
+   its ms beside one attention layer's.  Then llama4-scout-17b-a16e
+   (top-1 and the shared expert) at full width, 2 of 48 layers: one
+   forward of 1 x 2,048 tokens, kernel against plain.
+12. vlm -- internvl2-26b at full width, 2 of 48 layers: ``forward`` and
+   ``loss_fn`` over 2 x (256 patch embeddings + 1,792 tokens), kernel
+   against plain.
+13. train -- qwen3-0.6b as published: ``launch.train.train`` for 4 steps
+   at 4 x 1,024 tokens (each step's loss, ms, tokens/s, peak memory,
+   flash launches: one a layer and one a layer again in the remat
+   recompute; each checkpoint write's s), failed at step 3 and resumed:
+   the final parameter and optimizer files equal the uninterrupted run's
+   byte for byte; one ``loss_fn`` backward with the kernel against the
+   plain attention, every leaf's ||g_kernel - g_plain|| / ||g_plain|| <=
+   2e-2.  mamba2-370m as published: 2 steps at 2 x 1,024 (96
+   ``ssd_intra`` launches a step), its gradient against the plain
+   cell's, the same rule.  Each phase prints the card's ``nvidia-smi``
+   name and power limit and frees its weights before the next.
+14. the kernels line (the flash and SSD entries count these phases'
+   launches too: ``moe_launches``, ``vlm_launches``, ``train_launches``),
+   the ``nvidia-smi`` line, and the result line.
 """
 
 from __future__ import annotations
@@ -1970,18 +2002,24 @@ def engine_runs(torch, cfg, params, requests, root) -> dict:
         eng._decode, eng._cursor = timed_decode, timed_cursor
         reqs = [Request(rid, list(p), n) for rid, p, n in requests]
         t0 = time.perf_counter()
-        if fail_after is None:
-            out = eng.run(reqs)
-        else:
-            try:
-                eng.run(reqs, fail_after_tokens=fail_after)
-            except RuntimeError as e:         # the simulated preemption
-                if str(e) != "preempted":
-                    raise
+        try:
+            if fail_after is None:
+                out = eng.run(reqs)
             else:
-                raise SystemExit(f"serving: the engine was not preempted "
-                                 f"after {fail_after} tokens")
-            out = None
+                try:
+                    eng.run(reqs, fail_after_tokens=fail_after)
+                except RuntimeError as e:     # the simulated preemption
+                    if str(e) != "preempted":
+                        raise
+                else:
+                    raise SystemExit(f"serving: the engine was not "
+                                     f"preempted after {fail_after} tokens")
+                out = None
+        finally:
+            # the timers hold the engine's own methods: a reference cycle
+            # that would keep the engine, and the weights, alive until the
+            # collector ran
+            del eng._decode, eng._cursor
         return out, dict(clock, run=name, wall_s=time.perf_counter() - t0)
 
     first, c1 = run("first", "a")
@@ -2142,15 +2180,9 @@ def serving(torch, np, emit, smi_line) -> dict:
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
 
-    def requests(arch, vocab):
-        n, plen, new = ENGINE_RUNS[arch]
-        rng = np.random.default_rng(0)
-        return [(f"r{i}", rng.integers(0, vocab, plen).tolist(), new)
-                for i in range(n)]
-
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         line = engine_runs(torch, cfg, params,
-                           requests(LM_ARCH, vocab), Path(tmp))
+                           engine_requests(np, LM_ARCH, vocab), Path(tmp))
     emit({"phase": "serving", "part": "engine", **line})
     del params, prompt, toks
     torch.cuda.empty_cache()
@@ -2286,7 +2318,7 @@ def serving(torch, np, emit, smi_line) -> dict:
 
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         line = engine_runs(torch, mcfg, mparams,
-                           requests(SSM_ARCH, mvocab), Path(tmp))
+                           engine_requests(np, SSM_ARCH, mvocab), Path(tmp))
     emit({"phase": "serving", "part": "engine", **line})
     del mparams, mtoks
     torch.cuda.empty_cache()
@@ -2295,6 +2327,660 @@ def serving(torch, np, emit, smi_line) -> dict:
     return {"flash_attention": flash_launches, "ssd_intra": ssd_launches,
             "flash_attention_by_path": flash_by_path,
             "ssd_intra_by_path": ssd_by_path, "seconds": seconds}
+
+
+#: Phases 11-13 (``moe``, ``vlm``, ``train``).  qwen3-moe-30b-a3b at full
+#: width (d_model 2,048, 32/4 heads, 128 experts top-8, expert d_ff 768,
+#: capacity factor 1.25, groups of 256, vocab 151,936, bf16), its depth cut
+#: to MOE_LAYERS of 48 (no kernel or routing shape depends on depth):
+#: forward and prefill over MOE_BATCH x MOE_SEQ tokens, MOE_DECODE
+#: teacher-forced decode steps at batch MOE_DECODE_BATCH, its engine
+#: (ENGINE_RUNS), one block against the every-expert reference over
+#: MOE_DENSE_REF_TOKENS tokens.  llama4-scout-17b-a16e at full width,
+#: SCOUT_LAYERS of 48, over 1 x SCOUT_SEQ tokens.
+MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_SEQ = "qwen3-moe-30b-a3b", 12, 2, 2048
+MOE_DECODE_BATCH, MOE_DECODE = 4, 16
+MOE_DENSE_REF_TOKENS = 512
+SCOUT_ARCH, SCOUT_LAYERS, SCOUT_SEQ = "llama4-scout-17b-a16e", 2, 2048
+ENGINE_RUNS[MOE_ARCH] = (4, 64, 32)
+#: internvl2-26b at full width, VLM_LAYERS of 48, over VLM_BATCH x (its 256
+#: patch embeddings + VLM_TEXT tokens).
+VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_TEXT = "internvl2-26b", 2, 2, 1792
+#: qwen3-0.6b as published: LM_TRAIN_STEPS steps at LM_TRAIN_BATCH x
+#: LM_TRAIN_SEQ, a checkpoint every LM_TRAIN_CKPT steps, the resume check
+#: failing at LM_TRAIN_FAIL_AT; mamba2-370m as published, SSM_TRAIN_STEPS
+#: at SSM_TRAIN_BATCH x LM_TRAIN_SEQ.  Gradients through a kernel against
+#: the plain version's: ||g_kernel - g_plain|| / ||g_plain|| per leaf.
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 4, 1024
+LM_TRAIN_CKPT, LM_TRAIN_FAIL_AT = 2, 3
+SSM_TRAIN_STEPS, SSM_TRAIN_BATCH = 2, 2
+GRAD_REL = 2e-2
+
+
+def engine_requests(np, arch: str, vocab: int) -> list:
+    """ENGINE_RUNS[arch]'s requests: (rid, prompt, max_new), seeded."""
+    n, plen, new = ENGINE_RUNS[arch]
+    rng = np.random.default_rng(0)
+    return [(f"r{i}", rng.integers(0, vocab, plen).tolist(), new)
+            for i in range(n)]
+
+
+def zero_flash(fmod) -> None:
+    fmod.flash_attention.launches = 0
+    for p in fmod.flash_attention.launches_by_path:
+        fmod.flash_attention.launches_by_path[p] = 0
+
+
+def aten_calls(torch, fn) -> int:
+    """The aten operations one ``fn()`` dispatches (a
+    ``TorchDispatchMode`` counting them; the ctypes kernels are not aten
+    operations)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def lm_forward_pair(torch, emit, fmod, cfg, params, label, *args,
+                    published: int, smi_line="") -> tuple:
+    """``forward`` with the flash kernel, its launches zeroed just before
+    and read just after (one a layer, all on wgmma), against the same
+    forward with the plain attention (``use_pallas_attention=False``)
+    under ``lm_bf16``; ``published`` is the config's published depth.
+
+    In a MoE model the plain forward takes the kernel forward's routing
+    (each block's ``moe._route`` output replayed): capacity-bounded
+    routing is not a continuous function, and on random weights most
+    tokens pick the same experts, so a router logit that one rounding
+    moves past another sends a slot elsewhere and, a cumulative sum later,
+    moves every later token's place in that expert and which of them are
+    dropped.  The same plain forward with its own routing is reported
+    beside it (slots routed elsewhere, its share of the limit), not held.
+    Returns (launches, kernel logits, line)."""
+    import dataclasses
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+
+    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
+    v = cfg.vocab_size
+    routes, real_route = [], moe_mod._route
+
+    def recording(*a):
+        out = real_route(*a)
+        routes.append(out)
+        return out
+
+    extra = {}
+    moe_mod._route = recording
+    try:
+        zero_flash(fmod)
+        got = transformer.forward(cfg, params, *args)
+        torch.cuda.synchronize()
+        launches = fmod.flash_attention.launches
+        by_path = dict(fmod.flash_attention.launches_by_path)
+        kernel_routes = list(routes)
+        if cfg.is_moe:
+            routes.clear()
+            free = transformer.forward(plain_cfg, params, *args)
+            slots = sum(r[1].numel() for r in kernel_routes)
+            extra = {
+                "routing": "the plain forward takes the kernel forward's",
+                "token_slots": slots,
+                "dropped_share": sum(int((~r[3]).sum())
+                                     for r in kernel_routes) / slots,
+                "own_routing_slots_elsewhere": sum(
+                    int((a[1] != b[1]).sum())
+                    for a, b in zip(kernel_routes, routes)),
+                "own_routing_limit_share": scale_share(
+                    torch, got[..., :v], free[..., :v], "lm_bf16")}
+            del free
+            replay = iter(kernel_routes)
+            moe_mod._route = lambda *a: next(replay)
+        plain = transformer.forward(plain_cfg, params, *args)
+        torch.cuda.synchronize()
+    finally:
+        moe_mod._route = real_route
+    del routes, kernel_routes
+    ok, diff = agree(torch, got[..., :v], plain[..., :v], "lm_bf16")
+    share = scale_share(torch, got[..., :v], plain[..., :v], "lm_bf16")
+    del plain
+    line = {"part": label, "arch": cfg.name, "layers": cfg.num_layers,
+            "reduced": f"{cfg.num_layers} of {published} layers; full "
+                       f"width", "shape": list(args[0].shape),
+            "flash_attention_launches": launches,
+            "flash_attention_launches_by_path": by_path,
+            "max_abs_diff_vs_plain_attention": diff,
+            "limit_share": share, "tolerance": TOLERANCES["lm_bf16"],
+            **extra, "finite": bool(torch.isfinite(got).all()),
+            "nvidia_smi": smi_line}
+    if launches != cfg.num_layers or by_path["wgmma"] != launches:
+        emit({"phase": "moe_vlm_failed", **line})
+        raise SystemExit(f"{label}: {launches} flash_attention launches "
+                         f"({by_path} by kernel), not {cfg.num_layers} on "
+                         f"the wgmma one")
+    if not ok:
+        emit({"phase": "moe_vlm_failed", **line})
+        raise SystemExit(f"{label}: the logits with the flash kernel "
+                         f"disagree with the plain attention's "
+                         f"({TOLERANCES['lm_bf16']}; max abs diff {diff}, "
+                         f"{share} of the limit)")
+    return launches, got, line
+
+
+def moe_phase(torch, np, emit, smi_line, device="cuda") -> dict:
+    """Phase 11: qwen3-moe-30b-a3b at full width, MOE_LAYERS of its 48
+    layers (bf16, the flash kernel, seed 0): ``forward`` of MOE_BATCH x
+    MOE_SEQ tokens against the plain attention's with the same routing
+    (``lm_bf16``; ``lm_forward_pair``), the share of token-slots dropped at
+    capacity factor 1.25 and those the plain forward's own routing sends
+    elsewhere; ``prefill`` of those
+    tokens, its last logits against the forward's (same groups, so the
+    same routing); MOE_DECODE teacher-forced ``decode_step``s at batch
+    MOE_DECODE_BATCH twice, bitwise, with their ms and aten calls a step;
+    ``ServeEngine`` twice and across preemption (``engine_runs``); one
+    layer's ``moe_block`` against ``moe_block_dense_ref`` at a capacity
+    that drops nothing (``lm_bf16``), and one MoE block's ms beside one
+    attention layer's.  Then llama4-scout-17b-a16e (top-1 and the shared
+    expert) at full width, SCOUT_LAYERS of 48: ``forward`` of 1 x
+    SCOUT_SEQ tokens, kernel against plain.  Returns the flash launches of
+    the forwards and the prefill."""
+    import dataclasses
+    import importlib
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import counting, transformer
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import attention_block
+
+    fmod = importlib.import_module("repro_torch.kernels.flash_attention")
+    bf16 = torch.bfloat16
+    t_phase = time.perf_counter()
+    emit({"phase": "moe", "nvidia_smi": smi_line})
+    published = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(published, num_layers=MOE_LAYERS,
+                              use_pallas_attention=True)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    vocab = cfg.vocab_size
+    toks = torch.from_numpy(np.random.default_rng(42).integers(
+        0, vocab, (MOE_BATCH, MOE_SEQ))).to(device)
+
+    # the forward, kernel against plain attention (routing pinned)
+    fwd_launches, logits, line = lm_forward_pair(
+        torch, emit, fmod, cfg, params, "qwen3_moe_forward", toks,
+        published=published.num_layers, smi_line=smi_line)
+
+    # prefill: its last logits against the forward's
+    zero_flash(fmod)
+    first, cache = transformer.prefill(cfg, params, toks, MOE_SEQ)
+    torch.cuda.synchronize()
+    prefill_launches = fmod.flash_attention.launches
+    ok, prefill_diff = agree(torch, first[:, :vocab], logits[:, -1, :vocab],
+                             "lm_bf16")
+    prefill_share = scale_share(torch, first[:, :vocab],
+                                logits[:, -1, :vocab], "lm_bf16")
+    del first, cache, logits
+    if prefill_launches != cfg.num_layers or not ok:
+        raise SystemExit(f"moe: prefill launched {prefill_launches} flash "
+                         f"kernels, its logits {prefill_share} of the "
+                         f"lm_bf16 limit from the forward's")
+    forward_ms = median_ms(torch, lambda: transformer.forward(
+        cfg, params, toks), reps=3)
+    prefill_ms = median_ms(torch, lambda: transformer.prefill(
+        cfg, params, toks, MOE_SEQ), reps=3)
+    emit({"phase": "moe", **line,
+          "capacity": moe_mod.expert_capacity(cfg, cfg.moe_group_size),
+          "prefill_flash_attention_launches": prefill_launches,
+          "prefill_max_abs_diff_vs_forward": prefill_diff,
+          "prefill_limit_share": prefill_share, "forward_ms": forward_ms,
+          "forward_tokens_per_s": MOE_BATCH * MOE_SEQ / forward_ms * 1e3,
+          "prefill_ms": prefill_ms,
+          "prefill_tokens_per_s": MOE_BATCH * MOE_SEQ / prefill_ms * 1e3,
+          "params": counting.param_count(cfg),
+          "active_params": counting.active_param_count(cfg),
+          "init_s": init_s})
+
+    # teacher-forced decode at batch MOE_DECODE_BATCH, twice, bitwise
+    dtoks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, vocab, (MOE_DECODE_BATCH, MOE_DECODE))).to(device)
+
+    def decode_run():
+        c = transformer.init_cache(cfg, MOE_DECODE_BATCH, MOE_DECODE,
+                                   device=device)
+        out, host = [], 0.0
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for pos in range(MOE_DECODE):
+            t = time.perf_counter()
+            lg, c = transformer.decode_step(cfg, params, c, dtoks[:, pos],
+                                            pos)
+            host += time.perf_counter() - t
+            out.append(lg)
+        ev1.record()
+        torch.cuda.synchronize()
+        return (torch.stack(out, 1), ev0.elapsed_time(ev1) / MOE_DECODE,
+                host / MOE_DECODE * 1e3)
+
+    d1, decode_ms, decode_host_ms = decode_run()
+    d2, decode_ms_2, _ = decode_run()
+    if not torch.equal(d1, d2) or not bool(torch.isfinite(d1).all()):
+        raise SystemExit("moe: teacher-forced decode gave other logits on a "
+                         "second run (or non-finite ones)")
+    del d1, d2
+    c0 = transformer.init_cache(cfg, MOE_DECODE_BATCH, MOE_DECODE,
+                                device=device)
+    decode_aten = aten_calls(torch, lambda: transformer.decode_step(
+        cfg, params, c0, dtoks[:, 0], 0))
+    del c0
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        engine = engine_runs(torch, cfg, params,
+                             engine_requests(np, MOE_ARCH, vocab), Path(tmp))
+    emit({"phase": "moe", "part": "qwen3_moe_decode",
+          "batch": MOE_DECODE_BATCH, "steps": MOE_DECODE,
+          "decode_capacity": moe_mod.expert_capacity(cfg, MOE_DECODE_BATCH),
+          "bitwise_equal_across_runs": True, "decode_ms_per_step": decode_ms,
+          "decode_ms_per_step_second_run": decode_ms_2,
+          "decode_host_ms_per_step": decode_host_ms,
+          "aten_calls_per_step": decode_aten, "nvidia_smi": smi_line})
+    emit({"phase": "moe", "part": "engine", **engine,
+          "nvidia_smi": smi_line})
+
+    # one layer's block: against the every-expert reference where nothing
+    # drops; then its time beside one attention layer's
+    pl0 = transformer._layer(params["layers"], 0)
+    nodrop = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.experts_per_tok)
+    if moe_mod.expert_capacity(nodrop, cfg.moe_group_size) \
+            < cfg.moe_group_size:
+        raise SystemExit("moe: the no-drop capacity is below the group")
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(1, MOE_DENSE_REF_TOKENS, cfg.d_model))).to(device, bf16)
+    y = moe_mod.moe_block(nodrop, pl0["moe"], x)
+    yd = moe_mod.moe_block_dense_ref(nodrop, pl0["moe"], x)
+    ok, ref_diff = agree(torch, y, yd, "lm_bf16")
+    ref_share = scale_share(torch, y, yd, "lm_bf16")
+    if not ok:
+        raise SystemExit(f"moe: moe_block disagrees with "
+                         f"moe_block_dense_ref where nothing drops "
+                         f"({ref_share} of the lm_bf16 limit)")
+    del x, y, yd
+    h = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(MOE_BATCH, MOE_SEQ, cfg.d_model))).to(device, bf16)
+    positions = torch.arange(MOE_SEQ, device=h.device).expand(MOE_BATCH,
+                                                              MOE_SEQ)
+    block_ms = median_ms(torch, lambda: moe_mod.moe_block(cfg, pl0["moe"], h),
+                         reps=3)
+    attn_ms = median_ms(torch, lambda: attention_block(cfg, pl0["attn"], h,
+                                                       positions), reps=3)
+    emit({"phase": "moe", "part": "qwen3_moe_block",
+          "dense_ref_tokens": MOE_DENSE_REF_TOKENS,
+          "dense_ref_max_abs_diff": ref_diff, "dense_ref_limit_share":
+          ref_share, "tolerance": TOLERANCES["lm_bf16"],
+          "moe_block_ms": block_ms, "attention_layer_ms": attn_ms,
+          "shape": [MOE_BATCH, MOE_SEQ, cfg.d_model],
+          "nvidia_smi": smi_line})
+    del params, toks, dtoks, h, pl0
+    torch.cuda.empty_cache()
+
+    # llama4-scout: top-1 and the shared expert
+    published = get_config(SCOUT_ARCH)
+    scfg = dataclasses.replace(published, num_layers=SCOUT_LAYERS,
+                               use_pallas_attention=True)
+    sparams = transformer.init_params(scfg, seed=0, device=device)
+    stoks = torch.from_numpy(np.random.default_rng(42).integers(
+        0, scfg.vocab_size, (1, SCOUT_SEQ))).to(device)
+    scout_launches, slog, sline = lm_forward_pair(
+        torch, emit, fmod, scfg, sparams, "llama4_scout_forward", stoks,
+        published=published.num_layers, smi_line=smi_line)
+    del slog
+    scout_ms = median_ms(torch, lambda: transformer.forward(
+        scfg, sparams, stoks), reps=3)
+    emit({"phase": "moe", **sline, "forward_ms": scout_ms,
+          "forward_tokens_per_s": SCOUT_SEQ / scout_ms * 1e3,
+          "params": counting.param_count(scfg)})
+    del sparams, stoks
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "moe", "seconds": seconds, "all_agree": True,
+          "nvidia_smi": smi_line})
+    return {"flash_attention": fwd_launches + prefill_launches
+            + scout_launches, "seconds": seconds}
+
+
+def vlm_phase(torch, np, emit, smi_line, device="cuda") -> dict:
+    """Phase 12: internvl2-26b at full width, VLM_LAYERS of its 48 layers
+    (bf16, the flash kernel, seed 0), its 256 patch embeddings (seeded,
+    at the token embeddings' scale: the vision frontend is a stub in both
+    packages) before VLM_TEXT tokens, batch VLM_BATCH: ``forward`` and
+    ``loss_fn`` with the kernel against the plain attention (``lm_bf16``).
+    Returns their flash launches."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import counting, transformer
+
+    fmod = importlib.import_module("repro_torch.kernels.flash_attention")
+    t_phase = time.perf_counter()
+    published = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(published, num_layers=VLM_LAYERS,
+                              use_pallas_attention=True)
+    params = transformer.init_params(cfg, seed=0, device=device)
+    rng = np.random.default_rng(42)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (VLM_BATCH, VLM_TEXT))).to(device)
+    patches = torch.from_numpy(rng.normal(
+        size=(VLM_BATCH, cfg.num_patches, cfg.d_model)) * 0.02).to(
+            device, torch.bfloat16)
+    fwd_launches, logits, line = lm_forward_pair(
+        torch, emit, fmod, cfg, params, "internvl2_forward", toks, patches,
+        published=published.num_layers, smi_line=smi_line)
+    if logits.shape[1] != cfg.num_patches + VLM_TEXT:
+        raise SystemExit(f"vlm: logits {tuple(logits.shape)}")
+    del logits
+    batch = {"tokens": toks, "labels": toks, "patches": patches}
+    with torch.no_grad():
+        zero_flash(fmod)
+        loss = transformer.loss_fn(cfg, params, batch)
+        torch.cuda.synchronize()
+        loss_launches = fmod.flash_attention.launches
+        plain = transformer.loss_fn(
+            dataclasses.replace(cfg, use_pallas_attention=False), params,
+            batch)
+    ok, loss_diff = agree(torch, loss, plain, "lm_bf16")
+    if not ok or loss_launches != cfg.num_layers:
+        raise SystemExit(f"vlm: loss_fn {float(loss)} with the kernel "
+                         f"({loss_launches} launches) against "
+                         f"{float(plain)} with the plain attention "
+                         f"({TOLERANCES['lm_bf16']})")
+    forward_ms = median_ms(torch, lambda: transformer.forward(
+        cfg, params, toks, patches), reps=3)
+    with torch.no_grad():
+        loss_ms = median_ms(torch, lambda: transformer.loss_fn(
+            cfg, params, batch), reps=3)
+    seq = cfg.num_patches + VLM_TEXT
+    emit({"phase": "vlm", **line, "forward_ms": forward_ms,
+          "forward_tokens_per_s": VLM_BATCH * seq / forward_ms * 1e3,
+          "loss": float(loss), "loss_plain_attention": float(plain),
+          "loss_abs_diff": loss_diff, "loss_flash_attention_launches":
+          loss_launches, "loss_fn_ms": loss_ms,
+          "params": counting.param_count(cfg),
+          "seconds": time.perf_counter() - t_phase})
+    del params, toks, patches, batch
+    torch.cuda.empty_cache()
+    return {"flash_attention": fwd_launches + loss_launches}
+
+
+def grad_rel(torch, got: dict, want: dict) -> dict:
+    """||got - want|| / ||want|| per dotted leaf name (in f32); inf where
+    either gradient is not finite."""
+    out = {}
+
+    def walk(g, w, pre):
+        for k in sorted(w):
+            if isinstance(w[k], dict):
+                walk(g[k], w[k], f"{pre}{k}.")
+                continue
+            a, b = g[k].float(), w[k].float()
+            rel = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+            finite = bool(torch.isfinite(a).all() and torch.isfinite(b).all())
+            out[f"{pre}{k}"] = rel if finite else float("inf")
+    walk(got, want, "")
+    return out
+
+
+def train_phase(torch, np, emit, smi_line, device="cuda") -> dict:
+    """Phase 13: training on the card.  qwen3-0.6b as published (bf16, the
+    flash kernel, remat "full"): ``launch.train.train`` for LM_TRAIN_STEPS
+    steps at LM_TRAIN_BATCH x LM_TRAIN_SEQ, a checkpoint every
+    LM_TRAIN_CKPT steps, the flash launches zeroed just before and read
+    just after (each step: one a layer in the forward and one in the
+    remat recompute); each step's loss, ms (the gradient's and the
+    update's), flash launches and peak device memory over what was
+    allocated when the phase began, each checkpoint write's s.  The same run failing at
+    LM_TRAIN_FAIL_AT and resumed must end on the uninterrupted run's
+    parameter and optimizer files, byte for byte.  One ``loss_fn``
+    backward with the kernel against the plain attention: every leaf's
+    ||g_kernel - g_plain|| / ||g_plain|| <= GRAD_REL.  Then mamba2-370m as
+    published: SSM_TRAIN_STEPS steps (``ssd_intra`` counted the same way)
+    and its gradient against the plain cell's.  Returns the launches of
+    the two training runs."""
+    import dataclasses
+    import filecmp
+    import importlib
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batches
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as trainer
+    from repro_torch.models import get_model, mamba2
+
+    fmod = importlib.import_module("repro_torch.kernels.flash_attention")
+    smod = importlib.import_module("repro_torch.kernels.ssd_intra")
+    flash, ssd = fmod.flash_attention, smod.ssd_intra
+    t_phase = time.perf_counter()
+    # what is allocated before a run (the earlier phases' and parts' own),
+    # left out of its steps' peaks
+    base = {"bytes": torch.cuda.memory_allocated()}
+    emit({"phase": "train", "nvidia_smi": smi_line,
+          "device_bytes_at_start": base["bytes"]})
+    steps, saves, grad_ms = [], [], []
+    real_make, real_store = trainer.make_train_step, trainer.SlotStore
+    real_grad = trainer.make_grad_fn
+
+    def timed_grad(cfg_, api):
+        grad_fn = real_grad(cfg_, api)
+
+        def timed(params, batch):
+            t0 = time.perf_counter()
+            out = grad_fn(params, batch)
+            torch.cuda.synchronize()
+            grad_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def timed_make(cfg_, api, opt):
+        step = real_make(cfg_, api, opt)
+
+        def timed(params, opt_state, batch):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            f0, s0 = flash.launches, ssd.launches
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            steps.append({"loss": float(out[2]), "step_ms": ms,
+                          "grad_ms": grad_ms[-1],
+                          "update_ms": ms - grad_ms[-1],
+                          "flash_attention_launches": flash.launches - f0,
+                          "ssd_intra_launches": ssd.launches - s0,
+                          "peak_bytes": torch.cuda.max_memory_allocated()
+                          - base["bytes"]})
+            return out
+        return timed
+
+    def patch(on: bool):
+        trainer.make_train_step, trainer.make_grad_fn, trainer.SlotStore = \
+            (timed_make, timed_grad, TimedStore) if on else \
+            (real_make, real_grad, real_store)
+
+    class TimedStore(real_store):
+        def save(self, tree, meta=None):
+            t0 = time.perf_counter()
+            slot = super().save(tree, meta)
+            saves.append(time.perf_counter() - t0)
+            return slot
+
+    def front_files(root):
+        store = real_store(root / "state")
+        m = store.manifest()
+        return store.root / m["slot"], m
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    cfg = dataclasses.replace(get_config(LM_ARCH), use_pallas_attention=True)
+    free = shutil.disk_usage(build).free      # the A/B slots of two runs
+    kw = dict(steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+              ckpt_interval=LM_TRAIN_CKPT, log_every=0, device=device)
+    patch(True)
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            tmp = Path(tmp)
+            flash.launches = 0                # zero just before the path
+            res = trainer.train(cfg, ckpt_dir=str(tmp / "a"), **kw)
+            train_launches = flash.launches   # read just after
+            run_steps, run_saves = list(steps), list(saves)
+            try:
+                trainer.train(cfg, ckpt_dir=str(tmp / "b"),
+                              fail_at_step=LM_TRAIN_FAIL_AT, **kw)
+            except trainer.SimulatedFailure:
+                pass
+            else:
+                raise SystemExit("train: the run was not failed at step "
+                                 f"{LM_TRAIN_FAIL_AT}")
+            resumed = trainer.train(cfg, ckpt_dir=str(tmp / "b"), **kw)
+            (da, ma), (db, mb) = front_files(tmp / "a"), front_files(tmp / "b")
+            same = ma["meta"] == mb["meta"] and ma["leaves"] == mb["leaves"] \
+                and ma["dtypes"] == mb["dtypes"] and all(
+                    filecmp.cmp(da / n, db / n, shallow=False)
+                    for n in ma["leaves"])
+            ckpt_bytes = sum((da / n).stat().st_size for n in ma["leaves"])
+    finally:
+        patch(False)
+    resume_start = LM_TRAIN_FAIL_AT // LM_TRAIN_CKPT * LM_TRAIN_CKPT
+    if not all(np.isfinite(res.losses)):
+        raise SystemExit(f"train: {LM_ARCH}'s losses {res.losses}")
+    if not same or resumed.losses != res.losses[resume_start:] \
+            or resumed.steps_run != LM_TRAIN_STEPS - resume_start:
+        raise SystemExit(f"train: the run failed at step "
+                         f"{LM_TRAIN_FAIL_AT} and resumed differs from the "
+                         f"uninterrupted one (files equal: {same}; losses "
+                         f"{resumed.losses} against {res.losses})")
+    per_step = 2 * cfg.num_layers
+    if any(s["flash_attention_launches"] != per_step for s in run_steps):
+        raise SystemExit(f"train: flash launches a step "
+                         f"{[s['flash_attention_launches'] for s in run_steps]}"
+                         f", not {per_step} (forward and remat recompute)")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    emit({"phase": "train", "part": "qwen3_train", "arch": LM_ARCH,
+          "layers": cfg.num_layers, "disk_free_bytes": free,
+          "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "remat": cfg.remat,
+          "steps": run_steps, "losses": res.losses,
+          "tokens_per_s": [tokens / s["step_ms"] * 1e3 for s in run_steps],
+          "checkpoint_write_s": run_saves, "checkpoint_bytes": ckpt_bytes,
+          "flash_attention_launches": train_launches,
+          "resumed_at_step": resume_start, "resumed_steps":
+          resumed.steps_run, "resume_bitwise_equal": True,
+          "wall_s": res.wall_s, "nvidia_smi": smi_line})
+
+    # the gradient through the kernel against the plain attention's
+    api = get_model(cfg)
+    params = api.init_params(cfg, seed=0, device=device)
+    batch = trainer._batch(next(token_batches(cfg.vocab_size,
+                                              LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                              1, seed=0)), params[
+                                                  "embed"].device)
+    f0 = flash.launches
+    loss_k, g_k = trainer.make_grad_fn(cfg, api)(params, batch)
+    torch.cuda.synchronize()
+    grad_launches = flash.launches - f0
+    loss_p, g_p = trainer.make_grad_fn(dataclasses.replace(
+        cfg, use_pallas_attention=False), api)(params, batch)
+    rel = grad_rel(torch, g_k, g_p)
+    worst = max(rel, key=rel.get)
+    emit({"phase": "train", "part": "qwen3_gradient", "layers":
+          cfg.num_layers, "loss_kernel": float(loss_k), "loss_plain":
+          float(loss_p), "flash_attention_launches": grad_launches,
+          "grad_rel_max": rel[worst], "grad_rel_worst_leaf": worst,
+          "grad_rel_attention": {k: v for k, v in rel.items()
+                                 if ".attn." in k},
+          "limit": GRAD_REL, "nvidia_smi": smi_line})
+    if rel[worst] > GRAD_REL or grad_launches != 2 * cfg.num_layers:
+        raise SystemExit(f"train: the gradient through the flash kernel is "
+                         f"{rel[worst]} of the plain attention's at {worst} "
+                         f"(limit {GRAD_REL}; {grad_launches} launches)")
+    del params, g_k, g_p, batch
+    torch.cuda.empty_cache()
+
+    # mamba2-370m: training through ssd_intra, then its gradient
+    mcfg = get_config(SSM_ARCH)
+    steps.clear()
+    saves.clear()
+    base["bytes"] = torch.cuda.memory_allocated()
+    patch(True)
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            ssd.launches = 0                  # zero just before the path
+            mres = trainer.train(mcfg, steps=SSM_TRAIN_STEPS,
+                                 batch=SSM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+                                 ckpt_dir=tmp, ckpt_interval=SSM_TRAIN_STEPS,
+                                 log_every=0, device=device)
+            ssm_launches = ssd.launches       # read just after
+    finally:
+        patch(False)
+    ssm_steps, ssm_saves = list(steps), list(saves)
+    if not all(np.isfinite(mres.losses)):
+        raise SystemExit(f"train: {SSM_ARCH}'s losses {mres.losses}")
+    if any(s["ssd_intra_launches"] != 2 * mcfg.num_layers
+           for s in ssm_steps):
+        raise SystemExit(f"train: ssd_intra launches a step "
+                         f"{[s['ssd_intra_launches'] for s in ssm_steps]}, "
+                         f"not {2 * mcfg.num_layers}")
+    mapi = get_model(mcfg)
+    mparams = mapi.init_params(mcfg, seed=0, device=device)
+    mbatch = trainer._batch(next(token_batches(
+        mcfg.vocab_size, SSM_TRAIN_BATCH, LM_TRAIN_SEQ, 1, seed=0)),
+        mparams["embed"].device)
+    s0 = ssd.launches
+    mloss_k, mg_k = trainer.make_grad_fn(mcfg, mapi)(mparams, mbatch)
+    torch.cuda.synchronize()
+    mgrad_launches = ssd.launches - s0
+    kernel = mamba2.ssd_intra
+    mamba2.ssd_intra = ref.ssd_intra_ref          # the comparison run only
+    try:
+        mloss_p, mg_p = trainer.make_grad_fn(mcfg, mapi)(mparams, mbatch)
+    finally:
+        mamba2.ssd_intra = kernel
+    mrel = grad_rel(torch, mg_k, mg_p)
+    mworst = max(mrel, key=mrel.get)
+    emit({"phase": "train", "part": "mamba2_train", "arch": SSM_ARCH,
+          "layers": mcfg.num_layers, "batch": SSM_TRAIN_BATCH,
+          "seq": LM_TRAIN_SEQ, "steps": ssm_steps, "losses": mres.losses,
+          "tokens_per_s": [SSM_TRAIN_BATCH * LM_TRAIN_SEQ / s["step_ms"]
+                           * 1e3 for s in ssm_steps],
+          "checkpoint_write_s": ssm_saves, "ssd_intra_launches":
+          ssm_launches, "grad_ssd_intra_launches": mgrad_launches,
+          "loss_kernel": float(mloss_k), "loss_plain_cell": float(mloss_p),
+          "grad_rel_max": mrel[mworst], "grad_rel_worst_leaf": mworst,
+          "grad_rel": mrel, "limit": GRAD_REL, "nvidia_smi": smi_line})
+    if mrel[mworst] > GRAD_REL:
+        raise SystemExit(f"train: {SSM_ARCH}'s gradient through ssd_intra "
+                         f"is {mrel[mworst]} of the plain cell's at "
+                         f"{mworst} (limit {GRAD_REL})")
+    del mparams, mg_k, mg_p, mbatch
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "train", "seconds": seconds, "all_agree": True,
+          "nvidia_smi": smi_line})
+    return {"flash_attention": train_launches, "ssd_intra": ssm_launches,
+            "seconds": seconds}
 
 
 #: Phase 5b: the PlanSet design sweep -- MNIST's {tile-32, sonic, tails} x
@@ -3782,8 +4468,19 @@ def main() -> int:
         entry["serving_launches"] = n
         entry["serving_launches_by_path"] = served[entry["name"]
                                                    + "_by_path"]
+    # ---- 11-13. the MoE block (qwen3-moe, llama4-scout), the vlm family
+    # (internvl2), then training through the kernels' autograd wrappers;
+    # their launches join the kernels line's
+    launched = {"moe": moe_phase(torch, np, emit, smi_line),
+                "vlm": vlm_phase(torch, np, emit, smi_line),
+                "train": train_phase(torch, np, emit, smi_line)}
+    for entry in lm:
+        for phase, counts in launched.items():
+            n = counts.get(entry["name"], 0)
+            entry["launches"] += n
+            entry[f"{phase}_launches"] = n
 
-    # ---- 11. the kernels line, the card, the result
+    # ---- 14. the kernels line, the card, the result
     emit({"kernels": [{
         "name": "charge_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/charge_replay.cu",

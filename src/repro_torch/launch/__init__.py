@@ -1,2 +1,3 @@
-"""Launch-side helpers: the fleet replay's device mesh (``mesh``) and the
-batched serving driver (``serve``)."""
+"""Launch-side helpers: the fleet replay's device mesh (``mesh``), the
+batched serving driver (``serve``) and the resumable trainer
+(``train``)."""

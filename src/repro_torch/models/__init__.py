@@ -1,6 +1,7 @@
 """The paper's simulator networks at their published widths, and the LM
-stack: the forward and KV-cache / recurrent decode of the dense and ssm
-families."""
+stack: the forward, the losses and KV-cache / recurrent decode of the
+dense, moe and vlm families (``transformer``, with ``moe``) and the ssm
+family (``mamba2``)."""
 
 from .api import (ModelAPI, cache_spec_shapes, cell_applicable, get_model,
                   input_spec_shapes)

@@ -4,17 +4,17 @@
 Every family exposes the same entry points:
 
   init_params(cfg, seed, device)              -> params tree
+  loss_fn(cfg, params, batch)                 -> scalar loss (train shapes)
   forward(cfg, params, tokens)                -> logits (B, S, V) f32
   init_cache(cfg, batch, max_len, device)     -> cache dict (decode state)
   decode_step(cfg, params, cache, tok, pos)   -> (logits (B, V), cache)
-  loss_fn                                     -> a later slice
   input_spec_shapes(cfg, cell)                -> {name: (shape, dtype)}
   cache_spec_shapes(cfg, cell)                -> {name: (shape, dtype)}
 
-The port runs the dense (``transformer``) and ssm (``mamba2``) families;
-``decode_step`` advances the cache in place and returns it.  The other
-families, the MoE block and ``loss_fn`` raise ``NotImplementedError``
-naming their item in ``ROADMAP.md``.
+The port runs the dense, moe and vlm families (``transformer``) and the
+ssm family (``mamba2``); ``decode_step`` advances the cache in place and
+returns it.  The hybrid and encdec families raise
+``NotImplementedError`` naming their item in ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -27,21 +27,9 @@ from .config import ModelConfig, SUBQUADRATIC, ShapeCell
 
 #: ROADMAP.md Queue 1 items of the LM stack that the port does not run yet.
 NOT_PORTED = {
-    "moe": transformer.MOE_ITEM,
-    "loss_fn": "ROADMAP.md Queue 1 item 16 (the losses and training)",
-    "families": "ROADMAP.md Queue 1 item 17 (the hybrid, encdec and vlm "
+    "families": "ROADMAP.md Queue 1 item 17 (the hybrid and encdec "
                 "families)",
 }
-
-
-def not_ported(what: str) -> Callable:
-    """An entry point that raises ``NotImplementedError`` naming its
-    ROADMAP item."""
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet: "
-                                  f"{NOT_PORTED[what]}")
-    refuse.__name__ = what
-    return refuse
 
 
 @dataclass(frozen=True)
@@ -55,21 +43,17 @@ class ModelAPI:
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
     fam = cfg.family
-    if fam not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
-        raise ValueError(f"unknown family {fam!r}")
-    if cfg.is_moe or fam == "moe":
-        raise NotImplementedError(f"{cfg.name}: the MoE block is not ported "
-                                  f"yet: {NOT_PORTED['moe']}")
+    if fam in ("dense", "moe", "vlm"):
+        return ModelAPI(transformer.init_params, transformer.loss_fn,
+                        transformer.forward, transformer.init_cache,
+                        transformer.decode_step)
     if fam == "ssm":
-        return ModelAPI(mamba2.init_params, not_ported("loss_fn"),
-                        mamba2.forward, mamba2.init_cache,
-                        mamba2.decode_step)
-    if fam != "dense":
+        return ModelAPI(mamba2.init_params, mamba2.loss_fn, mamba2.forward,
+                        mamba2.init_cache, mamba2.decode_step)
+    if fam in ("hybrid", "encdec"):
         raise NotImplementedError(f"{cfg.name}: the {fam} family is not "
                                   f"ported yet: {NOT_PORTED['families']}")
-    return ModelAPI(transformer.init_params, not_ported("loss_fn"),
-                    transformer.forward, transformer.init_cache,
-                    transformer.decode_step)
+    raise ValueError(f"unknown family {fam!r}")
 
 
 def param_shapes(cfg: ModelConfig) -> dict:

@@ -15,13 +15,15 @@ widened after.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_intra import ssd_intra
 from .config import ModelConfig
 from .layers import F32, dt, init_from_shapes, rms_norm
-from .transformer import _layer, _nest, mask_pad_logits
+from .transformer import _layer, _nest, _remat, lm_loss, mask_pad_logits
 
 
 def _dims(cfg: ModelConfig):
@@ -187,12 +189,23 @@ def layer_fn(cfg: ModelConfig, pl: dict, x, positions=None):
 
 
 def hidden_fn(cfg: ModelConfig, params: dict, tokens):
-    """tokens: (B, S) integer -> final-normed hidden states (B, S, D)."""
+    """tokens: (B, S) integer -> final-normed hidden states (B, S, D);
+    each layer under ``cfg.remat``'s checkpointing
+    (``transformer._remat``)."""
     x = params["embed"].to(dt(cfg.compute_dtype))[tokens]
     layers = params["layers"]
+    body = _remat(cfg, functools.partial(layer_fn, cfg))
     for i in range(cfg.num_layers):
-        x = layer_fn(cfg, _layer(layers, i), x)
+        x = body(_layer(layers, i), x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """The next-token loss of ``batch`` (``tokens``, ``labels``: (B, S)
+    integer tensors), through the streamed head and loss
+    (``transformer.lm_loss``)."""
+    x = hidden_fn(cfg, params, batch["tokens"])
+    return lm_loss(cfg, params, x, batch["labels"])
 
 
 def forward(cfg: ModelConfig, params: dict, tokens):

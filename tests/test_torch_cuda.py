@@ -1129,3 +1129,204 @@ def test_engine_on_card_repeats_and_resumes_bitwise(arch, tmp_path):
             reqs(), fail_after_tokens=3)
     assert ServeEngine(cfg, params, tmp_path / "c", max_len=16).run(
         reqs()) == ref
+
+
+# --------------------------------------------------------------------------
+# Training: the kernels under autograd, the MoE block, the trainer
+# --------------------------------------------------------------------------
+
+def _grad_rel(got, want):
+    return float((got.float() - want.float()).norm()) / float(
+        want.float().norm())
+
+
+@pytest.mark.parametrize("dtype,rel", [(F32, 1e-4), (BF16, 2e-2)])
+def test_flash_autograd_gradient_matches_plain(dtype, rel):
+    """A loss through ``ops.flash_attention`` on the card (the kernel under
+    its ``autograd.Function``: one launch, none in the backward) has the
+    gradient of the same loss through the plain version, within ``rel`` of
+    its norm (the backward is the plain version's own product; only the
+    forward's roundings, which feed the loss, differ)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ops import flash_attention
+    mod = _kmod("flash_attention")
+    rng = np.random.default_rng(0)
+    q, k, v = (_cuda(rng.normal(size=shape), dtype).requires_grad_()
+               for shape in ((2, 4, 200, 128), (2, 2, 200, 128),
+                             (2, 2, 200, 128)))
+    before = mod.flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert mod.flash_attention.launches == before + 1
+    plain = flash_attention_plain(q.reshape(8, 200, 128),
+                                  k.reshape(4, 200, 128),
+                                  v.reshape(4, 200, 128), causal=True,
+                                  group=2).reshape(2, 4, 200, 128)
+    want = torch.autograd.grad((plain.float() ** 2).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        assert _grad_rel(a, b) <= rel
+
+
+@pytest.mark.parametrize("dtype,rel", [(F32, 1e-4), (BF16, 2e-2)])
+@pytest.mark.parametrize("bc,h,q,p,n", [(2, 4, 64, 64, 64), (2, 3, 8, 4, 5)])
+def test_ssd_autograd_gradient_matches_plain(bc, h, q, p, n, dtype, rel):
+    """A loss through ``kernels.ssd_intra`` on the card (the wgmma or the
+    first design under its ``autograd.Function``: one launch) has the
+    plain cell's gradient within ``rel`` of its norm, for every input."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_intra import ssd_intra
+    mod = _kmod("ssd_intra")
+    args = [a.requires_grad_() for a in
+            _ssd_args(bc, h, q, p, n, False, [dtype] * 4)]
+    before = mod.ssd_intra.launches
+    y, s = ssd_intra(*args)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y ** 2).sum() + (s ** 2).sum(), args)
+    torch.cuda.synchronize()
+    assert mod.ssd_intra.launches == before + 1
+    y2, s2 = ref.ssd_intra_ref(*args)
+    want = torch.autograd.grad((y2 ** 2).sum() + (s2 ** 2).sum(), args)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        assert _grad_rel(a, b) <= rel
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_block_on_card_equals_cpu(arch):
+    """A scaled-down MoE block (f32) on the card against the same block on
+    the CPU: identical routing, outputs within rtol 1e-5 and 1e-6 of the
+    largest output (f32 sums over D and F in another order; weights at std
+    0.2 give outputs of some tens)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch).scaled_down(capacity_factor=0.5)
+    rng = np.random.default_rng(1)
+    p = {k: torch.tensor(rng.normal(size=s) * 0.2, dtype=F32)
+         for k, s in moe.moe_param_shapes(cfg).items()}
+    x = torch.tensor(rng.normal(size=(2, 32, cfg.d_model)), dtype=F32)
+    want = moe.moe_block(cfg, p, x)
+    got = moe.moe_block(cfg, {k: v.cuda() for k, v in p.items()}, x.cuda())
+    cap = moe.expert_capacity(cfg, 32)
+    r_cpu = moe._route(cfg, p["router"], x.reshape(2, 32, -1), cap)
+    r_card = moe._route(cfg, p["router"].cuda(),
+                        x.cuda().reshape(2, 32, -1), cap)
+    for a, b in zip(r_cpu[1:], r_card[1:]):
+        assert torch.equal(a, b.cpu())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-moe-30b-a3b",
+                                  "mamba2-370m"])
+def test_loss_through_the_kernels_has_the_plain_gradient(arch):
+    """``loss_fn`` of a scaled-down model on the card (f32) through the
+    flash kernel or the SSD cell's kernel: every leaf's gradient within
+    1e-4 of the same loss's through the plain versions, in norm."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.launch.train import make_grad_fn
+    from repro_torch.models import get_model, mamba2
+    from repro_torch.optim.adamw import _leaves
+    cfg = get_config(arch).scaled_down(use_pallas_attention=True,
+                                       ssm_headdim=64, ssm_state=64,
+                                       ssm_chunk=64)
+    api = get_model(cfg)
+    params = api.init_params(cfg, seed=0)
+    if cfg.family == "ssm":
+        params["layers"]["conv_w"] = params["layers"]["conv_w"] * 50.0
+    toks = torch.tensor(np.random.default_rng(0).integers(0, 256, (2, 128)),
+                        device="cuda")
+    batch = {"tokens": toks, "labels": toks}
+    flash, ssd = _kmod("flash_attention"), _kmod("ssd_intra")
+    f0, s0 = flash.flash_attention.launches, ssd.ssd_intra.launches
+    _, got = make_grad_fn(cfg, api)(params, batch)
+    torch.cuda.synchronize()
+    if cfg.family == "ssm":
+        assert ssd.ssd_intra.launches - s0 == 2 * cfg.num_layers
+        kernel = mamba2.ssd_intra
+        mamba2.ssd_intra = ref.ssd_intra_ref
+        try:
+            _, want = make_grad_fn(cfg, api)(params, batch)
+        finally:
+            mamba2.ssd_intra = kernel
+    else:
+        assert flash.flash_attention.launches - f0 == 2 * cfg.num_layers
+        _, want = make_grad_fn(dataclasses.replace(
+            cfg, use_pallas_attention=False), api)(params, batch)
+    for a, b in zip(_leaves(got), _leaves(want)):
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-12
+
+
+def test_train_on_card_resumes_bitwise(tmp_path):
+    """The trainer on the card (scaled-down qwen3-moe in bf16, the flash
+    kernel): failed at step 3 and resumed, its final parameter and
+    optimizer files equal the uninterrupted run's byte for byte."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import SimulatedFailure, train
+    cfg = get_config("qwen3-moe-30b-a3b").scaled_down(
+        param_dtype="bfloat16", compute_dtype="bfloat16",
+        use_pallas_attention=True)
+    kw = dict(steps=6, batch=2, seq=64, ckpt_interval=2, log_every=0)
+    ref = train(cfg, ckpt_dir=str(tmp_path / "a"), **kw)
+    with pytest.raises(SimulatedFailure):
+        train(cfg, ckpt_dir=str(tmp_path / "b"), fail_at_step=3, **kw)
+    res = train(cfg, ckpt_dir=str(tmp_path / "b"), **kw)
+    assert res.losses == ref.losses[2:]
+    for name in sorted((tmp_path / "a" / "state" / "A").iterdir()):
+        for slot in ("A", "B"):
+            a = tmp_path / "a" / "state" / slot / name.name
+            b = tmp_path / "b" / "state" / slot / name.name
+            if b.exists():
+                assert a.read_bytes() == b.read_bytes(), (slot, name.name)
+
+
+def test_train_step_on_card_runs_no_nondeterministic_op():
+    """One training step of scaled-down qwen3-moe and mamba2 (bf16, the
+    kernels) under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: no operation warns that it has no deterministic
+    implementation (the embedding's index accumulation among the
+    suspects)."""
+    _need_card()
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    for arch in ("qwen3-moe-30b-a3b", "mamba2-370m"):
+        cfg = get_config(arch).scaled_down(
+            param_dtype="bfloat16", compute_dtype="bfloat16",
+            use_pallas_attention=True, ssm_headdim=64, ssm_state=64,
+            ssm_chunk=64)
+        api, opt = get_model(cfg), adamw(lr=1e-3)
+        params = api.init_params(cfg, seed=0)
+        toks = torch.tensor(np.random.default_rng(0).integers(
+            0, 256, (2, 64)), device="cuda")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                make_train_step(cfg, api, opt)(
+                    params, opt.init(params),
+                    {"tokens": toks, "labels": toks})
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        bad = [str(w.message) for w in caught
+               if "does not have a deterministic implementation"
+               in str(w.message)]
+        assert not bad, (arch, bad)

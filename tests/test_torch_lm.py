@@ -187,7 +187,9 @@ def test_registry_matches_jax():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen1.5-0.5b", "llama3-8b",
-                                  "qwen2.5-14b", "mamba2-370m"])
+                                  "qwen2.5-14b", "mamba2-370m",
+                                  "qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e", "internvl2-26b"])
 def test_counting_matches_jax(arch):
     cfg, jcfg = get_config(arch), jax_config(arch)
     assert counting.param_count(cfg) == jcounting.param_count(jcfg)
@@ -207,35 +209,13 @@ def test_input_specs_and_cells_match_jax():
                           or cfg.family in ("ssm", "hybrid"))
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("qwen3-moe-30b-a3b", "Queue 1 item 15"),
-    ("llama4-scout-17b-a16e", "Queue 1 item 15"),
-    ("zamba2-7b", "Queue 1 item 17"), ("whisper-small", "Queue 1 item 17"),
-    ("internvl2-26b", "Queue 1 item 17")])
-def test_families_not_ported_are_refused(arch, item):
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-small"])
+def test_families_not_ported_are_refused(arch):
     cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
         get_model(cfg)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
         counting.param_count(cfg)
-
-
-def test_moe_refused_by_the_layer_stack_too():
-    cfg = dataclasses.replace(get_config("qwen3-0.6b").scaled_down(),
-                              num_experts=4, experts_per_tok=2, moe_d_ff=32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        transformer.init_params(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("arch,entry,item", [
-    pytest.param("qwen3-0.6b", "loss_fn", "Queue 1 item 16",
-                 id="loss_fn-Queue 1 item 16"),
-    pytest.param("mamba2-370m", "loss_fn", "Queue 1 item 16",
-                 id="mamba2-370m-loss_fn-Queue 1 item 16")])
-def test_entry_points_not_ported_are_refused(arch, entry, item):
-    api = get_model(get_config(arch))
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(api, entry)()
 
 
 def test_forward_on_cpu_launches_no_kernel():

@@ -102,12 +102,16 @@ def test_uplink_message_validation():
 # The decode engine and its KV pages
 # --------------------------------------------------------------------------
 
-#: The JAX serving tests' model (``tests/test_serving.py``), and mamba2 at
-#: widths of the same scale.
+#: The JAX serving tests' model (``tests/test_serving.py``), and mamba2 and
+#: qwen3-moe (4 experts, top-2; a decode batch of 3 is one group of 3
+#: tokens, one slot an expert) at widths of the same scale.
 SMALL = {
     "qwen3": ("qwen3-0.6b", dict(num_layers=2, d_model=32, vocab_size=97,
                                  d_ff=64)),
     "mamba2": ("mamba2-370m", dict(num_layers=2, d_model=32, vocab_size=97)),
+    "qwen3-moe": ("qwen3-moe-30b-a3b", dict(num_layers=2, d_model=32,
+                                            vocab_size=97, d_ff=64,
+                                            moe_d_ff=64)),
 }
 
 
@@ -228,7 +232,8 @@ def test_kv_store_files_match_jax_after_a_torn_append(tmp_path):
     assert _store_files(p.root) == _store_files(j.root)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-370m",
+                                  "qwen3-moe-30b-a3b", "internvl2-26b"])
 def test_serve_launcher_on_cpu(arch, tmp_path, capsys):
     out = serve.main(["--device", "cpu", "--smoke", "--arch", arch,
                       "--requests", "2", "--prompt-len", "5", "--max-new",

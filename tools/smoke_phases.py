@@ -7,9 +7,12 @@ port), ``streamed_stats`` (the streamed sweep of ``mnist_net()``),
 ``genesis`` (GENESIS end to end), ``while_oracle`` (the legacy
 ``backend="_while"`` oracle against the lane kernel), ``mesh``
 (``mesh=`` sweeps against unmeshed ones), ``serving`` (qwen3-0.6b's
-prefill, decode and engine, and mamba2-370m's forward, decode and engine;
-it builds the attention and SSD kernels), or one of two diagnostics of
-the streamed pipeline's producer thread:
+prefill, decode and engine, and mamba2-370m's forward, decode and engine),
+``moe`` (qwen3-moe-30b-a3b and llama4-scout-17b-a16e at full width, depth
+cut), ``vlm`` (internvl2-26b, depth cut), ``train`` (qwen3-0.6b and
+mamba2-370m training, the resume and gradient checks) -- these four build
+the attention and SSD kernels only -- or one of two diagnostics of the
+streamed pipeline's producer thread:
 
 * ``host_alone``: three 65,536-lane chunks' host work (the samplers and
   ``_prepare``) timed on the main thread, on a second thread while the
@@ -25,7 +28,7 @@ imported, for example the parent commit unpacked with ``git archive`` into
 a directory that ``.gitignore`` lists; the phases' code is this
 checkout's.  Two trees compare only within one call on one card, in turns
 (parent, change, change, parent).  It needs one card and builds the lane
-kernel and the statistics fold.
+kernel and the statistics fold for the fleet phases.
 """
 
 import json
@@ -38,7 +41,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("overlap", "streamed_stats", "genesis", "while_oracle", "mesh",
-          "serving", "host_alone", "unpinned")
+          "serving", "moe", "vlm", "train", "host_alone", "unpinned")
+#: The LM phases, each a function of chip_smoke.py taking (torch, np,
+#: emit, smi).
+LM_PHASES = {"serving": "serving", "moe": "moe_phase", "vlm": "vlm_phase",
+             "train": "train_phase"}
 
 
 def emit(obj) -> None:
@@ -125,7 +132,8 @@ def main() -> int:
     emit({"tool": "smoke_phases", "tree": str(tree), "phases": args,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           **cs.host_threads(torch, np)})
-    _build.build("charge_replay", "stats_fold")
+    if any(p not in LM_PHASES for p in args):
+        _build.build("charge_replay", "stats_fold")
     wrapper = cr.charge_replay
     x = np.random.default_rng(42).normal(size=(1, 28, 28)).astype(np.float32)
     net = mnist_net()
@@ -140,9 +148,9 @@ def main() -> int:
         elif phase == "while_oracle":
             emit({"phase": "while_oracle", **cs.while_oracle(
                 torch, np, emit, fleetsim, wrapper, classes)})
-        elif phase == "serving":
+        elif phase in LM_PHASES:
             _build.build("flash_attention", "ssd_intra")
-            cs.serving(torch, np, emit, smi)
+            getattr(cs, LM_PHASES[phase])(torch, np, emit, smi)
         else:
             if plan is None:
                 plan = fleetsim.build_plan(net, x, "tails", "1mF")
