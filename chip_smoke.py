@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's fleet replay, compute kernels, LM forward, LM
-serving, the MoE and vlm families and LM training on one CUDA card and
-check them.
+serving, the MoE and vlm families, LM training and the hybrid and encdec
+families on one CUDA card and check them.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -168,8 +168,9 @@ prints one JSON line per phase; any failure exits non-zero.
    and N = 1, 10, 16, 32 and 64, bitwise and timed (where the narrow one
    is faster, ``matmul_path`` may send N to it).
 8. lm_vs_plain -- the attention kernels (f32 and bf16, causal or not,
-   Sq != Sk, S of 1, 37 and 300, d of 64 and 128 on the wgmma kernel in
-   bf16, d of 80 on the mma.sync one, GQA group 2) and the SSD cell (the
+   Sq != Sk, S of 1, 37, 300 and 1,500 keys, d of 64 and 128 on the wgmma
+   kernel in bf16, d of 80 and 112 (zamba2-7b's heads) on the mma.sync
+   one, GQA group 2) and the SSD cell (the
    tests' shapes, an overflowing decay, Q = 256, 192, 128 and 64 (one row
    tile), N = 64, 128 and 192, 17 heads and one head, in f32, bf16 and
    three mixes) against their plain
@@ -245,21 +246,53 @@ prints one JSON line per phase; any failure exits non-zero.
 13. train -- qwen3-0.6b as published: ``launch.train.train`` for 4 steps
    at 4 x 1,024 tokens (each step's loss, ms, tokens/s, peak memory,
    flash launches: one a layer and one a layer again in the remat
-   recompute; each checkpoint write's s), failed at step 3 and resumed:
-   the final parameter and optimizer files equal the uninterrupted run's
-   byte for byte; one ``loss_fn`` backward with the kernel against the
+   recompute; each checkpoint write's s); at full width and 2 of 28
+   layers, a run failed at step 3 and resumed: its final parameter and
+   optimizer files equal an uninterrupted run's at that depth byte for
+   byte; one ``loss_fn`` backward with the kernel against the
    plain attention, every leaf's ||g_kernel - g_plain|| / ||g_plain|| <=
    2e-2.  mamba2-370m as published: 2 steps at 2 x 1,024 (96
    ``ssd_intra`` launches a step), its gradient against the plain
    cell's, the same rule.  Each phase prints the card's ``nvidia-smi``
    name and power limit and frees its weights before the next.
-14. the kernels line (the flash and SSD entries count these phases'
-   launches too: ``moe_launches``, ``vlm_launches``, ``train_launches``),
-   the ``nvidia-smi`` line, and the result line.
+14. hybrid -- zamba2-7b at full width (d_model 3,584, 32 heads of 112,
+   112 SSD heads, ssm_state 64, bf16, seed 0), 15 of 81 layers (two
+   super-blocks of six mamba blocks and the shared block, then the
+   published tail of 3; printed as ``reduced``): ``forward`` of 2 x 4,096
+   tokens with both kernels' launches zeroed just before and read just
+   after (2 flash launches, all on ``mma_sync``; 15 ``ssd_intra``, all on
+   wgmma, each held at once against the plain cell, ``ssd`` and
+   ``ssd_f64``), the logits against the plain attention and plain cell's
+   (``lm_bf16``), ms and tokens/s beside ``counting.model_flops``; 32
+   teacher-forced ``decode_step``s against the forward
+   (``ssm_decode_bf16``), ms and aten calls a step; its ``ServeEngine``
+   (4 x (64 + 32)) twice and across preemption, bitwise; one ``loss_fn``
+   backward at 7 layers over 2 x 1,024 through both kernels' autograd
+   against the plain versions' (every leaf within 2e-2); the attention
+   kernel alone at q (64, 4,096, 112) causal and the SSD cell at 3,584
+   cells, each beside its plain version, its bound and (attention)
+   ``scaled_dot_product_attention``.
+15. encdec -- whisper-small as published (12 + 12 layers, 12 heads of
+   64, bf16, seed 0) over 2 x (1,500 seeded frame embeddings + 448
+   tokens): ``forward`` with the flash launches zeroed just before and read
+   just after (24, all on wgmma: 12 non-causal over 1,500 keys, 12 causal
+   over 448), the logits against the plain attention's (``lm_bf16``),
+   ``encode`` and ``forward`` ms; ``prefill_cross`` then 32 teacher-forced
+   ``decode_step``s against the forward (``lm_bf16``), ms and aten calls a
+   step; one ``loss_fn`` backward against the plain attention's (2e-2 a
+   leaf); the kernel alone at q (24, 1,500, 64) non-causal beside SDPA and
+   its bound.  No engine: the JAX package's engine never fills the cross
+   K/V (ROADMAP Queue 3 item 8).
+16. the kernels line (the flash and SSD entries count these phases'
+   launches too: ``moe_launches``, ``vlm_launches``, ``train_launches``,
+   ``hybrid_launches`` and ``encdec_launches``, the last two also by
+   kernel, with each kernel's time at those phases' shapes), the
+   ``nvidia-smi`` line, and the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1512,7 +1545,9 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
         for bh, sq, sk, d, group in ((2, 37, 37, 64, 1), (4, 300, 300, 128, 2),
                                      (2, 1, 1, 128, 2), (4, 37, 300, 128, 2),
                                      (2, 300, 37, 64, 1), (4, 1, 300, 64, 2),
-                                     (4, 300, 300, 80, 2)):
+                                     (4, 300, 300, 80, 2),
+                                     (4, 300, 300, 112, 1),
+                                     (4, 37, 1500, 64, 1)):
             for causal in (True, False):
                 q = dev(rng.normal(size=(bh, sq, d)), dtype)
                 k = dev(rng.normal(size=(bh // group, sk, d)), dtype)
@@ -2348,11 +2383,13 @@ ENGINE_RUNS[MOE_ARCH] = (4, 64, 32)
 VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_TEXT = "internvl2-26b", 2, 2, 1792
 #: qwen3-0.6b as published: LM_TRAIN_STEPS steps at LM_TRAIN_BATCH x
 #: LM_TRAIN_SEQ, a checkpoint every LM_TRAIN_CKPT steps, the resume check
-#: failing at LM_TRAIN_FAIL_AT; mamba2-370m as published, SSM_TRAIN_STEPS
+#: at full width and LM_TRAIN_RESUME_LAYERS of 28 layers (its checkpoint
+#: writes some 2 GB, not 7.5) failing at LM_TRAIN_FAIL_AT;
+#: mamba2-370m as published, SSM_TRAIN_STEPS
 #: at SSM_TRAIN_BATCH x LM_TRAIN_SEQ.  Gradients through a kernel against
 #: the plain version's: ||g_kernel - g_plain|| / ||g_plain|| per leaf.
 LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 4, 1024
-LM_TRAIN_CKPT, LM_TRAIN_FAIL_AT = 2, 3
+LM_TRAIN_CKPT, LM_TRAIN_FAIL_AT, LM_TRAIN_RESUME_LAYERS = 2, 3, 2
 SSM_TRAIN_STEPS, SSM_TRAIN_BATCH = 2, 2
 GRAD_REL = 2e-2
 
@@ -2752,9 +2789,10 @@ def train_phase(torch, np, emit, smi_line, device="cuda") -> dict:
     just after (each step: one a layer in the forward and one in the
     remat recompute); each step's loss, ms (the gradient's and the
     update's), flash launches and peak device memory over what was
-    allocated when the phase began, each checkpoint write's s.  The same run failing at
-    LM_TRAIN_FAIL_AT and resumed must end on the uninterrupted run's
-    parameter and optimizer files, byte for byte.  One ``loss_fn``
+    allocated when the phase began, each checkpoint write's s.  At full
+    width and LM_TRAIN_RESUME_LAYERS layers, a run failing at
+    LM_TRAIN_FAIL_AT and resumed must end on an uninterrupted run's
+    parameter and optimizer files at that depth, byte for byte.  One ``loss_fn``
     backward with the kernel against the plain attention: every leaf's
     ||g_kernel - g_plain|| / ||g_plain|| <= GRAD_REL.  Then mamba2-370m as
     published: SSM_TRAIN_STEPS steps (``ssd_intra`` counted the same way)
@@ -2847,32 +2885,42 @@ def train_phase(torch, np, emit, smi_line, device="cuda") -> dict:
             res = trainer.train(cfg, ckpt_dir=str(tmp / "a"), **kw)
             train_launches = flash.launches   # read just after
             run_steps, run_saves = list(steps), list(saves)
+            da, ma = front_files(tmp / "a")
+            ckpt_bytes = sum((da / n).stat().st_size for n in ma["leaves"])
+            shutil.rmtree(tmp / "a")
+            # the resume check at a cut depth: uninterrupted, then failed
+            # and resumed
+            rcfg = dataclasses.replace(cfg, num_layers=LM_TRAIN_RESUME_LAYERS)
+            t0 = time.perf_counter()
+            full = trainer.train(rcfg, ckpt_dir=str(tmp / "c"), **kw)
             try:
-                trainer.train(cfg, ckpt_dir=str(tmp / "b"),
+                trainer.train(rcfg, ckpt_dir=str(tmp / "b"),
                               fail_at_step=LM_TRAIN_FAIL_AT, **kw)
             except trainer.SimulatedFailure:
                 pass
             else:
                 raise SystemExit("train: the run was not failed at step "
                                  f"{LM_TRAIN_FAIL_AT}")
-            resumed = trainer.train(cfg, ckpt_dir=str(tmp / "b"), **kw)
-            (da, ma), (db, mb) = front_files(tmp / "a"), front_files(tmp / "b")
-            same = ma["meta"] == mb["meta"] and ma["leaves"] == mb["leaves"] \
-                and ma["dtypes"] == mb["dtypes"] and all(
-                    filecmp.cmp(da / n, db / n, shallow=False)
-                    for n in ma["leaves"])
-            ckpt_bytes = sum((da / n).stat().st_size for n in ma["leaves"])
+            resumed = trainer.train(rcfg, ckpt_dir=str(tmp / "b"), **kw)
+            resume_s = time.perf_counter() - t0
+            (dc, mc), (db, mb) = front_files(tmp / "c"), front_files(tmp / "b")
+            same = mc["meta"] == mb["meta"] and mc["leaves"] == mb["leaves"] \
+                and mc["dtypes"] == mb["dtypes"] and all(
+                    filecmp.cmp(dc / n, db / n, shallow=False)
+                    for n in mc["leaves"])
+            resume_bytes = sum((dc / n).stat().st_size for n in mc["leaves"])
+            resume_saves = saves[len(run_saves):]
     finally:
         patch(False)
     resume_start = LM_TRAIN_FAIL_AT // LM_TRAIN_CKPT * LM_TRAIN_CKPT
     if not all(np.isfinite(res.losses)):
         raise SystemExit(f"train: {LM_ARCH}'s losses {res.losses}")
-    if not same or resumed.losses != res.losses[resume_start:] \
+    if not same or resumed.losses != full.losses[resume_start:] \
             or resumed.steps_run != LM_TRAIN_STEPS - resume_start:
         raise SystemExit(f"train: the run failed at step "
                          f"{LM_TRAIN_FAIL_AT} and resumed differs from the "
                          f"uninterrupted one (files equal: {same}; losses "
-                         f"{resumed.losses} against {res.losses})")
+                         f"{resumed.losses} against {full.losses})")
     per_step = 2 * cfg.num_layers
     if any(s["flash_attention_launches"] != per_step for s in run_steps):
         raise SystemExit(f"train: flash launches a step "
@@ -2886,6 +2934,9 @@ def train_phase(torch, np, emit, smi_line, device="cuda") -> dict:
           "tokens_per_s": [tokens / s["step_ms"] * 1e3 for s in run_steps],
           "checkpoint_write_s": run_saves, "checkpoint_bytes": ckpt_bytes,
           "flash_attention_launches": train_launches,
+          "resume_check_layers": LM_TRAIN_RESUME_LAYERS,
+          "resume_check_checkpoint_bytes": resume_bytes,
+          "resume_check_write_s": resume_saves, "resume_check_s": resume_s,
           "resumed_at_step": resume_start, "resumed_steps":
           resumed.steps_run, "resume_bitwise_equal": True,
           "wall_s": res.wall_s, "nvidia_smi": smi_line})
@@ -2981,6 +3032,594 @@ def train_phase(torch, np, emit, smi_line, device="cuda") -> dict:
           "nvidia_smi": smi_line})
     return {"flash_attention": train_launches, "ssd_intra": ssm_launches,
             "seconds": seconds}
+
+
+#: Phases 14-15 (``hybrid``, ``encdec``).  zamba2-7b at full width (d_model
+#: 3,584, 32 heads of 112, d_ff 14,336, ssm_state 64, 112 SSD heads of 64,
+#: bf16), its depth cut to HYBRID_LAYERS of 81 (two super-blocks of six
+#: mamba blocks and the shared block, then the published tail of 3; no
+#: kernel shape depends on depth): forward over LM_BATCH x LM_SEQ tokens,
+#: HYBRID_DECODE teacher-forced decode steps, its engine (ENGINE_RUNS), one
+#: ``loss_fn`` backward over LM_BATCH x HYBRID_GRAD_SEQ at HYBRID_GRAD_LAYERS
+#: (one super-block and one trailing block).  whisper-small as published
+#: (12 + 12 layers): forward over ENCDEC_BATCH x (1,500 frames +
+#: ENCDEC_TEXT tokens, whisper's decoder context), ENCDEC_DECODE decode
+#: steps after ``prefill_cross``, one ``loss_fn`` backward.
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_DECODE = "zamba2-7b", 15, 32
+HYBRID_GRAD_LAYERS, HYBRID_GRAD_SEQ = 7, 1024
+ENGINE_RUNS[HYBRID_ARCH] = (4, 64, 32)
+ENCDEC_ARCH, ENCDEC_BATCH, ENCDEC_TEXT, ENCDEC_DECODE = \
+    "whisper-small", 2, 448, 32
+
+
+def zero_ssd(smod) -> None:
+    smod.ssd_intra.launches = 0
+    for p in smod.ssd_intra.launches_by_path:
+        smod.ssd_intra.launches_by_path[p] = 0
+
+
+def flash_alone(torch, np, fmod, rng, bh: int, sq: int, sk: int, d: int,
+                causal: bool, label: str) -> dict:
+    """The bf16 attention kernel alone on seeded (bh, sq, d) / (bh, sk, d)
+    operands: held against the plain version at its own tiles
+    (``attn_bf16``), timed beside the plain version, one
+    ``scaled_dot_product_attention`` on the same operands and its bound
+    (the products, at half the pairs when causal, at the bf16 peak; each
+    operand read once and the output written once)."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+
+    def dev(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(bf16).cuda()
+
+    q, k, v = dev((bh, sq, d)), dev((bh, sk, d)), dev((bh, sk, d))
+    path = fmod.attention_path(q, k, v)
+    got = fmod.flash_attention(q, k, v, causal=causal)
+    bq, bk = fmod.kernel_tiles(path)
+    want = fmod.flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
+    ok, diff = agree(torch, got, want, "attn_bf16")
+    share = limit_share(torch, got, want, "attn_bf16")
+    del got, want
+    if not ok:
+        raise SystemExit(f"{label}: flash_attention ({bh}, {sq}, {d}) over "
+                         f"{sk} keys ({path}) disagrees with the plain "
+                         f"version ({TOLERANCES['attn_bf16']}; max abs diff "
+                         f"{diff}, {share} of the limit)")
+    pairs = sq * sk / 2 if causal else sq * sk
+    flops = 4.0 * pairs * d * bh
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    q4, k4, v4 = (t.view(1, bh, -1, d) for t in (q, k, v))
+    r = dict(
+        path=path, causal=causal, max_abs_err=diff, limit_share=share,
+        tolerance=TOLERANCES["attn_bf16"],
+        ms=median_ms(torch, lambda: fmod.flash_attention(q, k, v,
+                                                         causal=causal),
+                     inner=INNER),
+        plain_ms=median_ms(torch, lambda: fmod.flash_attention_plain(
+            q, k, v, causal=causal, bq=bq, bk=bk), reps=3),
+        library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal), inner=INNER),
+        flops=flops, bytes=nbytes,
+        shape=f"q ({bh}, {sq}, {d}) bf16, k/v ({bh}, {sk}, {d}), "
+              f"{'causal' if causal else 'non-causal'}")
+    r["bound_ms"], r["bound_by"] = bound(flops, nbytes, PEAK_BF16_OPS)
+    r["of_bound"] = r["bound_ms"] / r["ms"]
+    return r
+
+
+def ssd_alone(torch, np, smod, rng, bc: int, h: int, q: int, p: int, n: int,
+              label: str) -> dict:
+    """The SSD cell alone on seeded f32 inputs at (bc, h) cells of Q x N x
+    P: held against the plain cell (``ssd``) and the f64 cell
+    (``ssd_f64``), timed beside the plain cell and its bound (the 3xTF32
+    products with G once a batch*chunk; each input read once and each
+    output written once)."""
+    from repro_torch.kernels import ref
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+    args = (dev(rng.normal(size=(bc, h, q, p))),
+            dev(rng.normal(size=(bc, q, n))), dev(rng.normal(size=(bc, q, n))),
+            dev(np.cumsum(-rng.uniform(0.005, 1.0, (bc, h, q)), axis=-1)))
+    path = smod.ssd_path(*args)
+    got = smod.ssd_intra(*args)
+    want = ref.ssd_intra_ref(*args)
+    exact = ref.ssd_intra_ref(*args, dtype=torch.float64)
+    diff = share = 0.0
+    for g, w, e in zip(got, want, exact):
+        ok, d = agree(torch, g, w, "ssd")
+        diff, share = max(diff, d), max(share, tf32x3_share(torch, g, w, e))
+        if not ok or share > 1.0:
+            raise SystemExit(f"{label}: ssd_intra at {bc} x {h} cells "
+                             f"({path}) misses its rules ({TOLERANCES['ssd']};"
+                             f" max abs diff {d}, {share} of the f64 limit)")
+    del got, want, exact
+    tri = q * (q + 1) // 2
+    cells = bc * h
+    flops = 2.0 * (bc * tri * n + cells * tri * p + cells * q * n * p)
+    nbytes = 4 * (2 * cells * q * p + 2 * bc * q * n + cells * q
+                  + cells * n * p)
+    r = dict(
+        path=path, max_abs_err=diff, f64_limit_share=share,
+        tolerance=[TOLERANCES["ssd"], TOLERANCES["ssd_f64"]],
+        plan={"heads_per_cta": smod.ssd_plan(bc, h, q, n)},
+        ms=median_ms(torch, lambda: smod.ssd_intra(*args), inner=INNER),
+        plain_ms=median_ms(torch, lambda: ref.ssd_intra_ref(*args), reps=3),
+        library_ms=None, flops=flops, bytes=nbytes,
+        shape=f"xdt ({bc}, {h}, {q}, {p}), bb/cc ({bc}, {q}, {n}) float32, "
+              f"outputs f32")
+    r["bound_ms"], r["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32_OPS)
+    r["of_bound"] = r["bound_ms"] / r["ms"]
+    return r
+
+
+@contextlib.contextmanager
+def plain_cell(mamba2, ref):
+    """The plain SSD cell in ``models.mamba2`` for the comparison runs
+    inside the ``with`` block only."""
+    kernel = mamba2.ssd_intra
+    mamba2.ssd_intra = ref.ssd_intra_ref
+    try:
+        yield
+    finally:
+        mamba2.ssd_intra = kernel
+
+
+def hybrid_phase(torch, np, emit, smi_line, device="cuda") -> dict:
+    """Phase 14: zamba2-7b at full width, HYBRID_LAYERS of its 81 layers
+    (bf16, the flash kernel, seed 0).  ``forward`` of LM_BATCH x LM_SEQ
+    tokens with both kernels' launches zeroed just before and read just
+    after (the shared block's attention, heads of 112, on ``mma_sync``;
+    one SSD cell a mamba block on wgmma, each launch held at once against
+    the plain cell, ``ssd`` and ``ssd_f64``); the logits against the
+    forward with the plain attention and the plain cell (``lm_bf16``);
+    ms and tokens/s beside ``counting.model_flops``.  HYBRID_DECODE
+    teacher-forced ``decode_step``s from an empty cache against a forward
+    over those tokens (``ssm_decode_bf16``), ms and aten calls a step; its
+    ``ServeEngine`` twice and across preemption (``engine_runs``); one
+    ``loss_fn`` backward at HYBRID_GRAD_LAYERS over LM_BATCH x
+    HYBRID_GRAD_SEQ through ``FlashAttentionFunction`` and
+    ``SSDIntraFunction`` against the plain versions' (GRAD_REL a leaf).
+    Then the attention kernel alone at the shared block's shape and the SSD
+    cell at its 3,584 cells.  Returns the kernels' launches on the path."""
+    import dataclasses
+    import importlib
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as trainer
+    from repro_torch.models import counting, get_model, mamba2, zamba2
+
+    fmod = importlib.import_module("repro_torch.kernels.flash_attention")
+    smod = importlib.import_module("repro_torch.kernels.ssd_intra")
+    flash, ssd = fmod.flash_attention, smod.ssd_intra
+    t_phase = time.perf_counter()
+    emit({"phase": "hybrid", "nvidia_smi": smi_line})
+    published = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(published, num_layers=HYBRID_LAYERS,
+                              use_pallas_attention=True)
+    a, n_super, trailing = zamba2._splits(cfg)
+    reduced = (f"{HYBRID_LAYERS} of {published.num_layers} layers ({n_super} "
+               f"super-blocks of {a} mamba blocks and the shared block, "
+               f"then {trailing} trailing: the published tail); full width")
+    t0 = time.perf_counter()
+    params = zamba2.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    vocab = cfg.vocab_size
+    toks = torch.from_numpy(np.random.default_rng(42).integers(
+        0, vocab, (LM_BATCH, LM_SEQ))).to(device)
+    wrapper = mamba2.ssd_intra
+    f64_share = cell_diff = 0.0
+
+    def checked(*args):
+        """The wrapper, each launch's outputs held at once against the
+        plain cell on the same inputs (ssd and ssd_f64)."""
+        nonlocal f64_share, cell_diff
+        got = wrapper(*args)
+        want = ref.ssd_intra_ref(*args)
+        exact = ref.ssd_intra_ref(*args, dtype=torch.float64)
+        for g, w, e in zip(got, want, exact):
+            share = tf32x3_share(torch, g, w, e)
+            ok, d = agree(torch, g, w, "ssd")
+            f64_share, cell_diff = max(f64_share, share), max(cell_diff, d)
+            if share > 1.0 or not ok:
+                raise SystemExit(f"hybrid: an ssd_intra launch in "
+                                 f"{HYBRID_ARCH}'s forward misses its rules "
+                                 f"({TOLERANCES['ssd']}; max abs diff {d}, "
+                                 f"{share} of the f64 limit)")
+        return got
+
+    zero_flash(fmod)                          # zero just before the path
+    zero_ssd(smod)
+    mamba2.ssd_intra = checked
+    try:
+        logits = zamba2.forward(cfg, params, toks)
+        torch.cuda.synchronize()
+    finally:
+        mamba2.ssd_intra = wrapper
+    fwd = {"flash_attention": flash.launches,  # read just after
+           "ssd_intra": ssd.launches,
+           "flash_attention_by_path": dict(flash.launches_by_path),
+           "ssd_intra_by_path": dict(ssd.launches_by_path)}
+    line = {"part": "zamba2_forward", "arch": HYBRID_ARCH,
+            "layers": cfg.num_layers, "reduced": reduced, "batch": LM_BATCH,
+            "seq": LM_SEQ, "hd": cfg.hd, "ssm_heads": cfg.ssm_heads,
+            "launches": fwd, "nvidia_smi": smi_line}
+    if fwd["flash_attention"] != n_super \
+            or fwd["flash_attention_by_path"]["mma_sync"] != n_super \
+            or fwd["ssd_intra"] != cfg.num_layers \
+            or fwd["ssd_intra_by_path"]["wgmma"] != cfg.num_layers:
+        emit({"phase": "hybrid_failed", **line})
+        raise SystemExit(f"hybrid: the forward launched {fwd}, not "
+                         f"{n_super} flash_attention on mma_sync and "
+                         f"{cfg.num_layers} ssd_intra on wgmma")
+    if logits.shape != (LM_BATCH, LM_SEQ, cfg.vocab_padded) \
+            or logits.dtype != torch.float32:
+        raise SystemExit(f"hybrid: logits {tuple(logits.shape)} "
+                         f"{logits.dtype}")
+    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
+    with plain_cell(mamba2, ref):
+        plain = zamba2.forward(plain_cfg, params, toks)
+        torch.cuda.synchronize()
+    # the forward's logits where the decode below is held against them
+    want = logits[:, :HYBRID_DECODE, :vocab].clone()
+    ok, diff = agree(torch, logits[..., :vocab], plain[..., :vocab],
+                     "lm_bf16")
+    share = scale_share(torch, logits[..., :vocab], plain[..., :vocab],
+                        "lm_bf16")
+    finite = bool(torch.isfinite(logits).all())
+    del logits, plain
+    if not ok or not finite:
+        emit({"phase": "hybrid_failed", **line, "limit_share": share})
+        raise SystemExit(f"hybrid: the logits with the kernels disagree "
+                         f"with the plain path's ({TOLERANCES['lm_bf16']}; "
+                         f"max abs diff {diff}, {share} of the limit)")
+    forward_ms = median_ms(torch, lambda: zamba2.forward(cfg, params, toks),
+                           reps=3)
+    with plain_cell(mamba2, ref):
+        plain_ms = median_ms(torch, lambda: zamba2.forward(plain_cfg, params,
+                                                           toks), reps=1)
+    tokens = LM_BATCH * LM_SEQ
+    convention = counting.model_flops(cfg, tokens, "prefill")
+    attn_flops = 2.0 * LM_SEQ * LM_SEQ * cfg.hd * cfg.num_heads * LM_BATCH \
+        * n_super                             # causal half, QK^T and PV
+    fwd_flops = convention - 2.0 * tokens * cfg.vocab_padded * cfg.d_model \
+        + attn_flops
+    emit({"phase": "hybrid", **line,
+          "max_abs_diff_vs_plain": diff, "limit_share": share,
+          "tolerance": TOLERANCES["lm_bf16"],
+          "ssd_launches_max_abs_diff_vs_plain": cell_diff,
+          "ssd_launches_f64_max_limit_share": f64_share,
+          "forward_ms": forward_ms, "tokens_per_s": tokens / forward_ms
+          * 1e3, "plain_forward_ms": plain_ms,
+          "params": counting.param_count(cfg),
+          "params_published": counting.param_count(published),
+          "model_flops_2nd": convention, "forward_flops": fwd_flops,
+          "forward_bound_ms": fwd_flops / PEAK_BF16_OPS * 1e3,
+          "bound_by": "operations", "init_s": init_s})
+
+    # teacher-forced decode from an empty cache against the forward's
+    # logits at the same positions
+    dtoks = toks[:, :HYBRID_DECODE]
+    cache = zamba2.init_cache(cfg, LM_BATCH, HYBRID_DECODE, device=device)
+    steps, host_s = [], 0.0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for pos in range(HYBRID_DECODE):
+        t0 = time.perf_counter()
+        lg, cache = zamba2.decode_step(cfg, params, cache, dtoks[:, pos], pos)
+        host_s += time.perf_counter() - t0
+        steps.append(lg[:, :vocab])
+    ev1.record()
+    torch.cuda.synchronize()
+    got = torch.stack(steps, 1)
+    ok, ddiff = agree(torch, got, want, "ssm_decode_bf16")
+    dshare = scale_share(torch, got, want, "ssm_decode_bf16")
+    if not ok:
+        raise SystemExit(f"hybrid: decode disagrees with the forward "
+                         f"({TOLERANCES['ssm_decode_bf16']}; max abs diff "
+                         f"{ddiff}, {dshare} of the limit)")
+    del got, want, steps
+    c0 = zamba2.init_cache(cfg, LM_BATCH, HYBRID_DECODE, device=device)
+    decode_aten = aten_calls(torch, lambda: zamba2.decode_step(
+        cfg, params, c0, dtoks[:, 0], 0))
+    del c0, cache
+    emit({"phase": "hybrid", "part": "zamba2_decode", "steps":
+          HYBRID_DECODE, "batch": LM_BATCH,
+          "max_abs_diff_vs_forward": ddiff, "limit_share": dshare,
+          "tolerance": TOLERANCES["ssm_decode_bf16"],
+          "decode_ms_per_step": ev0.elapsed_time(ev1) / HYBRID_DECODE,
+          "decode_host_ms_per_step": host_s / HYBRID_DECODE * 1e3,
+          "aten_calls_per_step": decode_aten, "nvidia_smi": smi_line})
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        engine = engine_runs(torch, cfg, params,
+                             engine_requests(np, HYBRID_ARCH, vocab),
+                             Path(tmp))
+    emit({"phase": "hybrid", "part": "engine", **engine,
+          "nvidia_smi": smi_line})
+    del params, toks, dtoks
+    torch.cuda.empty_cache()
+
+    # one loss_fn backward through both kernels against the plain versions
+    gcfg = dataclasses.replace(cfg, num_layers=HYBRID_GRAD_LAYERS)
+    api = get_model(gcfg)
+    gparams = api.init_params(gcfg, seed=0, device=device)
+    gt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, vocab, (LM_BATCH, HYBRID_GRAD_SEQ))).to(device)
+    batch = {"tokens": gt, "labels": gt}
+    zero_flash(fmod)
+    zero_ssd(smod)
+    loss_k, g_k = trainer.make_grad_fn(gcfg, api)(gparams, batch)
+    torch.cuda.synchronize()
+    grad = {"flash_attention": flash.launches, "ssd_intra": ssd.launches,
+            "flash_attention_by_path": dict(flash.launches_by_path),
+            "ssd_intra_by_path": dict(ssd.launches_by_path)}
+    with plain_cell(mamba2, ref):
+        loss_p, g_p = trainer.make_grad_fn(dataclasses.replace(
+            gcfg, use_pallas_attention=False), api)(gparams, batch)
+    rel = grad_rel(torch, g_k, g_p)
+    worst = max(rel, key=rel.get)
+    g_super = zamba2._splits(gcfg)[1]
+    per = 2 if gcfg.remat == "full" else 1    # forward and remat recompute
+    emit({"phase": "hybrid", "part": "zamba2_gradient",
+          "layers": gcfg.num_layers, "batch": LM_BATCH,
+          "seq": HYBRID_GRAD_SEQ, "remat": gcfg.remat,
+          "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+          "launches": grad, "grad_rel_max": rel[worst],
+          "grad_rel_worst_leaf": worst, "grad_rel_shared_attention": {
+              k: v for k, v in rel.items() if "shared.attn." in k},
+          "grad_rel_ssd": {k: v for k, v in rel.items()
+                           if k.endswith(("A_log", "dt_bias"))},
+          "limit": GRAD_REL, "nvidia_smi": smi_line})
+    if rel[worst] > GRAD_REL or grad["flash_attention_by_path"][
+            "mma_sync"] != per * g_super or grad["ssd_intra_by_path"][
+            "wgmma"] != per * gcfg.num_layers:
+        raise SystemExit(f"hybrid: the gradient through the kernels is "
+                         f"{rel[worst]} of the plain versions' at {worst} "
+                         f"(limit {GRAD_REL}; launches {grad})")
+    del gparams, g_k, g_p, batch, gt
+    torch.cuda.empty_cache()
+
+    # the kernels alone at the path's shapes
+    rng = np.random.default_rng(11)
+    attn = flash_alone(torch, np, fmod, rng, LM_BATCH * cfg.num_heads, LM_SEQ,
+                       LM_SEQ, cfg.hd, True, "hybrid")
+    if attn["path"] != "mma_sync":
+        raise SystemExit(f"hybrid: the shared block's attention takes the "
+                         f"{attn['path']} kernel")
+    cell = ssd_alone(torch, np, smod, rng, LM_BATCH * LM_SEQ // cfg.ssm_chunk,
+                     cfg.ssm_heads, cfg.ssm_chunk, cfg.ssm_headdim,
+                     cfg.ssm_state, "hybrid")
+    if cell["path"] != "wgmma":
+        raise SystemExit(f"hybrid: the SSD cell takes the {cell['path']} "
+                         f"kernel")
+    for name, r in (("flash_attention", attn), ("ssd_intra", cell)):
+        emit({"phase": "hybrid", "part": "kernel_alone", "kernel": name, **r,
+              "nvidia_smi": smi_line})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "hybrid", "seconds": seconds, "all_agree": True,
+          "nvidia_smi": smi_line})
+    launches = {}
+    for name in ("flash_attention", "ssd_intra"):
+        launches[name] = fwd[name] + grad[name]
+        by = f"{name}_by_path"
+        launches[by] = {p: fwd[by][p] + grad[by][p] for p in fwd[by]}
+    return {**launches, "shapes": {"flash_attention": attn,
+                                   "ssd_intra": cell}, "seconds": seconds}
+
+
+def encdec_phase(torch, np, emit, smi_line, device="cuda") -> dict:
+    """Phase 15: whisper-small as published (12 + 12 layers, bf16, the
+    flash kernel, seed 0) over ENCDEC_BATCH x (1,500 seeded frame
+    embeddings at the token embeddings' scale, the frontend being a stub in
+    both packages + ENCDEC_TEXT tokens).  ``forward`` with the flash
+    kernel's launches zeroed just before and read just after (the encoder's
+    12 non-causal over 1,500 keys and the decoder's 12 causal, all on
+    wgmma; the cross-attention is the plain blockwise path, as in the JAX
+    package), the logits against the plain attention's (``lm_bf16``),
+    ``encode`` and ``forward`` ms; ``prefill_cross`` then ENCDEC_DECODE
+    teacher-forced ``decode_step``s against the forward (``lm_bf16``), ms
+    and aten calls a step; one ``loss_fn`` backward against the plain
+    attention's (GRAD_REL a leaf); the kernel alone at the encoder's shape.
+    No engine: the JAX package's engine never calls ``prefill_cross``
+    (ROADMAP Queue 3 item 8).  Returns the flash launches on the path."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as trainer
+    from repro_torch.models import counting, get_model, whisper
+
+    fmod = importlib.import_module("repro_torch.kernels.flash_attention")
+    flash = fmod.flash_attention
+    t_phase = time.perf_counter()
+    emit({"phase": "encdec", "nvidia_smi": smi_line})
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH),
+                              use_pallas_attention=True)
+    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
+    t0 = time.perf_counter()
+    params = whisper.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(42)
+    frames = torch.from_numpy(rng.normal(
+        size=(ENCDEC_BATCH, cfg.encoder_seq, cfg.d_model)) * 0.02).to(
+            device, torch.bfloat16)
+    toks = torch.from_numpy(rng.integers(
+        0, vocab, (ENCDEC_BATCH, ENCDEC_TEXT))).to(device)
+    batch = {"frames": frames, "tokens": toks}
+    # each launch's (causal, queries, keys), recorded on the way in
+    calls, real_flash = [], ops._flash
+
+    def recording(q, k, v, **kw):
+        calls.append((kw["causal"], q.shape[1], k.shape[1]))
+        return real_flash(q, k, v, **kw)
+
+    def by_kind():
+        out = {}
+        for causal, sq, sk in calls:
+            key = f"{'causal' if causal else 'non_causal'}_{sq}x{sk}"
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    ops._flash = recording
+    try:
+        zero_flash(fmod)                      # zero just before the path
+        logits = whisper.forward(cfg, params, batch)
+        torch.cuda.synchronize()
+        fwd = {"flash_attention": flash.launches,   # read just after
+               "flash_attention_by_path": dict(flash.launches_by_path),
+               "by_kind": by_kind()}
+    finally:
+        ops._flash = real_flash
+    n = cfg.encoder_layers + cfg.num_layers
+    want_kinds = {f"non_causal_{cfg.encoder_seq}x{cfg.encoder_seq}":
+                  cfg.encoder_layers,
+                  f"causal_{ENCDEC_TEXT}x{ENCDEC_TEXT}": cfg.num_layers}
+    line = {"part": "whisper_forward", "arch": ENCDEC_ARCH,
+            "layers": [cfg.encoder_layers, cfg.num_layers],
+            "reduced": "none: published depth and width",
+            "batch": ENCDEC_BATCH, "frames": cfg.encoder_seq,
+            "text": ENCDEC_TEXT, "launches": fwd, "nvidia_smi": smi_line}
+    if fwd["flash_attention"] != n \
+            or fwd["flash_attention_by_path"]["wgmma"] != n \
+            or fwd["by_kind"] != want_kinds:
+        emit({"phase": "encdec_failed", **line})
+        raise SystemExit(f"encdec: the forward launched {fwd}, not {n} "
+                         f"flash_attention on wgmma ({want_kinds})")
+    plain = whisper.forward(plain_cfg, params, batch)
+    torch.cuda.synchronize()
+    ok, diff = agree(torch, logits[..., :vocab], plain[..., :vocab],
+                     "lm_bf16")
+    share = scale_share(torch, logits[..., :vocab], plain[..., :vocab],
+                        "lm_bf16")
+    want = logits[:, :ENCDEC_DECODE, :vocab].clone()
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits, plain
+    if not ok or not finite \
+            or shape != (ENCDEC_BATCH, ENCDEC_TEXT, cfg.vocab_padded):
+        emit({"phase": "encdec_failed", **line, "limit_share": share})
+        raise SystemExit(f"encdec: logits {shape} with the kernel disagree "
+                         f"with the plain attention's "
+                         f"({TOLERANCES['lm_bf16']}; max abs diff {diff}, "
+                         f"{share} of the limit)")
+    encode_ms = median_ms(torch, lambda: whisper.encode(cfg, params, frames),
+                          reps=3)
+    forward_ms = median_ms(torch, lambda: whisper.forward(cfg, params,
+                                                          batch), reps=3)
+    plain_ms = median_ms(torch, lambda: whisper.forward(plain_cfg, params,
+                                                        batch), reps=3)
+    emit({"phase": "encdec", **line, "max_abs_diff_vs_plain": diff,
+          "limit_share": share, "tolerance": TOLERANCES["lm_bf16"],
+          "encode_ms": encode_ms, "forward_ms": forward_ms,
+          "plain_forward_ms": plain_ms,
+          "encode_frames_per_s": ENCDEC_BATCH * cfg.encoder_seq / encode_ms
+          * 1e3, "params": counting.param_count(cfg), "init_s": init_s})
+
+    # prefill_cross, then teacher-forced decode against the forward
+    zero_flash(fmod)
+    cache = whisper.prefill_cross(cfg, params, whisper.init_cache(
+        cfg, ENCDEC_BATCH, ENCDEC_DECODE, device=device), frames)
+    torch.cuda.synchronize()
+    cross = {"flash_attention": flash.launches,
+             "flash_attention_by_path": dict(flash.launches_by_path)}
+    if cross["flash_attention"] != cfg.encoder_layers:
+        raise SystemExit(f"encdec: prefill_cross launched {cross}")
+    cross_ms = median_ms(torch, lambda: whisper.prefill_cross(
+        cfg, params, dict(cache), frames), reps=3)
+    steps, host_s = [], 0.0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for pos in range(ENCDEC_DECODE):
+        t0 = time.perf_counter()
+        lg, cache = whisper.decode_step(cfg, params, cache, toks[:, pos],
+                                        pos)
+        host_s += time.perf_counter() - t0
+        steps.append(lg[:, :vocab])
+    ev1.record()
+    torch.cuda.synchronize()
+    got = torch.stack(steps, 1)
+    ok, ddiff = agree(torch, got, want, "lm_bf16")
+    dshare = scale_share(torch, got, want, "lm_bf16")
+    del got, want, steps
+    if not ok:
+        raise SystemExit(f"encdec: decode disagrees with the forward "
+                         f"({TOLERANCES['lm_bf16']}; max abs diff {ddiff}, "
+                         f"{dshare} of the limit)")
+    c0 = whisper.prefill_cross(cfg, params, whisper.init_cache(
+        cfg, ENCDEC_BATCH, ENCDEC_DECODE, device=device), frames)
+    decode_aten = aten_calls(torch, lambda: whisper.decode_step(
+        cfg, params, c0, toks[:, 0], 0))
+    del c0, cache
+    emit({"phase": "encdec", "part": "whisper_decode", "steps":
+          ENCDEC_DECODE, "batch": ENCDEC_BATCH,
+          "prefill_cross_launches": cross, "prefill_cross_ms": cross_ms,
+          "max_abs_diff_vs_forward": ddiff, "limit_share": dshare,
+          "tolerance": TOLERANCES["lm_bf16"],
+          "decode_ms_per_step": ev0.elapsed_time(ev1) / ENCDEC_DECODE,
+          "decode_host_ms_per_step": host_s / ENCDEC_DECODE * 1e3,
+          "aten_calls_per_step": decode_aten, "nvidia_smi": smi_line})
+
+    # one loss_fn backward through the kernel against the plain attention
+    api = get_model(cfg)
+    gbatch = dict(batch, labels=toks)
+    zero_flash(fmod)
+    loss_k, g_k = trainer.make_grad_fn(cfg, api)(params, gbatch)
+    torch.cuda.synchronize()
+    grad = {"flash_attention": flash.launches,
+            "flash_attention_by_path": dict(flash.launches_by_path)}
+    loss_p, g_p = trainer.make_grad_fn(plain_cfg, api)(params, gbatch)
+    rel = grad_rel(torch, g_k, g_p)
+    worst = max(rel, key=rel.get)
+    per = 2 if cfg.remat == "full" else 1     # forward and remat recompute
+    emit({"phase": "encdec", "part": "whisper_gradient",
+          "remat": cfg.remat, "loss_kernel": float(loss_k),
+          "loss_plain": float(loss_p), "launches": grad,
+          "grad_rel_max": rel[worst], "grad_rel_worst_leaf": worst,
+          "grad_rel_attention": {k: v for k, v in rel.items()
+                                 if ".attn." in k},
+          "limit": GRAD_REL, "nvidia_smi": smi_line})
+    if rel[worst] > GRAD_REL \
+            or grad["flash_attention_by_path"]["wgmma"] != per * n:
+        raise SystemExit(f"encdec: the gradient through the flash kernel "
+                         f"is {rel[worst]} of the plain attention's at "
+                         f"{worst} (limit {GRAD_REL}; launches {grad})")
+    del params, g_k, g_p, batch, gbatch, frames, toks
+    torch.cuda.empty_cache()
+
+    # the kernel alone at the encoder's shape
+    attn = flash_alone(torch, np, fmod, np.random.default_rng(12),
+                       ENCDEC_BATCH * cfg.num_heads, cfg.encoder_seq,
+                       cfg.encoder_seq, cfg.hd, False, "encdec")
+    if attn["path"] != "wgmma":
+        raise SystemExit(f"encdec: the encoder's attention takes the "
+                         f"{attn['path']} kernel")
+    emit({"phase": "encdec", "part": "kernel_alone",
+          "kernel": "flash_attention", **attn, "nvidia_smi": smi_line})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "encdec", "seconds": seconds, "all_agree": True,
+          "nvidia_smi": smi_line})
+    return {"flash_attention": fwd["flash_attention"]
+            + cross["flash_attention"] + grad["flash_attention"],
+            "flash_attention_by_path": {
+                p: fwd["flash_attention_by_path"][p]
+                + cross["flash_attention_by_path"][p]
+                + grad["flash_attention_by_path"][p]
+                for p in fwd["flash_attention_by_path"]},
+            "shapes": {"flash_attention": attn}, "seconds": seconds}
 
 
 #: Phase 5b: the PlanSet design sweep -- MNIST's {tile-32, sonic, tails} x
@@ -4474,13 +5113,26 @@ def main() -> int:
     launched = {"moe": moe_phase(torch, np, emit, smi_line),
                 "vlm": vlm_phase(torch, np, emit, smi_line),
                 "train": train_phase(torch, np, emit, smi_line)}
+    # ---- 14-15. the hybrid family (zamba2-7b) and the encdec family
+    # (whisper-small); their launches join the kernels line's, by path
+    launched["hybrid"] = hybrid_phase(torch, np, emit, smi_line)
+    launched["encdec"] = encdec_phase(torch, np, emit, smi_line)
     for entry in lm:
         for phase, counts in launched.items():
             n = counts.get(entry["name"], 0)
             entry["launches"] += n
             entry[f"{phase}_launches"] = n
+            by_path = counts.get(entry["name"] + "_by_path")
+            if by_path is not None:
+                entry[f"{phase}_launches_by_path"] = by_path
+            shape = counts.get("shapes", {}).get(entry["name"])
+            if shape is not None:
+                entry[f"{phase}_shape"] = {
+                    k: shape[k] for k in ("shape", "path", "ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")}
 
-    # ---- 14. the kernels line, the card, the result
+    # ---- 16. the kernels line, the card, the result
     emit({"kernels": [{
         "name": "charge_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/charge_replay.cu",

@@ -128,9 +128,13 @@ def model_config_from_fields(fields: dict) -> ModelConfig:
 def lm_params_from_numpy(cfg: ModelConfig, params: dict,
                          device="cuda") -> dict:
     """The port's LM parameters from the JAX package's tree with numpy
-    leaves, for the dense and ssm families: ``embed``, ``final_norm``,
+    leaves, for every family, leaf by leaf against
+    ``models.api.param_shapes(cfg)``: ``embed``, ``final_norm``,
     ``lm_head`` (unless a dense model ties the embeddings) and ``layers``
-    with a leading L dimension on every leaf.
+    with a leading L dimension on every leaf; a hybrid model's
+    ``mamba_main`` (n_super, a, ...), ``mamba_tail`` (trailing, ...) and
+    ``shared``; an encdec model's ``encoder``, ``decoder`` and
+    ``enc_norm``.  A tree of another config's names or shapes is refused.
     Every leaf is checked against the config's shapes and copied onto
     ``device`` in ``cfg.param_dtype``, so editing the numpy tree afterwards
     changes nothing in the port."""

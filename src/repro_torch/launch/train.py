@@ -67,12 +67,16 @@ def _batch(arrays: dict, device) -> dict:
 def make_grad_fn(cfg, api):
     """``grad_fn(params, batch) -> (loss, grads)``: the loss (a detached
     scalar tensor) and its gradient, a tree shaped as ``params``, each
-    leaf in its parameter's dtype."""
+    leaf in its parameter's dtype; a leaf the loss does not reach (an
+    empty ``mamba_tail`` of a hybrid model) gets zeros, as ``jax.grad``
+    gives it."""
     def grad_fn(params, batch):
         leaves = _map(lambda p: p.detach().requires_grad_(True), params)
         loss = api.loss_fn(cfg, leaves, batch)
         loss.backward()
-        return loss.detach(), _map(lambda p: p.grad, leaves)
+        return loss.detach(), _map(
+            lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
+            leaves)
     return grad_fn
 
 

@@ -1,7 +1,8 @@
 """The paper's simulator networks at their published widths, and the LM
 stack: the forward, the losses and KV-cache / recurrent decode of the
-dense, moe and vlm families (``transformer``, with ``moe``) and the ssm
-family (``mamba2``)."""
+dense, moe and vlm families (``transformer``, with ``moe``), the ssm
+family (``mamba2``), the hybrid family (``zamba2``) and the encdec family
+(``whisper``)."""
 
 from .api import (ModelAPI, cache_spec_shapes, cell_applicable, get_model,
                   input_spec_shapes)

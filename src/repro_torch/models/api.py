@@ -11,10 +11,10 @@ Every family exposes the same entry points:
   input_spec_shapes(cfg, cell)                -> {name: (shape, dtype)}
   cache_spec_shapes(cfg, cell)                -> {name: (shape, dtype)}
 
-The port runs the dense, moe and vlm families (``transformer``) and the
-ssm family (``mamba2``); ``decode_step`` advances the cache in place and
-returns it.  The hybrid and encdec families raise
-``NotImplementedError`` naming their item in ``ROADMAP.md``.
+The port runs every family of the JAX package: dense, moe and vlm
+(``transformer``), ssm (``mamba2``), hybrid (``zamba2``) and encdec
+(``whisper``, whose ``forward`` takes a batch dict with ``frames`` and
+``tokens``); ``decode_step`` advances the cache in place and returns it.
 """
 
 from __future__ import annotations
@@ -22,14 +22,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from . import mamba2, transformer
+from . import mamba2, transformer, whisper, zamba2
 from .config import ModelConfig, SUBQUADRATIC, ShapeCell
 
-#: ROADMAP.md Queue 1 items of the LM stack that the port does not run yet.
-NOT_PORTED = {
-    "families": "ROADMAP.md Queue 1 item 17 (the hybrid and encdec "
-                "families)",
-}
+#: The module of each family.
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "ssm": mamba2, "hybrid": zamba2, "encdec": whisper}
 
 
 @dataclass(frozen=True)
@@ -41,28 +39,21 @@ class ModelAPI:
     decode_step: Callable
 
 
+def _family(cfg: ModelConfig):
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return _FAMILIES[cfg.family]
+
+
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    fam = cfg.family
-    if fam in ("dense", "moe", "vlm"):
-        return ModelAPI(transformer.init_params, transformer.loss_fn,
-                        transformer.forward, transformer.init_cache,
-                        transformer.decode_step)
-    if fam == "ssm":
-        return ModelAPI(mamba2.init_params, mamba2.loss_fn, mamba2.forward,
-                        mamba2.init_cache, mamba2.decode_step)
-    if fam in ("hybrid", "encdec"):
-        raise NotImplementedError(f"{cfg.name}: the {fam} family is not "
-                                  f"ported yet: {NOT_PORTED['families']}")
-    raise ValueError(f"unknown family {fam!r}")
+    m = _family(cfg)
+    return ModelAPI(m.init_params, m.loss_fn, m.forward, m.init_cache,
+                    m.decode_step)
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    """Every parameter's shape by its dotted name, for the families the
-    port runs (the others are refused as :func:`get_model` refuses
-    them)."""
-    get_model(cfg)
-    family = mamba2 if cfg.family == "ssm" else transformer
-    return family.param_shapes(cfg)
+    """Every parameter's shape by its dotted name."""
+    return _family(cfg).param_shapes(cfg)
 
 
 def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> tuple[bool, str]:
@@ -112,8 +103,7 @@ def input_spec_shapes(cfg: ModelConfig, cell: ShapeCell) -> dict:
 
 def cache_spec_shapes(cfg: ModelConfig, cell: ShapeCell) -> dict:
     """Shapes of the decode-state dict for a cell (leading dim layers):
-    {name: (shape, dtype name)}, for every family (shape arithmetic only,
-    so the families not ported yet have theirs too)."""
+    {name: (shape, dtype name)}, for every family."""
     b, s = cell.global_batch, cell.seq_len
     kd = cfg.kv_dtype or cfg.compute_dtype
     fam = cfg.family

@@ -11,7 +11,6 @@ from .config import ModelConfig
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Refuses the families not ported yet (``api.param_shapes``)."""
     return sum(math.prod(s) for s in param_shapes(cfg).values())
 
 

@@ -21,8 +21,12 @@ graph a row) the CPU's loop bitwise.  Serving: ``prefill`` must launch
 the attention kernel once a layer, and prefill and decode agree with the
 forward; mamba2's forward must launch the SSD kernel once a layer (on its
 wgmma design) and agree with the plain cell's, and its decode with its
-forward; the engine's tokens must be the same on a second run and after
-preemption and resumption.  Every test skips, from
+forward; zamba2's forward must launch the attention kernel on its
+``mma_sync`` path at heads of 112 and the SSD kernel on wgmma, whisper's
+the attention kernel once an encoder and a decoder layer, both agree with
+the plain versions and their decode with their forward; the engine's
+tokens must be the same on a second run and after preemption and
+resumption.  Every test skips, from
 inside the test, where no card is visible; run them on the card with
 ``python -m pytest -m gpu``."""
 
@@ -848,7 +852,9 @@ def test_compute_kernels_refuse_what_they_do_not_take():
     (2, 37, 37, 64, 1, True), (4, 300, 300, 128, 2, True),
     (2, 1, 1, 128, 1, True), (4, 70, 130, 128, 2, False),
     (2, 130, 70, 32, 1, True), (2, 65, 200, 100, 2, False),
-    (4, 700, 700, 128, 2, True), (2, 257, 129, 64, 2, False)])
+    (4, 700, 700, 128, 2, True), (2, 257, 129, 64, 2, False),
+    (4, 300, 300, 112, 1, True), (4, 300, 300, 112, 1, False),
+    (4, 37, 1500, 64, 1, False)])
 def test_flash_kernel_equals_plain(bh, sq, sk, d, group, causal, dtype):
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1106,7 +1112,111 @@ def test_mamba2_forward_launches_ssd_once_a_layer_and_decode_agrees():
         assert float((step - got[:, pos]).abs().max()) <= 1e-4 * scale
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-370m"])
+def _plain_logits(cfg, fn, *args):
+    """``fn`` with the plain attention and the plain SSD cell."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import mamba2
+    kernel = mamba2.ssd_intra
+    mamba2.ssd_intra = ref.ssd_intra_ref
+    try:
+        return fn(dataclasses.replace(cfg, use_pallas_attention=False),
+                  *args)
+    finally:
+        mamba2.ssd_intra = kernel
+
+
+def _count(mod, name):
+    wrapper = getattr(mod, name)
+    wrapper.launches = 0
+    for p in wrapper.launches_by_path:
+        wrapper.launches_by_path[p] = 0
+    return wrapper
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_on_card_launches_by_path_and_decode_agrees(dtype):
+    """zamba2 at small widths on the card, 3 layers (one super-block of 2
+    and one trailing block), heads of 112 as zamba2-7b's and SSD cells the
+    wgmma kernel takes (P = N = 64, chunk 64): one forward launches the
+    attention kernel once (``mma_sync`` in bf16, ``f32`` in f32) and the
+    SSD kernel 3 times on wgmma; its logits agree with the plain versions'
+    (f32: 2e-5 max |logit|; bf16: lm_bf16's 5e-2), and in f32 16 decode
+    steps with the forward (1e-4).  Conv taps x 50 so that the SSD's
+    output matters."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models import zamba2
+    cfg = get_config("zamba2-7b").scaled_down(
+        num_layers=3, attn_every=2, d_model=224, num_heads=2,
+        num_kv_heads=2, ssm_headdim=64, ssm_state=64, ssm_chunk=64,
+        use_pallas_attention=True, param_dtype=dtype, compute_dtype=dtype)
+    assert cfg.hd == 112
+    params = zamba2.init_params(cfg, seed=0)
+    for group in ("mamba_main", "mamba_tail"):
+        params[group]["conv_w"] = params[group]["conv_w"] * 50.0
+    toks = torch.tensor(np.random.default_rng(1).integers(0, 256, (2, 128)),
+                        device="cuda")
+    flash = _count(_kmod("flash_attention"), "flash_attention")
+    ssd = _count(_kmod("ssd_intra"), "ssd_intra")
+    got = zamba2.forward(cfg, params, toks)
+    torch.cuda.synchronize()
+    path = "f32" if dtype == "float32" else "mma_sync"
+    assert flash.launches == flash.launches_by_path[path] == 1
+    assert ssd.launches == ssd.launches_by_path["wgmma"] == 3
+    want = _plain_logits(cfg, zamba2.forward, params, toks)
+    scale = float(want.abs().max())
+    rel = 2e-5 if dtype == "float32" else 5e-2
+    assert float((got - want).abs().max()) <= rel * scale
+    if dtype == "float32":
+        cache = zamba2.init_cache(cfg, 2, 16)
+        for pos in range(16):
+            step, cache = zamba2.decode_step(cfg, params, cache,
+                                             toks[:, pos], pos)
+            assert float((step - got[:, pos]).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_on_card_launches_by_path_and_decode_agrees(dtype):
+    """whisper at small widths on the card (2 + 2 layers, heads of 64, 37
+    frames): one forward launches the attention kernel 4 times (the
+    encoder's non-causal and the decoder's causal ones; ``wgmma`` in bf16,
+    ``f32`` in f32), its logits agree with the plain attention's (f32:
+    2e-5 max |logit|; bf16: 5e-2), and in f32 ``prefill_cross`` and 12
+    decode steps with the forward (1e-4)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models import whisper
+    cfg = get_config("whisper-small").scaled_down(
+        d_model=128, num_heads=2, num_kv_heads=2, encoder_seq=37,
+        use_pallas_attention=True, param_dtype=dtype, compute_dtype=dtype)
+    params = whisper.init_params(cfg, seed=0)
+    rng = np.random.default_rng(2)
+    frames = torch.tensor(rng.normal(size=(2, 37, 128)),
+                          dtype=getattr(torch, dtype), device="cuda")
+    toks = torch.tensor(rng.integers(0, 256, (2, 12)), device="cuda")
+    batch = {"frames": frames, "tokens": toks}
+    flash = _count(_kmod("flash_attention"), "flash_attention")
+    got = whisper.forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    path = "f32" if dtype == "float32" else "wgmma"
+    n = cfg.encoder_layers + cfg.num_layers
+    assert flash.launches == flash.launches_by_path[path] == n
+    want = _plain_logits(cfg, whisper.forward, params, batch)
+    scale = float(want.abs().max())
+    rel = 2e-5 if dtype == "float32" else 5e-2
+    assert float((got - want).abs().max()) <= rel * scale
+    if dtype == "float32":
+        cache = whisper.prefill_cross(cfg, params,
+                                      whisper.init_cache(cfg, 2, 12), frames)
+        for pos in range(12):
+            step, cache = whisper.decode_step(cfg, params, cache,
+                                              toks[:, pos], pos)
+            assert float((step - got[:, pos]).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-370m", "zamba2-7b"])
 def test_engine_on_card_repeats_and_resumes_bitwise(arch, tmp_path):
     _need_card()
     from repro_torch.configs import get_config

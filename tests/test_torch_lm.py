@@ -189,7 +189,8 @@ def test_registry_matches_jax():
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen1.5-0.5b", "llama3-8b",
                                   "qwen2.5-14b", "mamba2-370m",
                                   "qwen3-moe-30b-a3b",
-                                  "llama4-scout-17b-a16e", "internvl2-26b"])
+                                  "llama4-scout-17b-a16e", "internvl2-26b",
+                                  "zamba2-7b", "whisper-small"])
 def test_counting_matches_jax(arch):
     cfg, jcfg = get_config(arch), jax_config(arch)
     assert counting.param_count(cfg) == jcounting.param_count(jcfg)
@@ -211,11 +212,23 @@ def test_input_specs_and_cells_match_jax():
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-small"])
 def test_families_not_ported_are_refused(arch):
-    cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        get_model(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        counting.param_count(cfg)
+    """The two families that were refused until ROADMAP Queue 1 item 17
+    (hybrid, encdec) are served now: ``get_model`` gives the module's
+    entry points, and ``param_count`` and ``model_flops`` equal the JAX
+    package's."""
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    api = get_model(cfg)
+    module = importlib.import_module(
+        f"repro_torch.models.{arch.split('-')[0]}")
+    assert (api.init_params, api.loss_fn, api.forward, api.init_cache,
+            api.decode_step) == (module.init_params, module.loss_fn,
+                                 module.forward, module.init_cache,
+                                 module.decode_step)
+    assert counting.param_count(cfg) == jcounting.param_count(jcfg)
+    assert counting.active_param_count(cfg) == \
+        jcounting.active_param_count(jcfg)
+    assert counting.model_flops(cfg, 4096, "train") == \
+        jcounting.model_flops(jcfg, 4096, "train")
 
 
 def test_forward_on_cpu_launches_no_kernel():

@@ -46,7 +46,7 @@ CFG = get_config("qwen3-0.6b").scaled_down(num_layers=1, d_model=32,
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-moe-30b-a3b",
-                                  "mamba2-370m"])
+                                  "mamba2-370m", "zamba2-7b"])
 def test_two_train_steps_match_jax(arch):
     """Two AdamW steps from the same carried parameters on the same two
     batches: each step's loss, then every parameter.  AdamW divides each
@@ -56,7 +56,10 @@ def test_two_train_steps_match_jax(arch):
     per cent of it) takes a step whose size is that noise's; such elements
     are held within 2 lr (an AdamW step with b1 = 0.9, b2 = 0.95 moves an
     element by at most lr in its first two steps, weight decay aside,
-    which both packages apply alike), the rest within 1e-2 lr."""
+    which both packages apply alike), the rest within 1e-2 lr.
+    zamba2-7b scaled down has two super-blocks and no trailing block: its
+    empty ``mamba_tail`` leaves take zero gradients, as ``jax.grad``
+    gives them."""
     jcfg = jax_config(arch).scaled_down()
     jparams = japi.get_model(jcfg).init_params(jcfg, jax.random.key(0))
     cfg = model_config_from_fields(dataclasses.asdict(jcfg))
@@ -74,7 +77,7 @@ def test_two_train_steps_match_jax(arch):
         _, grads = jgrad(jparams, jb)
         for m, g in zip(sharp, jax.tree.leaves(grads)):
             g = np.abs(np.asarray(g))
-            m &= (g == 0) | (g >= 1e-4 * g.max())
+            m &= (g == 0) | (g >= 1e-4 * g.max(initial=0))
         jparams, jstate, jloss = jstep(jparams, jstate, jb)
         params, state, loss = step(
             params, state, {k: torch.tensor(v) for k, v in batch.items()})
@@ -84,7 +87,7 @@ def test_two_train_steps_match_jax(arch):
                             sharp):
         d = np.abs(got.numpy() - np.asarray(want))
         assert d[m].max(initial=0) <= 1e-2 * LR
-        assert d.max() <= 2 * LR
+        assert d.max(initial=0) <= 2 * LR
 
 
 # --------------------------------------------------------------------------

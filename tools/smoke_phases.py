@@ -10,8 +10,12 @@ port), ``streamed_stats`` (the streamed sweep of ``mnist_net()``),
 prefill, decode and engine, and mamba2-370m's forward, decode and engine),
 ``moe`` (qwen3-moe-30b-a3b and llama4-scout-17b-a16e at full width, depth
 cut), ``vlm`` (internvl2-26b, depth cut), ``train`` (qwen3-0.6b and
-mamba2-370m training, the resume and gradient checks) -- these four build
-the attention and SSD kernels only -- or one of two diagnostics of the
+mamba2-370m training, the resume and gradient checks), ``hybrid``
+(zamba2-7b at full width, depth cut: the attention kernel at heads of
+112, the SSD cell at 112 heads) and ``encdec`` (whisper-small as
+published: the encoder's non-causal attention over 1,500 keys) -- these
+six build the attention and SSD kernels only -- or one of two
+diagnostics of the
 streamed pipeline's producer thread:
 
 * ``host_alone``: three 65,536-lane chunks' host work (the samplers and
@@ -41,11 +45,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("overlap", "streamed_stats", "genesis", "while_oracle", "mesh",
-          "serving", "moe", "vlm", "train", "host_alone", "unpinned")
+          "serving", "moe", "vlm", "train", "hybrid", "encdec", "host_alone",
+          "unpinned")
 #: The LM phases, each a function of chip_smoke.py taking (torch, np,
 #: emit, smi).
 LM_PHASES = {"serving": "serving", "moe": "moe_phase", "vlm": "vlm_phase",
-             "train": "train_phase"}
+             "train": "train_phase", "hybrid": "hybrid_phase",
+             "encdec": "encdec_phase"}
 
 
 def emit(obj) -> None:
