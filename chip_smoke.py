@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's fleet replay, compute kernels, LM forward, LM
-serving, the MoE and vlm families, LM training and the hybrid and encdec
-families on one CUDA card and check them.
+serving, the MoE and vlm families, LM training, the hybrid and encdec
+families and the sharded LM launch path on one CUDA card and check
+them.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -283,11 +284,25 @@ prints one JSON line per phase; any failure exits non-zero.
    leaf); the kernel alone at q (24, 1,500, 64) non-causal beside SDPA and
    its bound.  No engine: the JAX package's engine never fills the cross
    K/V (ROADMAP Queue 3 item 8).
-16. the kernels line (the flash and SSD entries count these phases'
+16. lm_mesh -- qwen3-0.6b as published (28 layers, bf16, remat "full",
+   the flash kernel): ``launch.train.train`` for 2 steps at 4 x 1,024
+   tokens, a checkpoint at the end, once with ``mesh=None`` and once with
+   ``mesh=make_host_mesh((1, 1))`` (parameters as their ``tree_specs``
+   blocks, the AdamW moments as ZeRO-1 blocks), the flash launches zeroed
+   just before each run and read just after (56 a step, all on wgmma:
+   forward and remat recompute); each run's step ms, peak bytes, and the
+   card's allocated bytes at its first step beside ``sharded_bytes`` of
+   the placed state; the two runs' losses and checkpoint files (every
+   parameter and moment) equal bit for bit.  Then one dry-run record
+   (``launch.dryrun.run_cell``: qwen3-0.6b train_4k on the 16 x 16 mesh,
+   traced on meta tensors) and the three LM examples
+   (``examples/*_torch.py``) on the card, each in its own process.
+17. the kernels line (the flash and SSD entries count these phases'
    launches too: ``moe_launches``, ``vlm_launches``, ``train_launches``,
-   ``hybrid_launches`` and ``encdec_launches``, the last two also by
-   kernel, with each kernel's time at those phases' shapes), the
-   ``nvidia-smi`` line, and the result line.
+   ``hybrid_launches``, ``encdec_launches`` and ``lm_mesh_launches``, the
+   last three also by kernel, with each kernel's time at the hybrid and
+   encdec phases' shapes), the ``nvidia-smi`` line, and the result
+   line.
 """
 
 from __future__ import annotations
@@ -3622,6 +3637,199 @@ def encdec_phase(torch, np, emit, smi_line, device="cuda") -> dict:
             "shapes": {"flash_attention": attn}, "seconds": seconds}
 
 
+#: Phase 16 (``lm_mesh``): qwen3-0.6b as published (28 layers, remat
+#: "full", the flash kernel) trained LM_MESH_STEPS steps at LM_TRAIN_BATCH x
+#: LM_TRAIN_SEQ, a checkpoint at the end, once unmeshed and once on the
+#: LM_MESH_SHAPE (data, model) mesh; the examples run with these flags.
+LM_MESH_STEPS, LM_MESH_SHAPE = 2, (1, 1)
+#: Bytes the card may hold beyond the placed state when the first step
+#: starts (the batch, the schedule's scalars, the allocator's rounding).
+LM_MESH_SLACK = 64 << 20
+EXAMPLES = (("quickstart_torch.py", (), "done."),
+            ("serve_preemptible_torch.py", (),
+             "identical to an unpreempted run: True"),
+            ("train_llm_torch.py", ("--steps", "20"), "trained 20 steps"))
+
+
+def lm_mesh_phase(torch, np, emit, smi_line, device="cuda") -> dict:
+    """Phase 16: the sharded LM launch path on the card.  qwen3-0.6b as
+    published: ``launch.train.train`` for LM_MESH_STEPS steps, once with
+    ``mesh=None`` and once with ``mesh=make_host_mesh(LM_MESH_SHAPE)``;
+    the flash launches zeroed just before each run and read just after
+    (2 x 28 a step, all on wgmma: forward and remat recompute).  Each
+    run's losses, step ms, peak bytes a step, and the card's allocated
+    bytes when its first step starts beside ``shardings.sharded_bytes`` of
+    the placed parameters and moments.  The two runs' losses must be
+    equal and their checkpoint files (every parameter and AdamW moment,
+    raw bits) equal byte for byte.  Then one dry-run record
+    (``launch.dryrun.run_cell``: qwen3-0.6b train_4k on the 16 x 16
+    mesh), and the three LM examples on the card, each in its own
+    process.  Returns the flash launches of the two runs."""
+    import dataclasses
+    import filecmp
+    import importlib
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, shardings
+    from repro_torch.launch import train as trainer
+    from repro_torch.launch.mesh import make_host_mesh
+
+    fmod = importlib.import_module("repro_torch.kernels.flash_attention")
+    flash = fmod.flash_attention
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH), use_pallas_attention=True)
+    if cfg.remat != "full":
+        raise SystemExit(f"lm_mesh: {LM_ARCH}'s remat is {cfg.remat!r}")
+    emit({"phase": "lm_mesh", "nvidia_smi": smi_line, "arch": LM_ARCH,
+          "layers": cfg.num_layers, "remat": cfg.remat,
+          "mesh_shape": list(LM_MESH_SHAPE)})
+    real = {"make_train_step": trainer.make_train_step,
+            "make_sharded_train_step": trainer.make_sharded_train_step}
+    steps, placed = [], {}
+
+    def timed(make):
+        def maker(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(params, opt_state, batch):
+                torch.cuda.synchronize()
+                if not steps:                     # the placed state
+                    placed["allocated"] = torch.cuda.memory_allocated() \
+                        - placed["base"]
+                    placed["exact"] = state_bytes(params, opt_state,
+                                                  placed["mesh"])
+                torch.cuda.reset_peak_memory_stats()
+                f0 = flash.launches
+                w0 = flash.launches_by_path["wgmma"]
+                t0 = time.perf_counter()
+                out = step(params, opt_state, batch)
+                torch.cuda.synchronize()
+                steps.append({
+                    "loss": float(out[2]),
+                    "step_ms": (time.perf_counter() - t0) * 1e3,
+                    "flash_attention_launches": flash.launches - f0,
+                    "wgmma_launches": flash.launches_by_path["wgmma"] - w0,
+                    "peak_bytes": torch.cuda.max_memory_allocated()
+                    - placed["base"]})
+                return out
+            return run
+        return maker
+
+    def state_bytes(params, opt_state, mesh) -> int:
+        if mesh is None:
+            return sum(x.numel() * x.element_size() for x in
+                       shardings.tree_leaves([params, opt_state]))
+        whole_p = shardings.gather_tree(params)
+        whole_o = shardings.gather_tree(opt_state)
+        return shardings.sharded_bytes(
+            whole_p, shardings.tree_specs(whole_p, mesh), mesh) + \
+            shardings.sharded_bytes(
+                whole_o, shardings.tree_specs(whole_o, mesh, zero1=True),
+                mesh)
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    runs, launches, by_path = {}, 0, {p: 0 for p in flash.launches_by_path}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        for label, mesh_shape in (("unmeshed", None),
+                                  ("mesh", LM_MESH_SHAPE)):
+            mesh = None if mesh_shape is None else make_host_mesh(
+                mesh_shape, device=device)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            steps.clear()
+            placed.clear()
+            placed["base"] = torch.cuda.memory_allocated()
+            placed["mesh"] = mesh
+            for name, make in real.items():
+                setattr(trainer, name, timed(make))
+            try:
+                before = dict(flash.launches_by_path)
+                flash.launches = 0            # zero just before the path
+                res = trainer.train(
+                    cfg, steps=LM_MESH_STEPS, batch=LM_TRAIN_BATCH,
+                    seq=LM_TRAIN_SEQ, ckpt_dir=str(tmp / label),
+                    ckpt_interval=LM_MESH_STEPS, log_every=0, mesh=mesh,
+                    device=device)
+                torch.cuda.synchronize()
+                n = flash.launches            # read just after
+            finally:
+                for name, make in real.items():
+                    setattr(trainer, name, make)
+            launches += n
+            for p in by_path:
+                by_path[p] += flash.launches_by_path[p] - before[p]
+            exact = placed["exact"]
+            per_step = 2 * cfg.num_layers
+            if any(s["flash_attention_launches"] != per_step
+                   or s["wgmma_launches"] != per_step for s in steps):
+                raise SystemExit(f"lm_mesh: {label}: flash launches a step "
+                                 f"{steps}, not {per_step} on wgmma")
+            if not all(np.isfinite(res.losses)):
+                raise SystemExit(f"lm_mesh: {label}: losses {res.losses}")
+            if not 0 <= placed["allocated"] - exact <= LM_MESH_SLACK:
+                raise SystemExit(f"lm_mesh: {label}: {placed['allocated']} "
+                                 f"bytes allocated at the first step against "
+                                 f"{exact} of placed state")
+            store = trainer.SlotStore(tmp / label / "state")
+            m = store.manifest()
+            runs[label] = {"res": res, "dir": store.root / m["slot"],
+                           "manifest": m}
+            line = {"phase": "lm_mesh", "run": label,
+                    "mesh": None if mesh is None else repr(mesh),
+                    "losses": res.losses, "steps": list(steps),
+                    "flash_attention_launches": n,
+                    "allocated_bytes_at_first_step": placed["allocated"],
+                    "sharded_bytes": exact,
+                    "checkpoint_bytes": sum((store.root / m["slot"] / f)
+                                            .stat().st_size
+                                            for f in m["leaves"]),
+                    "wall_s": res.wall_s, "nvidia_smi": smi_line}
+            emit(line)
+        a, b = runs["unmeshed"], runs["mesh"]
+        same_files = a["manifest"]["leaves"] == b["manifest"]["leaves"] \
+            and a["manifest"]["dtypes"] == b["manifest"]["dtypes"] \
+            and a["manifest"]["meta"] == b["manifest"]["meta"] and all(
+                filecmp.cmp(a["dir"] / f, b["dir"] / f, shallow=False)
+                for f in a["manifest"]["leaves"])
+        n_files = len(a["manifest"]["leaves"])
+    if a["res"].losses != b["res"].losses or not same_files:
+        raise SystemExit(f"lm_mesh: the meshed run differs from the "
+                         f"unmeshed one (losses {b['res'].losses} against "
+                         f"{a['res'].losses}; files equal: {same_files})")
+    emit({"phase": "lm_mesh", "part": "bitwise", "losses_equal": True,
+          "checkpoint_files_equal": True, "files": n_files})
+    torch.cuda.empty_cache()
+
+    # one dry-run record on the production mesh (traced on meta tensors)
+    rec = dryrun.run_cell(LM_ARCH, "train_4k", False)
+    if rec["status"] != "ok" or rec["flops_global"] <= 0 \
+            or not isinstance(rec["memory"]["fits_hbm"], bool):
+        raise SystemExit(f"lm_mesh: dry run {rec}")
+    emit({"phase": "lm_mesh", "part": "dryrun", **rec})
+
+    # the three LM examples on the card
+    for name, args, expect in EXAMPLES:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(ROOT / "examples" / name),
+                              *args], capture_output=True, text=True,
+                             timeout=600)
+        if out.returncode != 0 or expect not in out.stdout:
+            raise SystemExit(f"lm_mesh: examples/{name} failed (no "
+                             f"{expect!r}): {out.stdout[-1000:]} "
+                             f"{out.stderr[-2000:]}")
+        emit({"phase": "lm_mesh", "part": "example", "example": name,
+              "args": list(args), "seconds": time.perf_counter() - t0,
+              "last_lines": out.stdout.strip().splitlines()[-3:]})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lm_mesh", "seconds": seconds, "all_agree": True,
+          "nvidia_smi": smi_line})
+    return {"flash_attention": launches, "flash_attention_by_path": by_path,
+            "seconds": seconds}
+
+
 #: Phase 5b: the PlanSet design sweep -- MNIST's {tile-32, sonic, tails} x
 #: {100uF, 1mF} candidates, this many devices a candidate (the JAX package's
 #: design_space grid with tile-32 for tile-8; lower it if the time limit
@@ -5117,6 +5325,9 @@ def main() -> int:
     # (whisper-small); their launches join the kernels line's, by path
     launched["hybrid"] = hybrid_phase(torch, np, emit, smi_line)
     launched["encdec"] = encdec_phase(torch, np, emit, smi_line)
+    # ---- 16. the sharded LM launch path: train(mesh=...) against the
+    # unmeshed trainer, a dry-run record and the LM examples
+    launched["lm_mesh"] = lm_mesh_phase(torch, np, emit, smi_line)
     for entry in lm:
         for phase, counts in launched.items():
             n = counts.get(entry["name"], 0)
@@ -5132,7 +5343,7 @@ def main() -> int:
                                           "library_ms", "bound_ms",
                                           "bound_by", "max_abs_err")}
 
-    # ---- 16. the kernels line, the card, the result
+    # ---- 17. the kernels line, the card, the result
     emit({"kernels": [{
         "name": "charge_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/charge_replay.cu",

@@ -12,6 +12,11 @@ from __future__ import annotations
 import torch
 
 
+#: The device types on which a kernel wrapper runs its plain version: the
+#: CPU, and ``meta`` (shapes only, nothing computed: the dry run's traces).
+PLAIN_DEVICES = ("cpu", "meta")
+
+
 def on_cuda() -> bool:
     """Whether a CUDA card is visible (the counterpart of the JAX
     package's ``kernels.ops.on_tpu``)."""

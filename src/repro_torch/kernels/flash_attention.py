@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from ..device import PLAIN_DEVICES
 from . import _launch
 from .ref import NEG_INF
 
@@ -166,14 +167,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Softmax attention of q (BH, Sq, d) over k, v (BH / group, Sk, d), in
     q's dtype; q row bh reads kv row bh // group.
 
-    CPU tensors take :func:`flash_attention_plain` with tiles (``bq``,
-    ``bk``); CUDA tensors (f32 or bf16, d <= 128) launch the kernel that
+    CPU (and meta) tensors take :func:`flash_attention_plain` with tiles
+    (``bq``, ``bk``); CUDA tensors (f32 or bf16, d <= 128) launch the kernel that
     :func:`attention_path` names on the current stream, with that kernel's
     own tiles, and count the launch in ``flash_attention.launches`` and,
     by kernel, in ``flash_attention.launches_by_path``.  Nothing falls
     back."""
     _check_shapes(q, k, v, group, bq, bk)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, group=group,
                                      bq=bq, bk=bk)
     return launch(q, k, v, attention_path(q, k, v), causal=causal,

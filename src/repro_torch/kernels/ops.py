@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import PLAIN_DEVICES, resolve_device
 from .calibrate import MatmulTiles, fir_tiles, matmul_tiles
 from .dense_matmul import matmul as _matmul
 from .fir_conv1d import fir_conv1d as _fir
@@ -193,7 +193,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     args = (q.reshape(b * h, sq, d).contiguous(),
             k.reshape(b * hkv, sk, d).contiguous(),
             v.reshape(b * hkv, sk, d).contiguous())
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         out = _flash(*args, causal=causal, group=h // hkv, bq=bq, bk=bk)
     else:
         out = FlashAttentionFunction.apply(*args, causal, h // hkv, bq, bk)

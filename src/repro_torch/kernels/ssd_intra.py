@@ -35,6 +35,7 @@ import ctypes
 
 import torch
 
+from ..device import PLAIN_DEVICES
 from . import _launch
 from .calibrate import SMS
 from .ref import ssd_intra_ref
@@ -131,13 +132,13 @@ def ssd_intra(xdt: torch.Tensor, bb: torch.Tensor, cc: torch.Tensor,
     bf16 -> (y (BC, H, Q, P), s (BC, H, N, P)) in f32, rounded as
     :func:`~.ref.ssd_intra_ref` says for a bf16 cs.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    :func:`ssd_path` names on the current stream, under
+    CPU (and meta) tensors take the plain version; CUDA tensors launch
+    the kernel :func:`ssd_path` names on the current stream, under
     :class:`SSDIntraFunction` (so a loss through it has the plain cell's
     gradient), and count the launch in ``ssd_intra.launches`` and
     ``ssd_intra.launches_by_path``.  Nothing falls back."""
     _check(xdt, bb, cc, cs)
-    if xdt.device.type == "cpu":
+    if xdt.device.type in PLAIN_DEVICES:
         return ssd_intra_ref(xdt, bb, cc, cs)
     _check_cuda(xdt, bb, cc, cs)
     return SSDIntraFunction.apply(xdt, bb, cc, cs)
@@ -156,7 +157,7 @@ class SSDIntraFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xdt, bb, cc, cs):
         ctx.save_for_backward(xdt, bb, cc, cs)
-        if xdt.device.type == "cpu":
+        if xdt.device.type in PLAIN_DEVICES:
             return ssd_intra_ref(xdt, bb, cc, cs)
         return _run(xdt, bb, cc, cs, ssd_path(xdt, bb, cc, cs))
 

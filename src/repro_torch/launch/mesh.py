@@ -1,18 +1,29 @@
-"""The fleet replay's device mesh (the fleet half of the JAX package's
-``launch/mesh.py``).
+"""Device meshes: the fleet replay's (``FleetMesh``, the fleet half of the
+JAX package's ``launch/mesh.py``) and the LM's (``LMMesh``, its LM half).
 
 One process drives every shard, as the JAX package's single-controller
-mesh does: a :class:`FleetMesh` is a tuple of ``torch.device``s along the
-one axis ``"devices"``, the fleet sweeps split their lanes into equal
-contiguous blocks, one a shard, issue every shard's launches, and then
-gather the outputs or all-reduce the shards' statistics partials
-(:func:`fleet_all_reduce`).  No process group is involved.
+mesh does; no ``torch.distributed`` process group is involved.  A
+:class:`FleetMesh` is a tuple of ``torch.device``s along the one axis
+``"devices"``: the fleet sweeps split their lanes into equal contiguous
+blocks, one a shard, issue every shard's launches, and then gather the
+outputs or all-reduce the shards' statistics partials
+(:func:`fleet_all_reduce`).  An :class:`LMMesh` names its axes
+(``("data", "model")`` or ``("pod", "data", "model")``) and holds a numpy
+object array of ``torch.device``s in its shape, or no devices at all for
+the abstract production meshes that only the dry run reads;
+``launch.shardings`` places an LM's parameters and optimizer state on it
+and ``launch.train`` steps them.
+
+The JAX module's ``axis_type_kwargs`` and ``compat_shard_map`` are shims
+over JAX versions and have no counterpart here.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -70,5 +81,75 @@ def fleet_all_reduce(parts) -> tuple:
     return sums, mins, maxs
 
 
-def mesh_chips(mesh: FleetMesh) -> int:
+@dataclass(frozen=True, eq=False)
+class LMMesh:
+    """A named mesh for the LM: ``shape`` maps each axis to its size in
+    axis order (as ``jax.sharding.Mesh.shape`` does, so the sharding rules
+    read it unchanged); ``devices`` is a numpy object array of
+    ``torch.device`` in the mesh's shape, or None for an abstract mesh."""
+    axis_names: tuple
+    shape: dict
+    devices: np.ndarray | None = None
+
+    def __repr__(self) -> str:
+        where = "abstract" if self.devices is None else \
+            ",".join(sorted({str(d) for d in self.devices.flat}))
+        return (f"LMMesh({'x'.join(str(s) for s in self.shape.values())} "
+                f"{self.axis_names}, {where})")
+
+
+def compat_make_mesh(shape, axes, device="cuda") -> LMMesh:
+    """A mesh of ``shape`` over ``axes`` on real devices, the counterpart
+    of ``jax.make_mesh``: on ``"cuda"`` the first ``prod(shape)`` visible
+    cards in row-major order (more than there are raises); on ``"cpu"``
+    that many CPU shards, the twin of JAX's forced host devices."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} must pair "
+                         f"one distinct name with each size")
+    if min(shape, default=0) < 1:
+        raise ValueError(f"every mesh axis needs at least one shard: {shape}")
+    n = math.prod(shape)
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        flat = [dev] * n
+    else:
+        count = torch.cuda.device_count()
+        if n > count:
+            raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {n} "
+                             f"cards; {count} are visible")
+        flat = [torch.device("cuda", i) for i in range(n)]
+    devices = np.empty(n, dtype=object)
+    devices[:] = flat
+    return LMMesh(axes, dict(zip(axes, shape)), devices.reshape(shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LMMesh:
+    """Single pod: 16x16 = 256 chips (data, model).  Multi-pod: 2x16x16 =
+    512 chips (pod, data, model); the pod axis carries pure data
+    parallelism.  Abstract: it has no devices, since one controller does
+    not hold 256 cards; the dry run reads its shape only."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return LMMesh(axes, dict(zip(axes, shape)), None)
+
+
+def make_host_mesh(shape=(1, 1), axes=("data", "model"),
+                   device="cuda") -> LMMesh:
+    """Small mesh over the host's devices (the sharded trainer, the
+    tests): on ``"cuda"`` it needs ``prod(shape)`` visible cards and raises
+    otherwise; on ``"cpu"`` it gives CPU shards of any shape."""
+    return compat_make_mesh(shape, axes, device)
+
+
+def dp_axes(mesh) -> tuple:
+    """The data-parallel axes of a mesh (pod folds into DP)."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def mesh_chips(mesh) -> int:
+    """The shards of a mesh: a :class:`FleetMesh`'s devices, or the product
+    of an :class:`LMMesh`'s axis sizes (abstract or not)."""
+    if isinstance(mesh, LMMesh):
+        return math.prod(mesh.shape.values())
     return len(mesh.devices)

@@ -8,15 +8,29 @@ The training loop is written exactly like a SONIC loop nest:
   * full (params, opt) checkpoints go to A/B slots with an atomic manifest
     flip every ``ckpt_interval`` steps (loop-ordered buffering);
   * steps are idempotent: data is addressed by step index, so re-executing
-    an interrupted step reproduces identical state (bit-exact on one
-    device: ``tests/test_torch_lm_train.py``, and on the card
-    ``chip_smoke.py``'s ``train`` phase).
+    an interrupted step reproduces identical state (bit-exact:
+    ``tests/test_torch_lm_train.py``, ``tests/test_torch_mesh_train.py``,
+    and on the card ``chip_smoke.py``'s ``train`` and ``lm_mesh``
+    phases).
 
 A step is eager PyTorch: ``loss_fn`` forward, autograd backward (the
 attention and SSD kernels under their ``torch.autograd.Function``s on the
-card), then ``optim.adamw``'s update.  The JAX package shards the step
-over a device mesh; here ``mesh`` must be None (one device) until
-``launch/shardings.py`` is ported.
+card), then ``optim.adamw``'s update.  ``mesh=None`` trains on one device,
+unmeshed.  On an :class:`~repro_torch.launch.mesh.LMMesh` one process
+drives every shard (no ``torch.distributed`` process group):
+
+  * parameters live as the blocks ``launch.shardings.tree_specs`` gives,
+    the AdamW moments as its ZeRO-1 blocks (``zero1=True``);
+  * the batch splits over the data shards (``shardings.batch_spec``); each
+    shard's loss and gradient are computed on its device with the weights
+    gathered whole, and the shard gradients are summed in shard order and
+    divided by their count;
+  * the global norm is taken once from that sum, in the unmeshed order of
+    the leaves; then each device updates its own parameter and moment
+    blocks with that clip scale.  The update is elementwise, so with one
+    data shard a meshed step gives the unmeshed step's bits;
+  * checkpoints hold whole, gathered leaves, so meshed and unmeshed runs
+    write the same files and resume from each other's.
 
 Usage (CPU example scale; drop ``--device cpu`` to train on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
@@ -40,10 +54,13 @@ from ..data import token_batches
 from ..device import resolve_device
 from ..models import get_model
 from ..optim import adamw, cosine_schedule
-from ..optim.adamw import _map
+from ..optim.adamw import OptState, _map, _pick, _Step, clip_by_global_norm
+from . import shardings
+from .mesh import LMMesh, make_host_mesh
 
-#: Where the sharded trainer waits in ``ROADMAP.md``.
-MESH_ITEM = "ROADMAP.md Queue 1 item 18 (launch/)"
+#: The trainer's AdamW global-norm clip (``optim.adamw``'s default); the
+#: sharded step clips the summed gradient itself.
+MAX_GRAD_NORM = 1.0
 
 
 class SimulatedFailure(Exception):
@@ -97,6 +114,96 @@ def _init_state(cfg, api, opt, seed: int, device):
     return params, opt.init(params)
 
 
+def data_shard_devices(mesh: LMMesh, global_batch: int) -> list:
+    """The devices of the data shards in shard order: the batch axes of
+    ``shardings.batch_spec`` in row-major order, every other axis at 0."""
+    axes = shardings.batch_spec(mesh, global_batch)
+    out = []
+    for pos in np.ndindex(*(mesh.shape[a] for a in axes)):
+        where = dict(zip(axes, pos))
+        out.append(mesh.devices[tuple(where.get(a, 0)
+                                      for a in mesh.axis_names)])
+    return out
+
+
+def make_sharded_train_step(cfg, api, lr_fn, mesh: LMMesh):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    loss)`` on ``mesh``: ``params`` and ``opt_state`` are trees of
+    :class:`~repro_torch.launch.shardings.Sharded` leaves, ``batch`` the
+    step's whole numpy arrays.  The order of the arithmetic is the module
+    docstring's."""
+    grad_fn = make_grad_fn(cfg, api)
+    block_opt = adamw(lr=lr_fn, max_grad_norm=0.0)   # clipped whole below
+
+    def train_step(params, opt_state, batch):
+        rows = len(next(iter(batch.values())))
+        devices = data_shard_devices(mesh, rows)
+        n = len(devices)
+        rows //= n
+        home = devices[0]
+        losses, grads = [], None
+        for i, dev in enumerate(devices):
+            loss, g = grad_fn(shardings.gather_tree(params, dev),
+                              _batch({k: v[i * rows:(i + 1) * rows]
+                                      for k, v in batch.items()}, dev))
+            losses.append(loss.to(home))
+            grads = g if grads is None else _map(
+                lambda a, b: a + b.to(home), grads, g)
+        if n > 1:
+            grads = _map(lambda a: a / n, grads)
+            loss = sum(losses[1:], losses[0]) / n
+        else:
+            loss = losses[0]
+        grads, _ = clip_by_global_norm(grads, MAX_GRAD_NORM)
+        params, opt_state = update_blocks(block_opt, grads, opt_state, params)
+        return params, opt_state, loss
+    return train_step
+
+
+def update_blocks(block_opt, grads, opt_state, params) -> tuple:
+    """Every device's update of its parameter and moment blocks by
+    ``block_opt`` (an optimizer that does not clip) from the whole, clipped
+    ``grads``: where a device's parameter and moment blocks cover the same
+    slice one update gives all three; else the parameter block is updated
+    from that slice of the gathered old moments and the moment blocks from
+    that slice of the gathered parameter.  Returns ``(params,
+    opt_state)`` as :class:`~repro_torch.launch.shardings.Sharded`
+    trees."""
+    step = opt_state.step
+    new_step = np.empty_like(step.blocks)
+
+    def leaf(p, g, m, v):
+        mesh, whole = p.mesh, {}
+
+        def full(name, x):
+            if name not in whole:
+                whole[name] = shardings.gather(x)
+            return whole[name]
+
+        out = [np.empty_like(x.blocks) for x in (p, m, v)]
+        for idx in np.ndindex(mesh.devices.shape):
+            dev = mesh.devices[idx]
+            st = OptState(step.blocks[idx], m.blocks[idx], v.blocks[idx])
+            ps, ms = p.slices(idx), m.slices(idx)
+            new_p, new_st = block_opt.update(g[ms].to(dev), st, p.blocks[idx]
+                                             if ps == ms else
+                                             full("p", p)[ms].to(dev))
+            if ps != ms:
+                new_p, _ = block_opt.update(
+                    g[ps].to(dev), st._replace(m=full("m", m)[ps].to(dev),
+                                               v=full("v", v)[ps].to(dev)),
+                    p.blocks[idx])
+            out[0][idx], out[1][idx], out[2][idx] = new_p, new_st.m, new_st.v
+            new_step[idx] = new_st.step
+        return _Step(shardings.Sharded(x.spec, x.shape, x.dtype, b, mesh)
+                     for x, b in zip((p, m, v), out))
+
+    res = _map(leaf, params, grads, opt_state.m, opt_state.v)
+    step = shardings.Sharded(step.spec, step.shape, step.dtype, new_step,
+                             step.mesh)
+    return _pick(res, 0), OptState(step, _pick(res, 1), _pick(res, 2))
+
+
 def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
           ckpt_interval: int = 20, lr: float = 3e-4, seed: int = 0,
           mesh=None, fail_at_step: int | None = None,
@@ -106,15 +213,24 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
     ``ckpt_dir`` every ``ckpt_interval`` steps and at the end; a run that
     finds a committed checkpoint there resumes from it.
     ``fail_at_step`` raises :class:`SimulatedFailure` just before that
-    step."""
-    if mesh is not None:
-        raise NotImplementedError(f"a sharded trainer (mesh={mesh!r}) needs "
-                                  f"launch/shardings.py, not ported yet: "
-                                  f"{MESH_ITEM}")
-    dev = resolve_device(device)
+    step.
+
+    ``mesh=None`` trains unmeshed on ``device``: on a host with one card
+    that computes what the JAX package's default mesh,
+    ``make_host_mesh((jax.device_count(), 1))``, computes.  An
+    :class:`~repro_torch.launch.mesh.LMMesh` (``make_host_mesh``) trains
+    sharded on its devices as the module docstring says; ``device`` is
+    then not read."""
+    if mesh is None:
+        dev = resolve_device(device)
+    elif not isinstance(mesh, LMMesh) or mesh.devices is None:
+        raise ValueError(f"mesh must be an LMMesh over devices "
+                         f"(launch.mesh.make_host_mesh), got {mesh!r}")
+    else:
+        dev = mesh.devices.flat[0]
     api = get_model(cfg)
-    opt = adamw(lr=cosine_schedule(lr, warmup=max(steps // 20, 1),
-                                   total=steps))
+    lr_fn = cosine_schedule(lr, warmup=max(steps // 20, 1), total=steps)
+    opt = adamw(lr=lr_fn, max_grad_norm=MAX_GRAD_NORM)
     store = SlotStore(Path(ckpt_dir) / "state")
     cursor = Cursor(Path(ckpt_dir) / "cursor.json")
 
@@ -130,7 +246,15 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
     else:
         start_step = 0
     del state
-    step_fn = make_train_step(cfg, api, opt)
+    if mesh is None:
+        step_fn = make_train_step(cfg, api, opt)
+    else:
+        params = shardings.shard_tree(
+            params, shardings.tree_specs(params, mesh), mesh)
+        opt_state = shardings.shard_tree(
+            opt_state, shardings.tree_specs(opt_state, mesh, zero1=True),
+            mesh)
+        step_fn = make_sharded_train_step(cfg, api, lr_fn, mesh)
 
     losses = []
     t0 = time.time()
@@ -141,14 +265,16 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
             continue
         if fail_at_step is not None and step == fail_at_step:
             raise SimulatedFailure(f"injected failure at step {step}")
-        params, opt_state, loss = step_fn(params, opt_state,
-                                          _batch(batch_np, dev))
+        params, opt_state, loss = step_fn(
+            params, opt_state,
+            _batch(batch_np, dev) if mesh is None else batch_np)
         losses.append(float(loss))
         steps_run += 1
         # loop-continuation commit: O(bytes of cursor), every step
         cursor.commit(step=step + 1, data_seed=seed)
         if (step + 1) % ckpt_interval == 0 or step + 1 == steps:
-            store.save([params, opt_state],
+            # whole leaves, as jax.device_get gives them
+            store.save(shardings.gather_tree([params, opt_state]),
                        meta={"step": step + 1, "cfg": cfg.name})
             cursor.commit(step=step + 1, checkpointed=step + 1)
         if log_every and (step + 1) % log_every == 0:
@@ -171,14 +297,19 @@ def main(argv=None) -> TrainResult:
                     help="default: a new temporary directory")
     ap.add_argument("--ckpt-interval", type=int, default=20)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="train sharded on a (data, model) mesh of the "
+                         "device's shards, e.g. 2x1 (default: unmeshed)")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.scaled_down()
+    mesh = None if args.mesh is None else make_host_mesh(
+        tuple(int(n) for n in args.mesh.split("x")), device=args.device)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_train_")
     res = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                 ckpt_dir=ckpt_dir, ckpt_interval=args.ckpt_interval,
-                lr=args.lr, device=args.device)
+                lr=args.lr, mesh=mesh, device=args.device)
     print(f"ran {res.steps_run} steps to step {res.final_step}; "
           f"loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f} "
           f"in {res.wall_s:.1f}s")

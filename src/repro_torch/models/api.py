@@ -56,6 +56,20 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return _family(cfg).param_shapes(cfg)
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``init_params`` as ``meta`` tensors in
+    ``cfg.param_dtype``: every leaf's shape and dtype, nothing allocated
+    (the counterpart of ``jax.eval_shape`` of the init)."""
+    import torch
+
+    from .layers import dt
+    from .transformer import _nest
+
+    kd = dt(cfg.param_dtype)
+    return _nest({k: torch.empty(v, dtype=kd, device="meta")
+                  for k, v in param_shapes(cfg).items()})
+
+
 def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> tuple[bool, str]:
     """Whether an (arch x shape) cell runs; else the documented reason."""
     if cell.name == "long_500k" and cfg.family not in SUBQUADRATIC:

@@ -7,8 +7,9 @@ over the layers.  The bf16 rounding points are the JAX package's: norms
 and RoPE compute in f32 and cast back, attention scores and accumulators
 are f32, and p is rounded to v's dtype before the p v product.
 
-The JAX package's ``shardctx.constrain`` calls are dropped: with no
-launcher rules installed (one device) they return their input unchanged.
+The JAX package's ``shardctx.constrain`` points are kept (q, k and v here;
+the residual and the logits in the families): the layout belongs to the
+launcher, so they return their input (``models.shardctx``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention_plain
 from ..kernels.ops import flash_attention
+from . import shardctx
 from .config import ModelConfig
 
 F32 = torch.float32
@@ -152,6 +154,11 @@ def attn_qkv(cfg: ModelConfig, p: dict, x, positions):
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    # Megatron-SP hand-off: residuals are sequence-sharded between blocks;
+    # attention runs head-sharded with the full sequence.
+    q = shardctx.constrain(q, "heads")
+    k = shardctx.constrain(k, "heads_kv")
+    v = shardctx.constrain(v, "heads_kv")
     return q, k, v
 
 

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_intra import ssd_intra
+from . import shardctx
 from .config import ModelConfig
 from .layers import F32, dt, init_from_shapes, rms_norm
 from .transformer import _layer, _nest, _remat, lm_loss, mask_pad_logits
@@ -176,6 +177,7 @@ def mamba_mix(cfg: ModelConfig, pl: dict, x):
     dtv = F.softplus(dtr.to(F32) + pl["dt_bias"].to(F32))
     a_neg = -torch.exp(pl["A_log"].to(F32))
     xh = xs.reshape(*xs.shape[:2], h, cfg.ssm_headdim)
+    xh = shardctx.constrain(xh, "ssm_heads")
     y, _ = ssd_chunked(xh, bb, cc, dtv, a_neg, cfg.ssm_chunk)
     y = y + xh * pl["Dskip"].to(y.dtype)[None, None, :, None]
     y = y.reshape(*x.shape[:2], d_in)
@@ -185,7 +187,8 @@ def mamba_mix(cfg: ModelConfig, pl: dict, x):
 
 
 def layer_fn(cfg: ModelConfig, pl: dict, x, positions=None):
-    return x + mamba_mix(cfg, pl, rms_norm(x, pl["ln"], cfg.norm_eps))
+    x = x + mamba_mix(cfg, pl, rms_norm(x, pl["ln"], cfg.norm_eps))
+    return shardctx.constrain(x, "residual")
 
 
 def hidden_fn(cfg: ModelConfig, params: dict, tokens):
@@ -214,7 +217,7 @@ def forward(cfg: ModelConfig, params: dict, tokens):
     (the JAX package's ``preferred_element_type=float32``)."""
     x = hidden_fn(cfg, params, tokens)
     logits = torch.matmul(x.to(F32), params["lm_head"].to(x.dtype).to(F32))
-    return mask_pad_logits(cfg, logits)
+    return shardctx.constrain(mask_pad_logits(cfg, logits), "logits")
 
 
 # --------------------------------------------------------------------------

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from . import shardctx
 from .config import ModelConfig
 from .layers import (F32, attn_param_shapes, attn_qkv, attention_block,
                      attention_decode, attention_out, dt, init_from_shapes,
@@ -118,7 +119,9 @@ def layer_fn(cfg: ModelConfig, pl: dict, x, positions):
     h = rms_norm(x, pl["ln1"], cfg.norm_eps)
     x = x + attention_block(cfg, pl["attn"], h, positions)
     h = rms_norm(x, pl["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, pl, h)
+    # Sequence-parallel residual: between blocks the activations shard over
+    # the model axis where the launcher says so.
+    return shardctx.constrain(x + _ffn(cfg, pl, h), "residual")
 
 
 #: The products whose outputs ``remat="dots"`` keeps (the matmuls without
@@ -204,7 +207,8 @@ def logits_fn(cfg: ModelConfig, params: dict, x):
     products of bf16 values are exact in f32."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x.to(F32), head.to(x.dtype).to(F32))
-    return mask_pad_logits(cfg, logits)
+    # Keep logits vocab-sharded through the loss where the launcher says so.
+    return shardctx.constrain(mask_pad_logits(cfg, logits), "logits")
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, extra_embeds=None):
@@ -239,8 +243,8 @@ LOSS_CHUNK = 512
 
 def _chunk_nll(cfg: ModelConfig, xi, head, li, mi):
     """The masked nll sum of one sequence chunk (its logits in f32)."""
-    logits = mask_pad_logits(cfg, torch.matmul(
-        xi.to(F32), head.to(xi.dtype).to(F32)))
+    logits = shardctx.constrain(mask_pad_logits(cfg, torch.matmul(
+        xi.to(F32), head.to(xi.dtype).to(F32))), "logits")
     return (_nll(logits, li) * mi).sum()
 
 

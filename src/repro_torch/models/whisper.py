@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from . import shardctx
 from .config import ModelConfig
 from .layers import (F32, attn_param_shapes, attention_block,
                      attention_decode, blockwise_attention, dt,
@@ -124,7 +125,7 @@ def _enc_layer(cfg: ModelConfig, pl: dict, x, positions):
     h = rms_norm(x, pl["ln1"], cfg.norm_eps)
     x = x + attention_block(cfg, pl["attn"], h, positions, causal=False)
     h = rms_norm(x, pl["ln2"], cfg.norm_eps)
-    return x + mlp_block(pl["mlp"], h)
+    return shardctx.constrain(x + mlp_block(pl["mlp"], h), "residual")
 
 
 def _dec_layer(cfg: ModelConfig, pl: dict, x, positions, enc_out):
@@ -134,7 +135,7 @@ def _dec_layer(cfg: ModelConfig, pl: dict, x, positions, enc_out):
     x = x + _cross_attention(cfg, pl["xattn"], h,
                              _enc_kv(cfg, pl["xattn"], enc_out))
     h = rms_norm(x, pl["ln3"], cfg.norm_eps)
-    return x + mlp_block(pl["mlp"], h)
+    return shardctx.constrain(x + mlp_block(pl["mlp"], h), "residual")
 
 
 def _positions(x):
@@ -169,7 +170,7 @@ def _logits(cfg: ModelConfig, params: dict, x):
     operands widened to f32 (the JAX package's
     ``preferred_element_type=float32``)."""
     logits = torch.matmul(x.to(F32), params["lm_head"].to(x.dtype).to(F32))
-    return mask_pad_logits(cfg, logits)
+    return shardctx.constrain(mask_pad_logits(cfg, logits), "logits")
 
 
 def decode_stack(cfg: ModelConfig, params: dict, tokens, enc_out):

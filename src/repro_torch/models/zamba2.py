@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from . import mamba2
+from . import mamba2, shardctx
 from .config import ModelConfig
 from .layers import (F32, attn_param_shapes, attention_block,
                      attention_decode, dt, init_from_shapes, mlp_block,
@@ -93,7 +93,7 @@ def _shared_block(cfg: ModelConfig, ps: dict, x, positions):
     h = rms_norm(x, ps["ln1"], cfg.norm_eps)
     x = x + attention_block(cfg, ps["attn"], h, positions)
     h = rms_norm(x, ps["ln2"], cfg.norm_eps)
-    return x + mlp_block(ps["mlp"], h)
+    return shardctx.constrain(x + mlp_block(ps["mlp"], h), "residual")
 
 
 def _main_layer(tree: dict, s: int, j: int) -> dict:
@@ -125,7 +125,7 @@ def forward(cfg: ModelConfig, params: dict, tokens):
     ``preferred_element_type=float32``)."""
     x = hidden_fn(cfg, params, tokens)
     logits = torch.matmul(x.to(F32), params["lm_head"].to(x.dtype).to(F32))
-    return mask_pad_logits(cfg, logits)
+    return shardctx.constrain(mask_pad_logits(cfg, logits), "logits")
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):

@@ -45,12 +45,14 @@ def _leaves(tree) -> list:
 
 def _map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and the same leaves of
-    ``rest``), keeping the structure."""
+    ``rest``), keeping the structure (named tuples too)."""
     if isinstance(tree, dict):
         return {k: _map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, *xs) for xs in zip(tree, *rest))
+        items = [_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
     return fn(tree, *rest)
 
 

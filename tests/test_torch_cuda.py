@@ -1405,6 +1405,35 @@ def test_train_on_card_resumes_bitwise(tmp_path):
                 assert a.read_bytes() == b.read_bytes(), (slot, name.name)
 
 
+def test_mesh_train_on_card_is_bitwise_the_unmeshed_run(tmp_path):
+    """``train(mesh=make_host_mesh((1, 1)))`` on the card (scaled-down
+    qwen3-moe in bf16, the flash kernel) against ``mesh=None``: the same
+    losses and checkpoint files byte for byte; a mesh of more cards than
+    are visible raises."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+    cfg = get_config("qwen3-moe-30b-a3b").scaled_down(
+        param_dtype="bfloat16", compute_dtype="bfloat16",
+        use_pallas_attention=True)
+    kw = dict(steps=3, batch=2, seq=64, ckpt_interval=3, log_every=0)
+    ref = train(cfg, ckpt_dir=str(tmp_path / "a"), **kw)
+    res = train(cfg, ckpt_dir=str(tmp_path / "b"),
+                mesh=make_host_mesh((1, 1)), **kw)
+    assert res.losses == ref.losses
+    from repro_torch.checkpoint import SlotStore
+    ma = SlotStore(tmp_path / "a" / "state").manifest()
+    mb = SlotStore(tmp_path / "b" / "state").manifest()
+    assert ma["leaves"] == mb["leaves"] and ma["meta"] == mb["meta"]
+    for name in ma["leaves"]:
+        fa = tmp_path / "a" / "state" / ma["slot"] / name
+        fb = tmp_path / "b" / "state" / mb["slot"] / name
+        assert fa.read_bytes() == fb.read_bytes(), name
+    with pytest.raises(ValueError, match="cards"):
+        make_host_mesh((torch.cuda.device_count() + 1, 1))
+
+
 def test_train_step_on_card_runs_no_nondeterministic_op():
     """One training step of scaled-down qwen3-moe and mamba2 (bf16, the
     kernels) under ``torch.use_deterministic_algorithms(True,

@@ -62,6 +62,8 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.launch.train, repro_torch.launch.serve\n"
         "import repro_torch.models.moe, repro_torch.models.mamba2\n"
         "import repro_torch.optim.compress_grads\n"
+        "import repro_torch.launch.shardings, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.hlo_costs, repro_torch.models.shardctx\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
         "print(repr(bad))\n")
@@ -91,10 +93,11 @@ def test_port_files_found():
                  "checkpoint/__init__", "checkpoint/store",
                  "checkpoint/sparse_delta", "serving/__init__",
                  "serving/uplink", "launch/__init__", "launch/mesh",
-                 "launch/serve", "launch/train", "optim/compress_grads"):
+                 "launch/serve", "launch/train", "optim/compress_grads",
+                 "launch/shardings", "launch/dryrun", "launch/hlo_costs"):
         assert f"repro_torch/{name}.py" in PORT_FILES
     for name in ("config", "layers", "transformer", "api", "counting",
-                 "moe", "mamba2"):
+                 "moe", "mamba2", "shardctx"):
         assert f"repro_torch/models/{name}.py" in PORT_FILES
     for name in ("__init__", "qwen3_0_6b", "qwen1_5_0_5b", "mamba2_370m"):
         assert f"repro_torch/configs/{name}.py" in PORT_FILES

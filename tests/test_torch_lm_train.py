@@ -194,12 +194,6 @@ def test_microbatches_must_divide_the_batch(tmp_path):
                            ckpt_dir=str(tmp_path), device="cpu")
 
 
-def test_a_mesh_is_refused_naming_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
-        train.train(CFG, steps=1, batch=2, seq=8, ckpt_dir=str(tmp_path),
-                    mesh=object(), device="cpu")
-
-
 def test_train_launcher_on_cpu(tmp_path, capsys):
     res = train.main(["--smoke", "--device", "cpu", "--steps", "3",
                       "--batch", "2", "--seq", "16", "--ckpt-dir",

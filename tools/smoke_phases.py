@@ -13,8 +13,10 @@ cut), ``vlm`` (internvl2-26b, depth cut), ``train`` (qwen3-0.6b and
 mamba2-370m training, the resume and gradient checks), ``hybrid``
 (zamba2-7b at full width, depth cut: the attention kernel at heads of
 112, the SSD cell at 112 heads) and ``encdec`` (whisper-small as
-published: the encoder's non-causal attention over 1,500 keys) -- these
-six build the attention and SSD kernels only -- or one of two
+published: the encoder's non-causal attention over 1,500 keys) and
+``lm_mesh`` (qwen3-0.6b trained unmeshed and on a (1, 1) mesh, bitwise;
+a dry-run record; the three LM examples) -- these seven build the
+attention and SSD kernels only -- or one of two
 diagnostics of the
 streamed pipeline's producer thread:
 
@@ -45,13 +47,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("overlap", "streamed_stats", "genesis", "while_oracle", "mesh",
-          "serving", "moe", "vlm", "train", "hybrid", "encdec", "host_alone",
-          "unpinned")
+          "serving", "moe", "vlm", "train", "hybrid", "encdec", "lm_mesh",
+          "host_alone", "unpinned")
 #: The LM phases, each a function of chip_smoke.py taking (torch, np,
 #: emit, smi).
 LM_PHASES = {"serving": "serving", "moe": "moe_phase", "vlm": "vlm_phase",
              "train": "train_phase", "hybrid": "hybrid_phase",
-             "encdec": "encdec_phase"}
+             "encdec": "encdec_phase", "lm_mesh": "lm_mesh_phase"}
 
 
 def emit(obj) -> None:
