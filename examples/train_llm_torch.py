@@ -3,8 +3,8 @@
 
 Default runs a ~25M-param qwen3-family model for a few hundred steps;
 pass ``--full`` for the ~100M-param configuration (same code path, longer
-wall time), or use ``repro_torch.launch.train`` with ``--arch`` (and
-``--mesh``) for any of the 10 assigned architectures.
+wall time), or use ``repro_torch.launch.train`` with ``--arch`` for any
+of the 10 assigned architectures.
 
   PYTHONPATH=src python examples/train_llm_torch.py [--steps 200] [--full] \\
       [--device cpu]

@@ -25,10 +25,11 @@ drives every shard (no ``torch.distributed`` process group):
     shard's loss and gradient are computed on its device with the weights
     gathered whole, and the shard gradients are summed in shard order and
     divided by their count;
-  * the global norm is taken once from that sum, in the unmeshed order of
-    the leaves; then each device updates its own parameter and moment
-    blocks with that clip scale.  The update is elementwise, so with one
-    data shard a meshed step gives the unmeshed step's bits;
+  * the trainer's own AdamW update (its global-norm clip included) runs
+    once on the whole leaves, gathered onto the first data shard's
+    device, and its results are placed back as blocks by the same specs.
+    So with one data shard a meshed step gives the unmeshed step's bits,
+    and on a (1, 1) mesh the gather and the placement copy nothing;
   * checkpoints hold whole, gathered leaves, so meshed and unmeshed runs
     write the same files and resume from each other's.
 
@@ -54,13 +55,9 @@ from ..data import token_batches
 from ..device import resolve_device
 from ..models import get_model
 from ..optim import adamw, cosine_schedule
-from ..optim.adamw import OptState, _map, _pick, _Step, clip_by_global_norm
+from ..optim.adamw import _map
 from . import shardings
-from .mesh import LMMesh, make_host_mesh
-
-#: The trainer's AdamW global-norm clip (``optim.adamw``'s default); the
-#: sharded step clips the summed gradient itself.
-MAX_GRAD_NORM = 1.0
+from .mesh import LMMesh
 
 
 class SimulatedFailure(Exception):
@@ -126,14 +123,13 @@ def data_shard_devices(mesh: LMMesh, global_batch: int) -> list:
     return out
 
 
-def make_sharded_train_step(cfg, api, lr_fn, mesh: LMMesh):
+def make_sharded_train_step(cfg, api, opt, mesh: LMMesh):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     loss)`` on ``mesh``: ``params`` and ``opt_state`` are trees of
     :class:`~repro_torch.launch.shardings.Sharded` leaves, ``batch`` the
     step's whole numpy arrays.  The order of the arithmetic is the module
     docstring's."""
     grad_fn = make_grad_fn(cfg, api)
-    block_opt = adamw(lr=lr_fn, max_grad_norm=0.0)   # clipped whole below
 
     def train_step(params, opt_state, batch):
         rows = len(next(iter(batch.values())))
@@ -154,54 +150,25 @@ def make_sharded_train_step(cfg, api, lr_fn, mesh: LMMesh):
             loss = sum(losses[1:], losses[0]) / n
         else:
             loss = losses[0]
-        grads, _ = clip_by_global_norm(grads, MAX_GRAD_NORM)
-        params, opt_state = update_blocks(block_opt, grads, opt_state, params)
+        params, opt_state = update_sharded(opt, grads, opt_state, params)
         return params, opt_state, loss
     return train_step
 
 
-def update_blocks(block_opt, grads, opt_state, params) -> tuple:
-    """Every device's update of its parameter and moment blocks by
-    ``block_opt`` (an optimizer that does not clip) from the whole, clipped
-    ``grads``: where a device's parameter and moment blocks cover the same
-    slice one update gives all three; else the parameter block is updated
-    from that slice of the gathered old moments and the moment blocks from
-    that slice of the gathered parameter.  Returns ``(params,
-    opt_state)`` as :class:`~repro_torch.launch.shardings.Sharded`
-    trees."""
-    step = opt_state.step
-    new_step = np.empty_like(step.blocks)
-
-    def leaf(p, g, m, v):
-        mesh, whole = p.mesh, {}
-
-        def full(name, x):
-            if name not in whole:
-                whole[name] = shardings.gather(x)
-            return whole[name]
-
-        out = [np.empty_like(x.blocks) for x in (p, m, v)]
-        for idx in np.ndindex(mesh.devices.shape):
-            dev = mesh.devices[idx]
-            st = OptState(step.blocks[idx], m.blocks[idx], v.blocks[idx])
-            ps, ms = p.slices(idx), m.slices(idx)
-            new_p, new_st = block_opt.update(g[ms].to(dev), st, p.blocks[idx]
-                                             if ps == ms else
-                                             full("p", p)[ms].to(dev))
-            if ps != ms:
-                new_p, _ = block_opt.update(
-                    g[ps].to(dev), st._replace(m=full("m", m)[ps].to(dev),
-                                               v=full("v", v)[ps].to(dev)),
-                    p.blocks[idx])
-            out[0][idx], out[1][idx], out[2][idx] = new_p, new_st.m, new_st.v
-            new_step[idx] = new_st.step
-        return _Step(shardings.Sharded(x.spec, x.shape, x.dtype, b, mesh)
-                     for x, b in zip((p, m, v), out))
-
-    res = _map(leaf, params, grads, opt_state.m, opt_state.v)
-    step = shardings.Sharded(step.spec, step.shape, step.dtype, new_step,
-                             step.mesh)
-    return _pick(res, 0), OptState(step, _pick(res, 1), _pick(res, 2))
+def update_sharded(opt, grads, opt_state, params) -> tuple:
+    """``opt.update`` (which clips by the global norm) of the whole
+    gathered ``params`` and ``opt_state`` from the whole ``grads``, on the
+    devices ``grads`` lie on, each result placed back by its leaf's spec:
+    the :class:`~repro_torch.launch.shardings.Sharded` ``(params,
+    opt_state)``.  On a one-device mesh nothing is copied."""
+    home = shardings.tree_leaves(grads)[0].device
+    specs = [shardings.tree_map(lambda x: x.spec, t)
+             for t in (params, opt_state)]
+    new = opt.update(grads, shardings.gather_tree(opt_state, home),
+                     shardings.gather_tree(params, home))
+    mesh = shardings.tree_leaves(params)[0].mesh
+    return tuple(shardings.shard_tree(t, sp, mesh)
+                 for t, sp in zip(new, specs))
 
 
 def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
@@ -230,7 +197,7 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
         dev = mesh.devices.flat[0]
     api = get_model(cfg)
     lr_fn = cosine_schedule(lr, warmup=max(steps // 20, 1), total=steps)
-    opt = adamw(lr=lr_fn, max_grad_norm=MAX_GRAD_NORM)
+    opt = adamw(lr=lr_fn)
     store = SlotStore(Path(ckpt_dir) / "state")
     cursor = Cursor(Path(ckpt_dir) / "cursor.json")
 
@@ -254,7 +221,7 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
         opt_state = shardings.shard_tree(
             opt_state, shardings.tree_specs(opt_state, mesh, zero1=True),
             mesh)
-        step_fn = make_sharded_train_step(cfg, api, lr_fn, mesh)
+        step_fn = make_sharded_train_step(cfg, api, opt, mesh)
 
     losses = []
     t0 = time.time()
@@ -297,19 +264,14 @@ def main(argv=None) -> TrainResult:
                     help="default: a new temporary directory")
     ap.add_argument("--ckpt-interval", type=int, default=20)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                    help="train sharded on a (data, model) mesh of the "
-                         "device's shards, e.g. 2x1 (default: unmeshed)")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.scaled_down()
-    mesh = None if args.mesh is None else make_host_mesh(
-        tuple(int(n) for n in args.mesh.split("x")), device=args.device)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_train_")
     res = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                 ckpt_dir=ckpt_dir, ckpt_interval=args.ckpt_interval,
-                lr=args.lr, mesh=mesh, device=args.device)
+                lr=args.lr, device=args.device)
     print(f"ran {res.steps_run} steps to step {res.final_step}; "
           f"loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f} "
           f"in {res.wall_s:.1f}s")

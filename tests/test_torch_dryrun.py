@@ -13,12 +13,12 @@ skip reasons (``repro.models.cell_applicable``) and the same bytes.
 
 The step's FLOPs are traced on meta tensors.  The count extrapolated from
 one and two layers of each stack equals the full-depth trace exactly on
-small shapes of every family, and at full width it sits beside
-``counting.model_flops`` (6 N tokens for training, 2 N for a forward) at
-the ratios these traces give: qwen3-0.6b's train_4k step counts 1.54x
-(the remat recompute adds a forward, 8/6, and the attention scores the
-rest), its prefill_32k 3.37x (attention over 32K keys at d_model 1,024),
-held here within [1, 4].
+small shapes of every family.  The trace is integer-exact, so qwen3-0.6b's
+full-width counts are pinned to the figure: its train_4k step counts
+1.54x ``counting.model_flops`` (6 N tokens; the remat recompute adds a
+forward, 8/6, and the attention scores the rest), its prefill_32k 3.37x
+(2 N tokens, and attention over 32K keys at d_model 1,024).  A trace that
+lost the recompute or counted the backward twice would move them.
 """
 
 import json
@@ -115,6 +115,12 @@ def test_every_cell_status_and_state_bytes_equal_jax_s(jax_dryrun,
     assert n_skip == 2 * 8             # long_500k for the 8 quadratic archs
 
 
+#: qwen3-0.6b's traced step FLOPs on the 16 x 16 mesh (remat "full").
+QWEN3_FLOPS = {"train_4k": 7277667464249344,
+               "prefill_32k": 5313664819134464,
+               "decode_32k": 1114644676608}
+
+
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_qwen3_cells(shape):
     rec = dryrun.run_cell("qwen3-0.6b", shape, False)
@@ -123,17 +129,34 @@ def test_qwen3_cells(shape):
         assert rec["status"] == "skipped" and rec["skip_reason"] == reason
         return
     assert rec["status"] == "ok" and rec["kind"] == SHAPES[shape].kind
-    assert rec["flops_global"] > 0
+    assert rec["flops_global"] == QWEN3_FLOPS[shape]
     ratio = rec["flops_global"] / rec["model_flops"]
     assert ratio == rec["flops_over_model_flops"]
     if rec["kind"] in ("train", "prefill"):
-        assert 1.0 <= ratio <= 4.0, ratio
+        assert round(ratio, 2) == {"train": 1.54, "prefill": 3.37}[
+            rec["kind"]], ratio
     assert rec["memory"]["fits_hbm"] is None or isinstance(
         rec["memory"]["fits_hbm"], bool)
     for key in ("live_bytes_per_device", "fits_16GB_hbm"):
         assert key not in rec["memory"]
     for key in ("xla_cost", "hlo", "compile_s"):
         assert key not in rec
+
+
+#: qwen3-0.6b's traced train_4k step FLOPs under each remat policy.
+REMAT_FLOPS = {"none": 5923069138829312, "dots": 6538795650383872,
+               "full": QWEN3_FLOPS["train_4k"]}
+
+
+@pytest.mark.parametrize("remat", list(REMAT_FLOPS))
+def test_train_flops_grow_with_what_remat_recomputes(remat):
+    """A train step recomputes nothing under remat "none", the matmuls
+    under "dots" and the whole forward under "full": the trace counts
+    each, so "none" < "dots" < "full"."""
+    rec = dryrun.run_cell("qwen3-0.6b", "train_4k", False, remat=remat)
+    assert rec["remat"] == remat
+    assert rec["flops_global"] == REMAT_FLOPS[remat]
+    assert REMAT_FLOPS["none"] < REMAT_FLOPS["dots"] < REMAT_FLOPS["full"]
 
 
 @pytest.mark.parametrize("arch,shape", [("mamba2-370m", "train_4k"),

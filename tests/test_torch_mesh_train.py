@@ -142,8 +142,8 @@ def test_each_device_holds_its_blocks(tmp_path, monkeypatch, shape):
     seen = []
     real = trainer.make_sharded_train_step
 
-    def spy(cfg, api, lr_fn, mesh):
-        step = real(cfg, api, lr_fn, mesh)
+    def spy(cfg, api, opt, mesh):
+        step = real(cfg, api, opt, mesh)
 
         def watched(params, opt_state, batch):
             seen.append((mesh, params, opt_state))
@@ -266,25 +266,18 @@ def test_a_mesh_without_lm_devices_is_refused(tmp_path, mesh):
                       mesh=mesh, device="cpu")
 
 
-def test_train_launcher_takes_a_mesh(tmp_path, capsys):
-    res = trainer.main(["--smoke", "--device", "cpu", "--steps", "2",
-                        "--batch", "2", "--seq", "16", "--ckpt-dir",
-                        str(tmp_path), "--mesh", "1x2"])
-    assert (res.steps_run, res.final_step) == (2, 2)
-    assert "ran 2 steps to step 2" in capsys.readouterr().out
-
-
 def test_sharded_update_is_the_unmeshed_update_bitwise():
-    """``update_blocks`` on a (2, 2) mesh, where the parameter and ZeRO-1
+    """``update_sharded`` on a (2, 2) mesh, where the parameter and ZeRO-1
     moment blocks of a leaf cover different slices, against one unmeshed
-    AdamW update from the same clipped gradient: every block bitwise."""
+    AdamW update from the same gradient: every block bitwise, on its
+    device, under its spec."""
     mesh = make_host_mesh((2, 2), device="cpu")
     cfg = dataclasses.replace(CFG, num_layers=2)
     params = get_model(cfg).init_params(cfg, seed=3, device="cpu")
     g = torch.Generator().manual_seed(0)
     grads = shardings.tree_map(
         lambda p: torch.randn(p.shape, generator=g).to(p.dtype), params)
-    opt, block_opt = adamw(lr=LR), adamw(lr=LR, max_grad_norm=0.0)
+    opt = adamw(lr=LR)
     state = opt.init(params)
     state = state._replace(m=shardings.tree_map(
         lambda m: torch.randn(m.shape, generator=g), state.m),
@@ -298,10 +291,12 @@ def test_sharded_update_is_the_unmeshed_update_bitwise():
     differ = sum(pl.spec != ml.spec for pl, ml in zip(
         shardings.tree_leaves(sp), shardings.tree_leaves(ss.m)))
     assert differ > 0
-    clipped, _ = trainer.clip_by_global_norm(grads, trainer.MAX_GRAD_NORM)
-    got_p, got_s = trainer.update_blocks(block_opt, clipped, ss, sp)
-    for got, want in ((got_p, want_p), (got_s, want_s)):
-        for a, b in zip(shardings.tree_leaves(got), shardings.tree_leaves(
-                want)):
+    got_p, got_s = trainer.update_sharded(opt, grads, ss, sp)
+    for got, was, want in ((got_p, sp, want_p), (got_s, ss, want_s)):
+        for a, w, b in zip(shardings.tree_leaves(got),
+                           shardings.tree_leaves(was),
+                           shardings.tree_leaves(want)):
+            assert a.spec == w.spec
             for idx in np.ndindex(mesh.devices.shape):
+                assert a.blocks[idx].device == mesh.devices[idx]
                 assert torch.equal(a.blocks[idx], b[a.slices(idx)])
