@@ -169,9 +169,10 @@ prints one JSON line per phase; any failure exits non-zero.
    and N = 1, 10, 16, 32 and 64, bitwise and timed (where the narrow one
    is faster, ``matmul_path`` may send N to it).
 8. lm_vs_plain -- the attention kernels (f32 and bf16, causal or not,
-   Sq != Sk, S of 1, 37, 300 and 1,500 keys, d of 64 and 128 on the wgmma
-   kernel in bf16, d of 80 and 112 (zamba2-7b's heads) on the mma.sync
-   one, GQA group 2) and the SSD cell (the
+   Sq != Sk, S of 1, 37, 300 and 1,500 keys, d of 40, 64, 80, 112
+   (zamba2-7b's heads), 120 and 128, all on the wgmma kernel in bf16, the
+   widths other than 64 and 128 on the mma.sync one too, by name, on the
+   same operands, GQA group 2) and the SSD cell (the
    tests' shapes, an overflowing decay, Q = 256, 192, 128 and 64 (one row
    tile), N = 64, 128 and 192, 17 heads and one head, in f32, bf16 and
    three mixes) against their plain
@@ -261,7 +262,7 @@ prints one JSON line per phase; any failure exits non-zero.
    super-blocks of six mamba blocks and the shared block, then the
    published tail of 3; printed as ``reduced``): ``forward`` of 2 x 4,096
    tokens with both kernels' launches zeroed just before and read just
-   after (2 flash launches, all on ``mma_sync``; 15 ``ssd_intra``, all on
+   after (2 flash launches, all on ``wgmma``; 15 ``ssd_intra``, all on
    wgmma, each held at once against the plain cell, ``ssd`` and
    ``ssd_f64``), the logits against the plain attention and plain cell's
    (``lm_bf16``), ms and tokens/s beside ``counting.model_flops``; 32
@@ -272,7 +273,8 @@ prints one JSON line per phase; any failure exits non-zero.
    against the plain versions' (every leaf within 2e-2); the attention
    kernel alone at q (64, 4,096, 112) causal and the SSD cell at 3,584
    cells, each beside its plain version, its bound and (attention)
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention`` and the ``mma.sync`` kernel by name
+   (``previous_ms``).
 15. encdec -- whisper-small as published (12 + 12 layers, 12 heads of
    64, bf16, seed 0) over 2 x (1,500 seeded frame embeddings + 448
    tokens): ``forward`` with the flash launches zeroed just before and read
@@ -281,9 +283,9 @@ prints one JSON line per phase; any failure exits non-zero.
    ``encode`` and ``forward`` ms; ``prefill_cross`` then 32 teacher-forced
    ``decode_step``s against the forward (``lm_bf16``), ms and aten calls a
    step; one ``loss_fn`` backward against the plain attention's (2e-2 a
-   leaf); the kernel alone at q (24, 1,500, 64) non-causal beside SDPA and
-   its bound.  No engine: the JAX package's engine never fills the cross
-   K/V (ROADMAP Queue 3 item 8).
+   leaf); the kernel alone at q (24, 1,500, 64) non-causal beside SDPA,
+   its bound and the mma.sync kernel by name.  No engine: the JAX
+   package's engine never fills the cross K/V (ROADMAP Queue 3 item 8).
 16. lm_mesh -- qwen3-0.6b as published (28 layers, bf16, remat "full",
    the flash kernel): ``launch.train.train`` for 2 steps at 4 x 1,024
    tokens, a checkpoint at the end, once with ``mesh=None`` and once with
@@ -1562,6 +1564,8 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
                                      (2, 300, 37, 64, 1), (4, 1, 300, 64, 2),
                                      (4, 300, 300, 80, 2),
                                      (4, 300, 300, 112, 1),
+                                     (4, 300, 300, 40, 2),
+                                     (2, 300, 300, 120, 1),
                                      (4, 37, 1500, 64, 1)):
             for causal in (True, False):
                 q = dev(rng.normal(size=(bh, sq, d)), dtype)
@@ -1569,7 +1573,7 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
                 v = dev(rng.normal(size=(bh // group, sk, d)), dtype)
                 path = fmod.attention_path(q, k, v)
                 want_path = "f32" if dtype == f32 else \
-                    "wgmma" if d in (64, 128) else "mma_sync"
+                    "wgmma" if d % 8 == 0 else "mma_sync"
                 case = (f"bh={bh} sq={sq} sk={sk} d={d} group={group} "
                         f"causal={causal} {str(dtype)[6:]}")
                 if path != want_path:
@@ -1584,6 +1588,16 @@ def lm_kernels(torch, np, emit, hopper) -> list[dict]:
                 checks.append(("flash_attention", case, [got], [want],
                                "allclose" if dtype == f32 else "attn_bf16",
                                path))
+                if path == "wgmma" and d not in (64, 128):
+                    # the design these widths left, on the same operands
+                    mq, mk = fmod.kernel_tiles("mma_sync")
+                    checks.append((
+                        "flash_attention", case,
+                        [fmod.launch(q, k, v, "mma_sync", causal=causal,
+                                     group=group)],
+                        [fmod.flash_attention_plain(
+                            q, k, v, causal=causal, group=group, bq=mq,
+                            bk=mk)], "attn_bf16", "mma_sync"))
     # the SSD cell: through the entry point (the kernel ssd_path names);
     # where that is the wgmma one, also the first design by name, and the
     # wgmma outputs held to the f64 rule too (ssd_f64 below)
@@ -3078,9 +3092,10 @@ def flash_alone(torch, np, fmod, rng, bh: int, sq: int, sk: int, d: int,
     """The bf16 attention kernel alone on seeded (bh, sq, d) / (bh, sk, d)
     operands: held against the plain version at its own tiles
     (``attn_bf16``), timed beside the plain version, one
-    ``scaled_dot_product_attention`` on the same operands and its bound
-    (the products, at half the pairs when causal, at the bf16 peak; each
-    operand read once and the output written once)."""
+    ``scaled_dot_product_attention`` on the same operands, its bound (the
+    products, at half the pairs when causal, at the bf16 peak; each
+    operand read once and the output written once) and the mma.sync
+    kernel by name (``previous_ms``)."""
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
@@ -3116,6 +3131,8 @@ def flash_alone(torch, np, fmod, rng, bh: int, sq: int, sk: int, d: int,
             q, k, v, causal=causal, bq=bq, bk=bk), reps=3),
         library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal), inner=INNER),
+        previous_ms=median_ms(torch, lambda: fmod.launch(
+            q, k, v, "mma_sync", causal=causal), inner=INNER),
         flops=flops, bytes=nbytes,
         shape=f"q ({bh}, {sq}, {d}) bf16, k/v ({bh}, {sk}, {d}), "
               f"{'causal' if causal else 'non-causal'}")
@@ -3187,7 +3204,7 @@ def hybrid_phase(torch, np, emit, smi_line, device="cuda") -> dict:
     """Phase 14: zamba2-7b at full width, HYBRID_LAYERS of its 81 layers
     (bf16, the flash kernel, seed 0).  ``forward`` of LM_BATCH x LM_SEQ
     tokens with both kernels' launches zeroed just before and read just
-    after (the shared block's attention, heads of 112, on ``mma_sync``;
+    after (the shared block's attention, heads of 112, on ``wgmma``;
     one SSD cell a mamba block on wgmma, each launch held at once against
     the plain cell, ``ssd`` and ``ssd_f64``); the logits against the
     forward with the plain attention and the plain cell (``lm_bf16``);
@@ -3266,12 +3283,12 @@ def hybrid_phase(torch, np, emit, smi_line, device="cuda") -> dict:
             "seq": LM_SEQ, "hd": cfg.hd, "ssm_heads": cfg.ssm_heads,
             "launches": fwd, "nvidia_smi": smi_line}
     if fwd["flash_attention"] != n_super \
-            or fwd["flash_attention_by_path"]["mma_sync"] != n_super \
+            or fwd["flash_attention_by_path"]["wgmma"] != n_super \
             or fwd["ssd_intra"] != cfg.num_layers \
             or fwd["ssd_intra_by_path"]["wgmma"] != cfg.num_layers:
         emit({"phase": "hybrid_failed", **line})
         raise SystemExit(f"hybrid: the forward launched {fwd}, not "
-                         f"{n_super} flash_attention on mma_sync and "
+                         f"{n_super} flash_attention on wgmma and "
                          f"{cfg.num_layers} ssd_intra on wgmma")
     if logits.shape != (LM_BATCH, LM_SEQ, cfg.vocab_padded) \
             or logits.dtype != torch.float32:
@@ -3396,7 +3413,7 @@ def hybrid_phase(torch, np, emit, smi_line, device="cuda") -> dict:
                            if k.endswith(("A_log", "dt_bias"))},
           "limit": GRAD_REL, "nvidia_smi": smi_line})
     if rel[worst] > GRAD_REL or grad["flash_attention_by_path"][
-            "mma_sync"] != per * g_super or grad["ssd_intra_by_path"][
+            "wgmma"] != per * g_super or grad["ssd_intra_by_path"][
             "wgmma"] != per * gcfg.num_layers:
         raise SystemExit(f"hybrid: the gradient through the kernels is "
                          f"{rel[worst]} of the plain versions' at {worst} "
@@ -3408,7 +3425,7 @@ def hybrid_phase(torch, np, emit, smi_line, device="cuda") -> dict:
     rng = np.random.default_rng(11)
     attn = flash_alone(torch, np, fmod, rng, LM_BATCH * cfg.num_heads, LM_SEQ,
                        LM_SEQ, cfg.hd, True, "hybrid")
-    if attn["path"] != "mma_sync":
+    if attn["path"] != "wgmma":
         raise SystemExit(f"hybrid: the shared block's attention takes the "
                          f"{attn['path']} kernel")
     cell = ssd_alone(torch, np, smod, rng, LM_BATCH * LM_SEQ // cfg.ssm_chunk,
@@ -5339,9 +5356,11 @@ def main() -> int:
             shape = counts.get("shapes", {}).get(entry["name"])
             if shape is not None:
                 entry[f"{phase}_shape"] = {
-                    k: shape[k] for k in ("shape", "path", "ms", "plain_ms",
+                    k: shape[k] for k in ("shape", "path", "ms",
+                                          "previous_ms", "plain_ms",
                                           "library_ms", "bound_ms",
-                                          "bound_by", "max_abs_err")}
+                                          "bound_by", "max_abs_err")
+                    if k in shape}
 
     # ---- 17. the kernels line, the card, the result
     emit({"kernels": [{

@@ -26,29 +26,36 @@
 // Three kernels; the wrapper picks one from the operands before the launch
 // (flash_attention.py:attention_path):
 //
-// * flash_wgmma_kernel, bf16 at d = 64 or 128 with 16-byte-aligned q, k
-//   and v (the model's case): a block owns a 128-row query tile and walks
-//   128-key tiles.  One producer warpgroup (registers lowered by
-//   setmaxnreg) has one thread load the q tile once and the k and v tiles
-//   through a 2-stage ring of TMA loads (3-D tensor maps over (BH, S, d),
-//   so a tile past Sk is zero-filled within its own head), each stage
-//   with a full and an empty mbarrier; 160 KB of shared memory at d =
-//   128.  Two consumer warpgroups own 64 query rows each: s = q k^T is
-//   wgmma m64n128k16 with q and k from shared memory (k is K-major as
-//   stored); its accumulator layout is that of wgmma's register A operand,
-//   so p is rounded to bf16 in registers and o += p v is wgmma with A
-//   from registers and v from shared memory, MN-major (the transpose bit),
-//   so v is never transposed.  The row max and sum are two xor-shuffles
-//   over the four threads that share an accumulator row.  Only tiles
-//   that cross the diagonal or the end of the keys are masked.  Layout
-//   rules of the tiles and descriptors: hopper.cuh.
-// * flash_bf16_kernel, bf16 at any other d <= 128: 4 warps, each owning 16
-//   query rows of a 64-row tile, walking 64-key tiles on the tensor cores
-//   with mma.sync m16n8k16 (bf16 in, f32 accumulate).  A warp's q
-//   fragments stay in registers for the whole walk; s = q k^T comes out in
-//   the accumulator layout, which is also the layout of the A operand of
-//   p v, so p is rounded to bf16 and fed back without going through
-//   shared memory.  k is staged row-major and v transposed, rows padded by
+// * flash_wgmma_kernel, bf16 at any d % 8 == 0 (d <= 128) with contiguous,
+//   16-byte-aligned q, k and v (the models' case): a block owns a 128-row
+//   query tile and walks 128-key tiles.  The head is stored in a tile of D
+//   = 64 columns (d <= 64) or 128 (d > 64): the tensor maps are 3-D over
+//   (BH, S, d) with 64-column boxes, so TMA zero-fills a tile's columns d
+//   .. D - 1 as it zero-fills keys past Sk, within the tile's own head
+//   (the row stride, 2 d bytes, is a multiple of 16 as a tensor map
+//   needs).  Zero columns add nothing to q k^T and give zero output
+//   columns, which are not stored.  One producer warpgroup (registers
+//   lowered by setmaxnreg) has one thread load the q tile once and the k
+//   and v tiles through a 2-stage ring of TMA loads, each stage with a
+//   full and an empty mbarrier; 160 KB of shared memory at D = 128.  Two
+//   consumer warpgroups own 64 query rows each: s = q k^T is wgmma
+//   m64n128k16 over ceil(d / 16) k-steps with q and k from shared memory
+//   (k is K-major as stored); its accumulator layout is that of wgmma's
+//   register A operand, so p is rounded to bf16 in registers and o += p v
+//   is wgmma (n = D) with A from registers and v from shared memory,
+//   MN-major (the transpose bit), so v is never transposed.  The row max
+//   and sum are two xor-shuffles over the four threads that share an
+//   accumulator row.  Only tiles that cross the diagonal or the end of
+//   the keys are masked.  Layout rules of the tiles and descriptors:
+//   hopper.cuh.
+// * flash_bf16_kernel, bf16 where TMA cannot read the operands (d % 8 !=
+//   0, operands not contiguous or not 16-byte aligned), d <= 128: 4 warps,
+//   each owning 16 query rows of a 64-row tile, walking 64-key tiles on
+//   the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).
+//   A warp's q fragments stay in registers for the whole walk; s = q k^T
+//   comes out in the accumulator layout, which is also the layout of the
+//   A operand of p v, so p is rounded to bf16 and fed back without going
+//   through shared memory.  k is staged row-major and v transposed, rows padded by
 //   16 bytes (no bank conflicts on the 32-bit fragment loads); 36 KB of
 //   shared memory at d = 128.
 // * flash_f32_kernel, f32: the tensor cores would round to TF32, so 256
@@ -266,7 +273,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: wgmma fed by a TMA ring (d = 64 or 128)
+// bf16 on the tensor cores: wgmma fed by a TMA ring (d % 8 == 0)
 // ---------------------------------------------------------------------------
 
 #define WG_BQ 128                  // query rows of a block (two warpgroups)
@@ -286,15 +293,22 @@ constexpr size_t wg_smem_bytes() {
          8 * (1 + 2 * WG_STAGES);
 }
 
-template <int D>
+// The storage width of a tile's rows for NKS = ceil(d / 16) k-steps of s:
+// one 64-column chunk up to d = 64, two up to d = 128.
+__host__ __device__ constexpr int wg_storage(int nks) {
+  return nks <= 4 ? 64 : 128;
+}
+
+template <int NKS>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
-                       __nv_bfloat16* __restrict__ out, int sq, int sk,
+                       __nv_bfloat16* __restrict__ out, int sq, int sk, int d,
                        int group, int causal, float scale) {
   using namespace hopper;
-  static_assert(D == 64 || D == 128, "the head is one or two 64-col chunks");
+  static_assert(NKS >= 1 && 16 * NKS <= MAX_D, "k-steps of a head");
+  constexpr int D = wg_storage(NKS);             // columns of a stored row
   constexpr int NCH = D / 64;                    // 64-column chunks of a row
   constexpr uint32_t TILE = NCH * WG_CHUNK;      // one q, k or v tile
   extern __shared__ __align__(16) unsigned char smem[];
@@ -373,14 +387,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const int k0 = t * WG_BKV;
     mbar_wait(full(s), (t / WG_STAGES) & 1);
 
-    // s = q k^T: 128 keys, d / 16 k-steps (32 bytes each within a chunk)
+    // s = q k^T: 128 keys, ceil(d / 16) k-steps (32 bytes each within a
+    // chunk; at d % 16 == 8 the last one's upper 8 columns are TMA's zeros)
     float sc[64];
 #pragma unroll
     for (int j = 0; j < 64; ++j) sc[j] = 0.0f;
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < NKS; ++ks) {
       const uint32_t off = (ks / 4) * WG_CHUNK + (ks % 4) * 32;
       wgmma_m64n128k16_ss<0>(sc, desc_sw128(q_wg + off, 16, 1024),
                              desc_sw128(k_s(s) + off, 16, 1024), ks > 0);
@@ -432,7 +447,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
     // o += p v: p rounded to bf16 in the register A layout, 16 keys a
     // k-step (registers 8 kt .. 8 kt + 7); v MN-major, 16 rows of 128
-    // bytes a k-step, its 64-column chunks WG_CHUNK apart (LBO)
+    // bytes a k-step, its 64-column chunks WG_CHUNK apart (LBO); v's
+    // columns d .. D - 1 are zeros, so are o's
     uint32_t pf[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) pf[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
@@ -454,7 +470,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     if (lane == 0) mbar_arrive(empty(s));
   }
 
-  __nv_bfloat16* ob = out + (long long)bh * sq * D;
+  // rows of d columns; a pair (col, col + 1) lies wholly below d or not,
+  // as d is even
+  __nv_bfloat16* ob = out + (long long)bh * sq * d;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= sq) continue;
@@ -462,35 +480,58 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 #pragma unroll
     for (int j = 2 * h; j < D / 2; j += 4) {
       const int col = (j >> 2) * 8 + col0;
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row[h] * D + col) =
-          __floats2bfloat162_rn(o[j] / inv, o[j + 1] / inv);
+      if (col < d)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row[h] * d + col) =
+            __floats2bfloat162_rn(o[j] / inv, o[j + 1] / inv);
     }
   }
 }
 
-template <int D>
+// The tensor maps are over the true width d: a 64-column box reaching past
+// d reads zeros there.
+template <int NKS>
 static int launch_wgmma(const void* q, const void* k, const void* v,
-                        void* out, int bh, int sq, int sk, int group,
+                        void* out, int bh, int sq, int sk, int d, int group,
                         int causal, float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  const uint64_t qdims[3] = {(uint64_t)D, (uint64_t)sq, (uint64_t)bh};
-  const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)sk,
+  const uint64_t qdims[3] = {(uint64_t)d, (uint64_t)sq, (uint64_t)bh};
+  const uint64_t kdims[3] = {(uint64_t)d, (uint64_t)sk,
                              (uint64_t)(bh / group)};
   const uint32_t box[3] = {64, 128, 1};
   int err = hopper::make_tensor_map(&qmap, q, 3, qdims, box);
   if (err == 0) err = hopper::make_tensor_map(&kmap, k, 3, kdims, box);
   if (err == 0) err = hopper::make_tensor_map(&vmap, v, 3, kdims, box);
   if (err != 0) return err;
-  const size_t smem = wg_smem_bytes<D>();
+  const size_t smem = wg_smem_bytes<wg_storage(NKS)>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma_kernel<NKS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(bh, (sq + WG_BQ - 1) / WG_BQ);
-  flash_wgmma_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), sq, sk, group,
+  flash_wgmma_kernel<NKS><<<grid, WG_THREADS, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), sq, sk, d, group,
       causal, scale);
   return (int)cudaGetLastError();
+}
+
+// The wgmma kernel at d with its ceil(d / 16) k-steps of s; d % 8 == 0 and
+// d <= MAX_D, else cudaErrorInvalidValue.
+static int launch_wgmma_at(const void* q, const void* k, const void* v,
+                           void* out, int bh, int sq, int sk, int d,
+                           int group, int causal, float scale,
+                           cudaStream_t s) {
+  if (d % 8 != 0) return (int)cudaErrorInvalidValue;
+  switch ((d + 15) / 16) {
+#define WG_CASE(n)                                                       \
+  case n:                                                                \
+    return launch_wgmma<n>(q, k, v, out, bh, sq, sk, d, group, causal, \
+                           scale, s);
+    WG_CASE(1) WG_CASE(2) WG_CASE(3) WG_CASE(4)
+    WG_CASE(5) WG_CASE(6) WG_CASE(7) WG_CASE(8)
+#undef WG_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -684,7 +725,7 @@ int flash_attention_max_d() { return MAX_D; }
 
 // out (bh, sq, d) from q (bh, sq, d) and k, v (bh / group, sk, d), all
 // row-major and contiguous, on kernel `path`: 0 the f32 kernel, 1 the bf16
-// mma.sync kernel, 2 the bf16 wgmma kernel (d = 64 or 128, q, k and v
+// mma.sync kernel, 2 the bf16 wgmma kernel (d % 8 == 0, q, k and v
 // 16-byte aligned).  1 <= d <= MAX_D, sk >= 1, bh % group == 0, the query
 // tiles <= 65535; the wrapper checks them.  Returns 0 on success, else a
 // cudaError_t (from building a tensor map or from the launch).
@@ -693,10 +734,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int causal, float scale, int path, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (path == 2)
-    return d == 64 ? launch_wgmma<64>(q, k, v, out, bh, sq, sk, group, causal,
-                                      scale, s)
-                   : launch_wgmma<128>(q, k, v, out, bh, sq, sk, group,
-                                       causal, scale, s);
+    return launch_wgmma_at(q, k, v, out, bh, sq, sk, d, group, causal, scale,
+                           s);
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
   // the 16-wide steps over d, rounded to a power of two
   const int steps = d <= 16 ? 1 : d <= 32 ? 2 : d <= 64 ? 4 : 8;

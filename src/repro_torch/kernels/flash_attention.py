@@ -9,10 +9,12 @@ by, with whole KV tiles above the causal diagonal skipped.  There the KV
 axis is the innermost, sequential grid axis; on the card one thread block
 owns a query tile and walks the KV tiles itself.  Three kernels, chosen
 from the operands before the launch by :func:`attention_path`:
-``"wgmma"``, bf16 at d = 64 or 128 on the tensor cores with ``wgmma`` fed
-by a TMA ring, over 128 x 128 tiles (:data:`BLOCK_Q`, :data:`BLOCK_K`);
-``"mma_sync"``, bf16 at any other d on the tensor cores with ``mma.sync``,
-over 64 x 64 tiles (:data:`MMA_BLOCK_Q`, :data:`MMA_BLOCK_K`); ``"f32"``,
+``"wgmma"``, bf16 at any d % 8 == 0 with operands a TMA tensor map reads,
+on the tensor cores with ``wgmma`` fed by a TMA ring, over 128 x 128 tiles
+(:data:`BLOCK_Q`, :data:`BLOCK_K`; the head zero-filled by TMA to a 64- or
+128-column tile); ``"mma_sync"``, any other bf16 on the tensor cores with
+``mma.sync``, over 64 x 64 tiles (:data:`MMA_BLOCK_Q`, :data:`MMA_BLOCK_K`);
+``"f32"``,
 f32 on the CUDA cores, since the tensor cores would round f32 to TF32, over
 the same 64 x 64 tiles (see the source).  The kernels handle ragged edges,
 so unlike the Pallas kernel they take any Sq and Sk and need no
@@ -41,9 +43,7 @@ BLOCK_K = 128
 MMA_BLOCK_Q = 64
 MMA_BLOCK_K = 64
 MAX_D = 128
-#: The head widths the wgmma kernel takes, and each path's code in the
-#: C launcher.
-WGMMA_D = (64, 128)
+#: Each path's code in the C launcher.
 _PATH_CODE = {"f32": 0, "mma_sync": 1, "wgmma": 2}
 _INT_MAX = 2**31 - 1
 _GRID_Y_MAX = 65535
@@ -76,15 +76,17 @@ def _library():
 def attention_path(q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> str:
     """Which kernel takes attention of q over k, v on the card:
-    ``"wgmma"`` for bf16 at d = 64 or 128 (a multiple of 16, the wgmma
-    k-step) with q, k and v contiguous and 16-byte aligned (what a TMA
-    tensor map reads); ``"mma_sync"`` for any other bf16; ``"f32"`` for
-    f32.  Decided from the operands alone, before any launch."""
+    ``"wgmma"`` for bf16 at d % 8 == 0, d <= :data:`MAX_D`, with q, k
+    and v contiguous and 16-byte aligned (what a TMA tensor map reads: a
+    base and a row stride of 2 d bytes, multiples of 16); ``"mma_sync"``
+    for any other bf16; ``"f32"`` for f32.  Decided from the operands
+    alone, before any launch."""
     if q.dtype != torch.bfloat16:
         return "f32"
+    d = q.shape[-1]
     tma = all(t.is_contiguous() and t.data_ptr() % 16 == 0
               for t in (q, k, v))
-    return "wgmma" if tma and q.shape[-1] in WGMMA_D else "mma_sync"
+    return "wgmma" if tma and d % 8 == 0 and d <= MAX_D else "mma_sync"
 
 
 def kernel_tiles(path: str) -> tuple[int, int]:

@@ -22,7 +22,7 @@ the attention kernel once a layer, and prefill and decode agree with the
 forward; mamba2's forward must launch the SSD kernel once a layer (on its
 wgmma design) and agree with the plain cell's, and its decode with its
 forward; zamba2's forward must launch the attention kernel on its
-``mma_sync`` path at heads of 112 and the SSD kernel on wgmma, whisper's
+``wgmma`` path at heads of 112 and the SSD kernel on wgmma, whisper's
 the attention kernel once an encoder and a decoder layer, both agree with
 the plain versions and their decode with their forward; the engine's
 tokens must be the same on a second run and after preemption and
@@ -865,7 +865,7 @@ def test_flash_kernel_equals_plain(bh, sq, sk, d, group, causal, dtype):
     v = _cuda(rng.normal(size=(bh // group, sk, d)), dtype)
     path = mod.attention_path(q, k, v)
     assert path == ("f32" if dtype == torch.float32 else
-                    "wgmma" if d in (64, 128) else "mma_sync")
+                    "wgmma" if d % 8 == 0 else "mma_sync")
     before = mod.flash_attention.launches
     on_path = mod.flash_attention.launches_by_path[path]
     got = mod.flash_attention(q, k, v, causal=causal, group=group)
@@ -886,26 +886,28 @@ def test_flash_kernel_equals_plain(bh, sq, sk, d, group, causal, dtype):
 
 
 def test_flash_kernels_side_by_side():
-    """The wgmma and mma.sync kernels on the same bf16 operands each agree
-    with the plain version at their own tiles; the wgmma kernel refuses a
-    head width it does not take."""
+    """The wgmma and mma.sync kernels on the same bf16 operands, at heads
+    of 128 and of 112 (zamba2-7b's, zero-filled by TMA to a 128-wide
+    tile), each agree with the plain version at their own tiles; the
+    wgmma kernel refuses a head width it does not take (d % 8 != 0)."""
     _need_card()
     mod = _kmod("flash_attention")
     rng = np.random.default_rng(21)
-    q = _cuda(rng.normal(size=(4, 300, 128)), torch.bfloat16)
-    k, v = (_cuda(rng.normal(size=(2, 300, 128)), torch.bfloat16)
-            for _ in range(2))
-    for path in ("wgmma", "mma_sync"):
-        got = mod.launch(q, k, v, path, causal=True, group=2)
-        bq, bk = mod.kernel_tiles(path)
-        w = mod.flash_attention_plain(q, k, v, causal=True, group=2, bq=bq,
-                                      bk=bk).float()
-        limit = 2.0 ** -7 * w.abs() \
-            + 2.0 ** -6 * w.square().mean(-1, keepdim=True).sqrt()
-        assert bool(((got.float() - w).abs() <= limit).all()), path
+    for d in (128, 112):
+        q = _cuda(rng.normal(size=(4, 300, d)), torch.bfloat16)
+        k, v = (_cuda(rng.normal(size=(2, 300, d)), torch.bfloat16)
+                for _ in range(2))
+        for path in ("wgmma", "mma_sync"):
+            got = mod.launch(q, k, v, path, causal=True, group=2)
+            bq, bk = mod.kernel_tiles(path)
+            w = mod.flash_attention_plain(q, k, v, causal=True, group=2,
+                                          bq=bq, bk=bk).float()
+            limit = 2.0 ** -7 * w.abs() \
+                + 2.0 ** -6 * w.square().mean(-1, keepdim=True).sqrt()
+            assert bool(((got.float() - w).abs() <= limit).all()), (d, path)
     with pytest.raises(ValueError, match="wgmma kernel does not take"):
-        mod.launch(q[..., :80].contiguous(), k[..., :80].contiguous(),
-                   v[..., :80].contiguous(), "wgmma", causal=True, group=2)
+        mod.launch(q[..., :36].contiguous(), k[..., :36].contiguous(),
+                   v[..., :36].contiguous(), "wgmma", causal=True, group=2)
 
 
 def _ssd_args(bc, h, q, p, n, steep, dtypes):
@@ -1138,7 +1140,7 @@ def test_zamba2_on_card_launches_by_path_and_decode_agrees(dtype):
     """zamba2 at small widths on the card, 3 layers (one super-block of 2
     and one trailing block), heads of 112 as zamba2-7b's and SSD cells the
     wgmma kernel takes (P = N = 64, chunk 64): one forward launches the
-    attention kernel once (``mma_sync`` in bf16, ``f32`` in f32) and the
+    attention kernel once (``wgmma`` in bf16, ``f32`` in f32) and the
     SSD kernel 3 times on wgmma; its logits agree with the plain versions'
     (f32: 2e-5 max |logit|; bf16: lm_bf16's 5e-2), and in f32 16 decode
     steps with the forward (1e-4).  Conv taps x 50 so that the SSD's
@@ -1161,7 +1163,7 @@ def test_zamba2_on_card_launches_by_path_and_decode_agrees(dtype):
     ssd = _count(_kmod("ssd_intra"), "ssd_intra")
     got = zamba2.forward(cfg, params, toks)
     torch.cuda.synchronize()
-    path = "f32" if dtype == "float32" else "mma_sync"
+    path = "f32" if dtype == "float32" else "wgmma"
     assert flash.launches == flash.launches_by_path[path] == 1
     assert ssd.launches == ssd.launches_by_path["wgmma"] == 3
     want = _plain_logits(cfg, zamba2.forward, params, toks)

@@ -137,16 +137,20 @@ def test_tf32x3_plan_fills_the_card(shape):
 
 
 # --------------------------------------------------------------------------
-# flash attention: wgmma at d = 64 or 128, mma.sync at other bf16 d, f32
+# flash attention: wgmma at bf16 d % 8 == 0 that TMA reads, mma.sync at
+# other bf16, f32
 # --------------------------------------------------------------------------
 
 _ATTN_CASES = {
     "d = 128": (128, {}, "wgmma"),
     "d = 64": (64, {}, "wgmma"),
-    "d = 80": (80, {}, "mma_sync"),
+    "d = 80": (80, {}, "wgmma"),
     "d = 37": (37, {}, "mma_sync"),
-    "d = 16": (16, {}, "mma_sync"),
-    "d = 96": (96, {}, "mma_sync"),
+    "d = 16": (16, {}, "wgmma"),
+    "d = 96": (96, {}, "wgmma"),
+    "d = 112": (112, {}, "wgmma"),
+    "d = 40": (40, {}, "wgmma"),
+    "d = 36": (36, {}, "mma_sync"),
     "f32 d = 128": (128, {"dtype": F32}, "f32"),
     "f32 d = 37": (37, {"dtype": F32}, "f32"),
     "q 2 bytes off": (128, {"q_offset": 1}, "mma_sync"),

@@ -884,13 +884,16 @@ def test_bf16_attention_rule_at_full_width_128_tiles(case):
 @pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
     (1, 2, 2, 200, 300, 64, True), (1, 4, 2, 300, 130, 64, True),
     (2, 2, 1, 130, 257, 64, False), (1, 2, 2, 37, 300, 128, True),
-    (1, 2, 1, 300, 37, 128, False), (1, 2, 1, 256, 256, 64, True)])
+    (1, 2, 1, 300, 37, 128, False), (1, 2, 1, 256, 256, 64, True),
+    (1, 2, 2, 200, 300, 112, True), (1, 4, 2, 300, 130, 80, False)])
 def test_flash_plain_at_wgmma_tiles_matches_jax(b, h, hkv, sq, sk, d,
                                                 causal):
     """The plain version at the wgmma kernel's 128 x 128 tiles against the
     Pallas kernel in interpret mode at the same tiles: ragged Sq and Sk
     (one tile, several, a tile of one key), Sq != Sk, causal or not, GQA
-    (the JAX side takes k and v expanded over the group)."""
+    (the JAX side takes k and v expanded over the group), heads of 64 and
+    128 and of widths the kernel zero-fills to its tile (112, zamba2-7b's,
+    and 80)."""
     mod = _module("flash_attention")
     rng = np.random.default_rng(sq * 17 + sk + d + h)
     q = rng.normal(size=(b, h, sq, d)).astype(np.float32)
