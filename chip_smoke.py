@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fleet replay, compute kernels, LM forward, LM
-serving, the MoE and vlm families, LM training, the hybrid and encdec
-families and the sharded LM launch path on one CUDA card and check
-them.
+"""Drive the PyTorch port's fleet replay, the paper's end-to-end
+demonstration, compute kernels, LM forward, LM serving, the MoE and vlm
+families, LM training, the hybrid and encdec families and the sharded LM
+launch path on one CUDA card and check them.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -110,7 +110,24 @@ prints one JSON line per phase; any failure exits non-zero.
    with both walls, the shard count and the launches of the lane kernel
    and the fold (counted from just before each meshed run to just after;
    they join the kernels line's ``launches``).  With more than one card
-   the mesh over every card is also held to the multi-shard rule.
+   the mesh over every card is also held to the multi-shard rule.  Then
+   paper_demo: ``examples/intermittent_mnist_torch.py`` (the paper's
+   demonstration: GENESIS-compressed MNIST retrained, Fig. 9's 6 x 4
+   matrix, a 1,000-device fleet, the uplink under three send policies, a
+   15-candidate ``PlanSet`` design space in one plan-mode launch, the
+   adaptive-commit risk sweep over 256 devices, a million-device
+   ``reduce="stats"`` query in 8,192-lane chunks) at ``--scale 0.1`` (a
+   tenth of those devices, printed as ``reduced``) in its own process:
+   exit code 0, every section's header, SONIC and TAILS
+   finishing on every power system, no wasted cycles at charge cv 0 and
+   some at 0.8, one plan-mode launch, and the query's peak lane buffer
+   equal to the same call's over 65,536 lanes; its section walls and its
+   launches of the lane kernel (by row mode) and of the fold, which join
+   the kernels line's.  Beside it this process computes on the card, and
+   a worker process started after the build on the CPU, the Fig. 9
+   matrix of the compressed net and the design space's sweep at 8
+   devices a candidate, held bitwise against each other (all 24
+   ``RunResult``s; the ``summary()`` rows).
 6. kernels_vs_plain -- the ``repro_torch.kernels`` entry points
    (``dense_matmul``, ``BlockSparseFC``, ``fir_conv1d``) at small seeded
    shapes (odd sizes, explicit tiles, f32, bf16 and both mixed pairs, an
@@ -253,7 +270,14 @@ prints one JSON line per phase; any failure exits non-zero.
    optimizer files equal an uninterrupted run's at that depth byte for
    byte; one ``loss_fn`` backward with the kernel against the
    plain attention, every leaf's ||g_kernel - g_plain|| / ||g_plain|| <=
-   2e-2.  mamba2-370m as published: 2 steps at 2 x 1,024 (96
+   2e-2; ``train_microbatched`` at full width and 2 of 28 layers (2 steps
+   of 4 x 1,024 tokens in 2 microbatches; ms a microbatch, the f32
+   accumulator commit's s, 4 flash launches a microbatch, all on wgmma):
+   a run failed just before microbatch (1, 1) and resumed runs exactly
+   one microbatch, ends with the cursor at (2, 0) and on the
+   uninterrupted run's files byte for byte, and step 0's mean
+   accumulated gradient is within 2e-2 a leaf of the whole batch's.
+   mamba2-370m as published: 2 steps at 2 x 1,024 (96
    ``ssd_intra`` launches a step), its gradient against the plain
    cell's, the same rule.  Each phase prints the card's ``nvidia-smi``
    name and power limit and frees its weights before the next.
@@ -286,21 +310,24 @@ prints one JSON line per phase; any failure exits non-zero.
    leaf); the kernel alone at q (24, 1,500, 64) non-causal beside SDPA,
    its bound and the mma.sync kernel by name.  No engine: the JAX
    package's engine never fills the cross K/V (ROADMAP Queue 3 item 8).
-16. lm_mesh -- qwen3-0.6b as published (28 layers, bf16, remat "full",
-   the flash kernel): ``launch.train.train`` for 2 steps at 4 x 1,024
+16. lm_mesh -- qwen3-0.6b at full width, 2 of 28 layers (bf16, remat
+   "full", the flash kernel; printed as ``reduced``): ``launch.train.train``
+   for 2 steps at 4 x 1,024
    tokens, a checkpoint at the end, once with ``mesh=None`` and once with
    ``mesh=make_host_mesh((1, 1))`` (parameters as their ``tree_specs``
    blocks, the AdamW moments as ZeRO-1 blocks), the flash launches zeroed
-   just before each run and read just after (56 a step, all on wgmma:
+   just before each run and read just after (4 a step, all on wgmma:
    forward and remat recompute); each run's step ms, peak bytes, and the
    card's allocated bytes at its first step beside ``sharded_bytes`` of
    the placed state; the two runs' losses and checkpoint files (every
    parameter and moment) equal bit for bit.  Then one dry-run record
    (``launch.dryrun.run_cell``: qwen3-0.6b train_4k on the 16 x 16 mesh,
    traced on meta tensors) and the three LM examples
-   (``examples/*_torch.py``) on the card, each in its own process.
-17. the kernels line (the flash and SSD entries count these phases'
-   launches too: ``moe_launches``, ``vlm_launches``, ``train_launches``,
+   (``examples/*_torch.py``) on the card, each in its own process, the
+   three side by side.
+17. the kernels line (the lane kernel's and the fold's entries count
+   ``paper_demo``'s example's launches too, the flash and SSD entries
+   these phases': ``moe_launches``, ``vlm_launches``, ``train_launches``,
    ``hybrid_launches``, ``encdec_launches`` and ``lm_mesh_launches``, the
    last three also by kernel, with each kernel's time at the hybrid and
    encdec phases' shapes), the ``nvidia-smi`` line, and the result
@@ -2421,6 +2448,12 @@ LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 4, 1024
 LM_TRAIN_CKPT, LM_TRAIN_FAIL_AT, LM_TRAIN_RESUME_LAYERS = 2, 3, 2
 SSM_TRAIN_STEPS, SSM_TRAIN_BATCH = 2, 2
 GRAD_REL = 2e-2
+#: ``train_microbatched`` at full width and LM_TRAIN_RESUME_LAYERS layers
+#: (each f32 accumulator commit some 0.8 GB; 2.4 GB at all 28):
+#: LM_MB_STEPS steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ in
+#: LM_MB_MICROBATCHES microbatches, a run failed just before microbatch
+#: LM_MB_FAIL_AT = (step, microbatch) and resumed.
+LM_MB_STEPS, LM_MB_MICROBATCHES, LM_MB_FAIL_AT = 2, 2, (1, 1)
 
 
 def engine_requests(np, arch: str, vocab: int) -> list:
@@ -2810,6 +2843,167 @@ def grad_rel(torch, got: dict, want: dict) -> dict:
     return out
 
 
+def microbatched_part(torch, np, emit, smi_line, device="cuda") -> int:
+    """Part of phase 13: ``launch.train.train_microbatched`` on the card.
+    qwen3-0.6b at full width and LM_TRAIN_RESUME_LAYERS layers (flash
+    kernel, remat "full"), LM_MB_STEPS steps at LM_TRAIN_BATCH x
+    LM_TRAIN_SEQ in LM_MB_MICROBATCHES microbatches: one uninterrupted run,
+    then one failed at LM_MB_FAIL_AT and resumed.  The resumed run must run
+    exactly one microbatch, leave the cursor at the end of the last step
+    and end on the uninterrupted run's parameter and optimizer files, byte
+    for byte.  Step 0's mean accumulated gradient (what the trainer hands
+    its optimizer) is held against one gradient of the whole batch at the
+    same parameters, every leaf within GRAD_REL.  Prints ms a microbatch,
+    the accumulator commit's s a microbatch and the flash launches (each
+    microbatch: one a layer in the forward and one in the remat
+    recompute, all on wgmma).  Returns the flash launches."""
+    import dataclasses
+    import filecmp
+    import importlib
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as trainer
+
+    flash = importlib.import_module(
+        "repro_torch.kernels.flash_attention").flash_attention
+    cfg = dataclasses.replace(get_config(LM_ARCH), use_pallas_attention=True,
+                              num_layers=LM_TRAIN_RESUME_LAYERS)
+    real_grad, real_store = trainer.make_grad_fn, trainer.SlotStore
+    real_adamw = trainer.adamw
+    mbs, commits, first_update = [], [], {}
+
+    def timed_grad(cfg_, api):
+        grad_fn = real_grad(cfg_, api)
+
+        def timed(params, batch):
+            torch.cuda.synchronize()
+            f0 = flash.launches
+            w0 = flash.launches_by_path["wgmma"]
+            t0 = time.perf_counter()
+            out = grad_fn(params, batch)
+            torch.cuda.synchronize()
+            mbs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "flash_attention_launches": flash.launches - f0,
+                        "wgmma_launches": flash.launches_by_path["wgmma"]
+                        - w0, "batch": batch})
+            return out
+        return timed
+
+    class TimedStore(real_store):
+        def save(self, tree, meta=None):
+            t0 = time.perf_counter()
+            slot = super().save(tree, meta)
+            if self.root.name == "accum":
+                commits.append(time.perf_counter() - t0)
+            return slot
+
+    def recording_adamw(*a, **kw):
+        opt = real_adamw(*a, **kw)
+
+        def update(grads, state, params):
+            if not first_update:              # step 0 of the first run
+                first_update.update(grads=grads, params=params)
+            return opt.update(grads, state, params)
+        return type(opt)(opt.init, update)
+
+    def front_files(root):
+        store = real_store(root / "state")
+        m = store.manifest()
+        return store.root / m["slot"], m
+
+    kw = dict(steps=LM_MB_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+              microbatches=LM_MB_MICROBATCHES, device=device)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    trainer.make_grad_fn, trainer.SlotStore, trainer.adamw = \
+        timed_grad, TimedStore, recording_adamw
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            tmp = Path(tmp)
+            flash.launches = 0                # zero just before the path
+            full = trainer.train_microbatched(cfg, ckpt_dir=str(tmp / "a"),
+                                              **kw)
+            run_mbs, run_commits = list(mbs), list(commits)
+            try:
+                trainer.train_microbatched(cfg, ckpt_dir=str(tmp / "b"),
+                                           fail_at=LM_MB_FAIL_AT, **kw)
+            except trainer.SimulatedFailure:
+                pass
+            else:
+                raise SystemExit(f"train: the microbatched run was not "
+                                 f"failed at {LM_MB_FAIL_AT}")
+            failed_cursor = trainer.Cursor(tmp / "b" / "cursor.json").read()
+            before = len(mbs)
+            resumed = trainer.train_microbatched(cfg,
+                                                 ckpt_dir=str(tmp / "b"),
+                                                 **kw)
+            launches = flash.launches         # read just after
+            rerun = len(mbs) - before
+            cursor = trainer.Cursor(tmp / "b" / "cursor.json").read()
+            (da, ma), (db, mb) = front_files(tmp / "a"), front_files(tmp / "b")
+            same = ma["meta"] == mb["meta"] and ma["leaves"] == mb["leaves"] \
+                and ma["dtypes"] == mb["dtypes"] and all(
+                    filecmp.cmp(da / n, db / n, shallow=False)
+                    for n in ma["leaves"])
+            astore = real_store(tmp / "a" / "accum")
+            am = astore.manifest()
+            accum_bytes = sum((astore.root / am["slot"] / n).stat().st_size
+                              for n in am["leaves"])
+    finally:
+        trainer.make_grad_fn, trainer.SlotStore, trainer.adamw = \
+            real_grad, real_store, real_adamw
+    per_mb = 2 * cfg.num_layers
+    if any(m["flash_attention_launches"] != per_mb
+           or m["wgmma_launches"] != per_mb for m in mbs):
+        raise SystemExit(f"train: microbatched flash launches "
+                         f"{[m['flash_attention_launches'] for m in mbs]}, "
+                         f"not {per_mb} a microbatch on wgmma")
+    want_cursor = {"step": LM_MB_STEPS, "mb": 0}
+    if not same or rerun != 1 or resumed.losses != full.losses[-1:] \
+            or {k: cursor.get(k) for k in want_cursor} != want_cursor:
+        raise SystemExit(f"train: the microbatched run failed at "
+                         f"{LM_MB_FAIL_AT} and resumed ran {rerun} "
+                         f"microbatches (cursor {cursor}, files equal: "
+                         f"{same}, losses {resumed.losses} against "
+                         f"{full.losses})")
+
+    # step 0's mean accumulated gradient against the whole batch's
+    api = trainer.get_model(cfg)
+    step0 = [m["batch"] for m in run_mbs[:LM_MB_MICROBATCHES]]
+    whole = {k: torch.cat([b[k] for b in step0]) for k in step0[0]}
+    loss_w, g_whole = real_grad(cfg, api)(first_update["params"], whole)
+    rel = grad_rel(torch, first_update["grads"], g_whole)
+    worst = max(rel, key=rel.get)
+    for m in mbs:
+        del m["batch"]
+    tokens = LM_TRAIN_BATCH // LM_MB_MICROBATCHES * LM_TRAIN_SEQ
+    emit({"phase": "train", "part": "qwen3_microbatched", "arch": LM_ARCH,
+          "layers": cfg.num_layers, "reduced": f"{cfg.num_layers} of "
+          f"{get_config(LM_ARCH).num_layers} layers; full width",
+          "steps": LM_MB_STEPS, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+          "microbatches": LM_MB_MICROBATCHES, "losses": full.losses,
+          "microbatch_ms": [m["ms"] for m in run_mbs],
+          "tokens_per_s": [tokens / m["ms"] * 1e3 for m in run_mbs],
+          "accumulator_commit_s": run_commits,
+          "accumulator_bytes": accum_bytes,
+          "flash_attention_launches": launches,
+          "flash_attention_launches_per_microbatch":
+              [m["flash_attention_launches"] for m in mbs],
+          "failed_at": list(LM_MB_FAIL_AT), "failed_cursor": failed_cursor,
+          "resumed_microbatches": rerun, "final_cursor": cursor,
+          "resume_bitwise_equal": True, "loss_whole_batch": float(loss_w),
+          "grad_rel_max": rel[worst], "grad_rel_worst_leaf": worst,
+          "limit": GRAD_REL, "wall_s": full.wall_s, "nvidia_smi": smi_line})
+    if rel[worst] > GRAD_REL:
+        raise SystemExit(f"train: step 0's accumulated gradient is "
+                         f"{rel[worst]} of the whole batch's at {worst} "
+                         f"(limit {GRAD_REL})")
+    del first_update["grads"], first_update["params"], g_whole, whole
+    torch.cuda.empty_cache()
+    return launches
+
+
 def train_phase(torch, np, emit, smi_line, device="cuda") -> dict:
     """Phase 13: training on the card.  qwen3-0.6b as published (bf16, the
     flash kernel, remat "full"): ``launch.train.train`` for LM_TRAIN_STEPS
@@ -2998,6 +3192,7 @@ def train_phase(torch, np, emit, smi_line, device="cuda") -> dict:
                          f"(limit {GRAD_REL}; {grad_launches} launches)")
     del params, g_k, g_p, batch
     torch.cuda.empty_cache()
+    mb_launches = microbatched_part(torch, np, emit, smi_line, device)
 
     # mamba2-370m: training through ssd_intra, then its gradient
     mcfg = get_config(SSM_ARCH)
@@ -3059,8 +3254,8 @@ def train_phase(torch, np, emit, smi_line, device="cuda") -> dict:
     seconds = time.perf_counter() - t_phase
     emit({"phase": "train", "seconds": seconds, "all_agree": True,
           "nvidia_smi": smi_line})
-    return {"flash_attention": train_launches, "ssd_intra": ssm_launches,
-            "seconds": seconds}
+    return {"flash_attention": train_launches + mb_launches,
+            "ssd_intra": ssm_launches, "seconds": seconds}
 
 
 #: Phases 14-15 (``hybrid``, ``encdec``).  zamba2-7b at full width (d_model
@@ -3654,10 +3849,12 @@ def encdec_phase(torch, np, emit, smi_line, device="cuda") -> dict:
             "shapes": {"flash_attention": attn}, "seconds": seconds}
 
 
-#: Phase 16 (``lm_mesh``): qwen3-0.6b as published (28 layers, remat
-#: "full", the flash kernel) trained LM_MESH_STEPS steps at LM_TRAIN_BATCH x
-#: LM_TRAIN_SEQ, a checkpoint at the end, once unmeshed and once on the
-#: LM_MESH_SHAPE (data, model) mesh; the examples run with these flags.
+#: Phase 16 (``lm_mesh``): qwen3-0.6b at full width (remat "full", the
+#: flash kernel), its depth cut to LM_TRAIN_RESUME_LAYERS of 28 layers (the
+#: two runs agree byte for byte at any depth), trained LM_MESH_STEPS steps at
+#: LM_TRAIN_BATCH x LM_TRAIN_SEQ, a checkpoint at the end, once unmeshed and
+#: once on the LM_MESH_SHAPE (data, model) mesh; the examples run with these
+#: flags.
 LM_MESH_STEPS, LM_MESH_SHAPE = 2, (1, 1)
 #: Bytes the card may hold beyond the placed state when the first step
 #: starts (the batch, the schedule's scalars, the allocator's rounding).
@@ -3668,12 +3865,52 @@ EXAMPLES = (("quickstart_torch.py", (), "done."),
             ("train_llm_torch.py", ("--steps", "20"), "trained 20 steps"))
 
 
+def run_examples(emit, build: Path) -> None:
+    """The three LM examples (EXAMPLES) on the card, each in its own
+    process, side by side; each must exit 0 and print its line."""
+    runs = []
+    for name, args, expect in EXAMPLES:
+        log = build / f"lm_mesh_{Path(name).stem}.log"
+        with open(log, "w") as f:
+            runs.append((name, args, expect, log, time.perf_counter(),
+                         subprocess.Popen([sys.executable,
+                                           str(ROOT / "examples" / name),
+                                           *args], stdout=f,
+                                          stderr=subprocess.STDOUT,
+                                          text=True)))
+    try:
+        ended = {}
+        deadline = time.perf_counter() + 600
+        while len(ended) < len(runs):
+            if time.perf_counter() > deadline:
+                raise SystemExit("lm_mesh: the examples ran past 600 s")
+            for i, run in enumerate(runs):
+                if i not in ended and run[-1].poll() is not None:
+                    ended[i] = time.perf_counter() - run[4]
+            time.sleep(0.2)
+        for i, (name, args, expect, log, _t0, proc) in enumerate(runs):
+            out = log.read_text()
+            if proc.returncode != 0 or expect not in out:
+                raise SystemExit(f"lm_mesh: examples/{name} failed (no "
+                                 f"{expect!r}): {out[-3000:]}")
+            emit({"phase": "lm_mesh", "part": "example", "example": name,
+                  "args": list(args), "seconds": ended[i],
+                  "side_by_side": len(runs),
+                  "last_lines": out.strip().splitlines()[-3:]})
+    finally:
+        for *_, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def lm_mesh_phase(torch, np, emit, smi_line, device="cuda") -> dict:
-    """Phase 16: the sharded LM launch path on the card.  qwen3-0.6b as
-    published: ``launch.train.train`` for LM_MESH_STEPS steps, once with
+    """Phase 16: the sharded LM launch path on the card.  qwen3-0.6b at
+    full width and LM_TRAIN_RESUME_LAYERS of 28 layers:
+    ``launch.train.train`` for LM_MESH_STEPS steps, once with
     ``mesh=None`` and once with ``mesh=make_host_mesh(LM_MESH_SHAPE)``;
     the flash launches zeroed just before each run and read just after
-    (2 x 28 a step, all on wgmma: forward and remat recompute).  Each
+    (2 a layer and step, all on wgmma: forward and remat recompute).  Each
     run's losses, step ms, peak bytes a step, and the card's allocated
     bytes when its first step starts beside ``shardings.sharded_bytes`` of
     the placed parameters and moments.  The two runs' losses must be
@@ -3681,7 +3918,8 @@ def lm_mesh_phase(torch, np, emit, smi_line, device="cuda") -> dict:
     raw bits) equal byte for byte.  Then one dry-run record
     (``launch.dryrun.run_cell``: qwen3-0.6b train_4k on the 16 x 16
     mesh), and the three LM examples on the card, each in its own
-    process.  Returns the flash launches of the two runs."""
+    process, side by side.  Returns the flash launches of the two
+    runs."""
     import dataclasses
     import filecmp
     import importlib
@@ -3695,12 +3933,14 @@ def lm_mesh_phase(torch, np, emit, smi_line, device="cuda") -> dict:
     fmod = importlib.import_module("repro_torch.kernels.flash_attention")
     flash = fmod.flash_attention
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config(LM_ARCH), use_pallas_attention=True)
+    cfg = dataclasses.replace(get_config(LM_ARCH), use_pallas_attention=True,
+                              num_layers=LM_TRAIN_RESUME_LAYERS)
     if cfg.remat != "full":
         raise SystemExit(f"lm_mesh: {LM_ARCH}'s remat is {cfg.remat!r}")
     emit({"phase": "lm_mesh", "nvidia_smi": smi_line, "arch": LM_ARCH,
-          "layers": cfg.num_layers, "remat": cfg.remat,
-          "mesh_shape": list(LM_MESH_SHAPE)})
+          "layers": cfg.num_layers, "reduced": f"{cfg.num_layers} of "
+          f"{get_config(LM_ARCH).num_layers} layers; full width",
+          "remat": cfg.remat, "mesh_shape": list(LM_MESH_SHAPE)})
     real = {"make_train_step": trainer.make_train_step,
             "make_sharded_train_step": trainer.make_sharded_train_step}
     steps, placed = [], {}
@@ -3827,19 +4067,7 @@ def lm_mesh_phase(torch, np, emit, smi_line, device="cuda") -> dict:
         raise SystemExit(f"lm_mesh: dry run {rec}")
     emit({"phase": "lm_mesh", "part": "dryrun", **rec})
 
-    # the three LM examples on the card
-    for name, args, expect in EXAMPLES:
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, str(ROOT / "examples" / name),
-                              *args], capture_output=True, text=True,
-                             timeout=600)
-        if out.returncode != 0 or expect not in out.stdout:
-            raise SystemExit(f"lm_mesh: examples/{name} failed (no "
-                             f"{expect!r}): {out.stdout[-1000:]} "
-                             f"{out.stderr[-2000:]}")
-        emit({"phase": "lm_mesh", "part": "example", "example": name,
-              "args": list(args), "seconds": time.perf_counter() - t0,
-              "last_lines": out.stdout.strip().splitlines()[-3:]})
+    run_examples(emit, build)
     seconds = time.perf_counter() - t_phase
     emit({"phase": "lm_mesh", "seconds": seconds, "all_agree": True,
           "nvidia_smi": smi_line})
@@ -4602,6 +4830,331 @@ def mesh(torch, np, emit, fleetsim, wrapper, net, x, plan_tails) -> dict:
     return totals
 
 
+class CpuWorker:
+    """``fn(dir, *inputs)``, a function of this script, run on the CPU in a
+    process of its own (``CUDA_VISIBLE_DEVICES=""``, 2 threads) beside the
+    card's phases: the inputs and the result pass as pickles through a
+    directory under ``build/`` (``self.dir``), where ``fn`` may also leave
+    files for the caller.  Every worker still running when the script
+    ends is killed (``stop_workers``)."""
+    live: list = []
+
+    def __init__(self, fn: str, *inputs):
+        import pickle
+        import tempfile
+
+        build = ROOT / "build"
+        build.mkdir(exist_ok=True)
+        self.fn = fn
+        self.dir = Path(tempfile.mkdtemp(dir=build, prefix=f"{fn}-"))
+        (self.dir / "in.pkl").write_bytes(pickle.dumps(inputs))
+        self.log = open(self.dir / "log", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]"
+             "); import chip_smoke; chip_smoke.cpu_worker_main(*sys.argv[2:])",
+             str(ROOT), fn, str(self.dir)],
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), stdout=self.log,
+            stderr=subprocess.STDOUT)
+        CpuWorker.live.append(self)
+
+    def result(self, timeout: float = 900) -> tuple:
+        """(what ``fn`` returned, the seconds waited for it)."""
+        import pickle
+
+        t0 = time.perf_counter()
+        try:
+            self.proc.wait(timeout=timeout)
+        finally:
+            self.stop()
+        waited = time.perf_counter() - t0
+        if self.proc.returncode != 0:
+            raise SystemExit(f"{self.fn}: the CPU worker exited "
+                             f"{self.proc.returncode}: {self.tail()}")
+        out = pickle.loads((self.dir / "out.pkl").read_bytes())
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return out, waited
+
+    def tail(self) -> str:
+        return (self.dir / "log").read_text()[-3000:]
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        if self in CpuWorker.live:
+            CpuWorker.live.remove(self)
+
+
+def stop_workers() -> None:
+    for w in list(CpuWorker.live):
+        w.stop()
+
+
+def cpu_worker_main(fn: str, d: str) -> None:
+    """A :class:`CpuWorker`'s process: ``fn(dir, *inputs)`` on the CPU."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(2)
+    sys.path.insert(0, str(ROOT / "src"))
+    d = Path(d)
+    out = globals()[fn](d, *pickle.loads((d / "in.pkl").read_bytes()))
+    (d / "out.pkl.tmp").write_bytes(pickle.dumps(out))
+    os.replace(d / "out.pkl.tmp", d / "out.pkl")
+
+
+#: Phase 5h (``paper_demo``): the paper's end-to-end demonstration,
+#: ``examples/PAPER_EXAMPLE`` in its own process on the card (PAPER_TIMEOUT s
+#: at most) at ``--scale PAPER_SCALE``: every device count a tenth of the
+#: JAX example's (100, 26, 6 a candidate and 100,000), since at 1.0 its
+#: million-device query alone takes some 230 s of closed-form scan on an
+#: H100 (123 chunks of 5,473 rows); ``tools/smoke_phases.py paper_demo``
+#: runs it at 1.0.  Beside it, in this process, the Fig. 9 matrix and the design
+#: space's PlanSet sweep on the card against ``device="cpu"`` (the CPU
+#: halves in a worker process started after the build), and the stats
+#: query's call at PAPER_PEAK_LANES lanes for its peak lane buffer.  The design space's
+#: check runs PAPER_DESIGN_DEVICES devices a candidate, not the example's
+#: 64: the CPU's plain event stream takes 190-230 s on the H100 machine's
+#: host over its longest plan (63,489 Tile-8 rows) at any lane count.
+PAPER_EXAMPLE = "intermittent_mnist_torch.py"
+PAPER_SCALE = 0.1
+PAPER_TIMEOUT = 900
+PAPER_DESIGN_DEVICES = 8
+PAPER_PEAK_LANES = 65536
+
+
+def load_example(name: str):
+    """``examples/name`` imported as a module (its sections are
+    functions)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        Path(name).stem, ROOT / "examples" / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def paper_cpu_reference(d: Path, orig, net, x, devices: int) -> dict:
+    """The CPU halves of ``paper_demo``'s checks (a :class:`CpuWorker`):
+    the design space built as the example builds it (pickled to
+    ``d / "planset.pkl"`` at once, for the card's run) and swept on the
+    CPU at ``devices`` a candidate, then the Fig. 9 matrix
+    (``fleet_evaluate(device="cpu")``)."""
+    import pickle
+
+    from repro_torch.core import fleet_evaluate
+
+    ex = load_example(PAPER_EXAMPLE)
+    t0 = time.perf_counter()
+    design = ex.design_plans(orig, net, x)
+    build_s = time.perf_counter() - t0
+    (d / "planset.tmp").write_bytes(pickle.dumps(design))
+    os.replace(d / "planset.tmp", d / "planset.pkl")
+    t0 = time.perf_counter()
+    rows = ex.design_sweep(design, devices, "cpu").summary()
+    design_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cells = fleet_evaluate(net, x, device="cpu")
+    return dict(rows=rows, cells=cells, design_build_s=build_s,
+                design_s=design_s, matrix_s=time.perf_counter() - t0)
+
+
+def start_paper_reference() -> tuple:
+    """The demonstration's nets and input -- ``mnist_net()``, its GENESIS
+    compression (not retrained) and the stand-in task's first test input
+    (``make_task``'s data depend on the process's hash seed, so it is made
+    here once) -- and the :class:`CpuWorker` computing the CPU halves of
+    ``paper_demo``'s checks on them."""
+    from repro_torch.data import make_task
+    from repro_torch.models.dnn import mnist_net
+
+    ex = load_example(PAPER_EXAMPLE)
+    task = make_task("mnist", n_train=512, n_test=256, noise=0.85)
+    inputs = (mnist_net(), ex.compressed_net("mnist"), task.x_test[0])
+    return CpuWorker("paper_cpu_reference", *inputs,
+                     PAPER_DESIGN_DEVICES), inputs
+
+
+def run_results_differ(np, a, b) -> list:
+    """The fields of two ``RunResult``s that differ in any bit."""
+    import dataclasses
+
+    bad = []
+    for f in dataclasses.fields(a):
+        u, v = getattr(a, f.name), getattr(b, f.name)
+        same = np.array_equal(u, v) if isinstance(u, np.ndarray) \
+            or isinstance(v, np.ndarray) else u == v
+        if not same:
+            bad.append(f.name)
+    return bad
+
+
+def paper_demo(torch, np, emit, fleetsim, smi_line, scale=PAPER_SCALE,
+               reference=None) -> dict:
+    """Phase 5h: the paper's end-to-end demonstration on the card.
+    ``examples/intermittent_mnist_torch.py`` runs at ``--scale scale`` in
+    its own process: exit code 0, every section's header line, SONIC and
+    TAILS finishing on every power system of the Fig. 9 matrix, no wasted
+    cycles at charge cv 0 and some at cv 0.8, exactly one plan-mode launch
+    of the lane kernel for the 15 candidates, and a peak lane buffer equal
+    to that of the same call over PAPER_PEAK_LANES lanes here.  While it
+    runs (its section walls are taken beside them), this process computes
+    the card's halves of two checks whose CPU halves ``reference`` (from
+    :func:`start_paper_reference`; started here if None) computes in a
+    worker process: the Fig. 9 matrix of the compressed net (the
+    closed-form scan; all 24 ``RunResult``s bitwise) and the design
+    space's PlanSet sweep at PAPER_DESIGN_DEVICES a candidate (the lane
+    kernel in plan mode; the ``summary()`` rows bitwise).  Returns the
+    example's launches of the lane kernel (by row mode) and the
+    statistics fold, its section walls and the checks' seconds."""
+    import pickle
+
+    t_phase = time.perf_counter()
+    worker, (orig, net, x) = reference or start_paper_reference()
+    ex = load_example(PAPER_EXAMPLE)
+    build = ROOT / "build"
+    emit({"phase": "paper_demo", "nvidia_smi": smi_line,
+          "example": f"examples/{PAPER_EXAMPLE}", "scale": scale,
+          "reduced": None if scale == 1.0 else
+          f"every device count x {scale} (the JAX example's at 1.0)",
+          "design_devices_checked": PAPER_DESIGN_DEVICES,
+          "peak_lanes_checked": PAPER_PEAK_LANES})
+    # the example in its own process; the card's halves of the checks
+    # meanwhile in this one
+    log_path = build / "paper_demo_example.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        example = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / PAPER_EXAMPLE),
+             "--scale", str(scale)], stdout=log, stderr=subprocess.STDOUT,
+            text=True)
+    try:
+        # the peak run first, on the card while the example builds its
+        # plans on the host, then the matrix's plan builds while its scan
+        t1 = time.perf_counter()
+        peak = fleetsim.fleet_sweep(
+            net, x, "sonic", "1mF", n_devices=PAPER_PEAK_LANES, seed=42,
+            reduce="stats", lane_chunk=ex.QUERY_CHUNK,
+            device="cuda").peak_lane_bytes
+        peak_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cells = fleetsim.fleet_evaluate(net, x, device="cuda")
+        matrix_s = time.perf_counter() - t1
+        planset = worker.dir / "planset.pkl"
+        while not planset.exists() and worker.proc.poll() is None:
+            time.sleep(1.0)
+        if not planset.exists():
+            raise SystemExit(f"paper_demo: the CPU worker wrote no PlanSet: "
+                             f"{worker.tail()}")
+        design = pickle.loads(planset.read_bytes())
+        t1 = time.perf_counter()
+        rows = ex.design_sweep(design, PAPER_DESIGN_DEVICES,
+                               "cuda").summary()
+        design_s = time.perf_counter() - t1
+        example.wait(timeout=PAPER_TIMEOUT)
+    finally:
+        if example.poll() is None:
+            example.kill()
+            example.wait()
+    example_s = time.perf_counter() - t0
+    out = log_path.read_text()
+    if example.returncode != 0:
+        raise SystemExit(f"paper_demo: examples/{PAPER_EXAMPLE} exited "
+                         f"{example.returncode}: {out[-4000:]}")
+    checks = paper_output_checks(out.splitlines(), ex)
+    emit({"phase": "paper_demo", "part": "example", "seconds": example_s,
+          **checks, "output": "build/paper_demo_example.log"})
+    cpu, wait_s = worker.result(timeout=PAPER_TIMEOUT)
+    bad = {f"{c.strategy}/{c.power}": run_results_differ(np, c, w)
+           for c, w in zip(cells, cpu["cells"])}
+    bad = {k: v for k, v in bad.items() if v}
+    if len(cells) != 24 or len(cpu["cells"]) != 24 or bad:
+        raise SystemExit(f"paper_demo: the Fig. 9 matrix on the card != "
+                         f"the CPU's: {bad}")
+    if rows != cpu["rows"] or len(rows) != len(design):
+        raise SystemExit(f"paper_demo: the design space on the card != the "
+                         f"CPU's: {rows} against {cpu['rows']}")
+    printed = f"{peak / 1e6:.1f}"
+    if checks["peak_lane_buffer_mb"] != printed:
+        raise SystemExit(f"paper_demo: the query's peak lane buffer "
+                         f"{checks['peak_lane_buffer_mb']} MB != "
+                         f"{printed} MB at {PAPER_PEAK_LANES} lanes")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "paper_demo", "matrix_bitwise_equal_cpu": True,
+          "matrix_cells": 24, "matrix_s": matrix_s,
+          "cpu_matrix_s": cpu["matrix_s"],
+          "design_rows_bitwise_equal_cpu": True,
+          "design_candidates": len(rows),
+          "design_devices": PAPER_DESIGN_DEVICES, "design_s": design_s,
+          "cpu_design_s": cpu["design_s"],
+          "cpu_design_build_s": cpu["design_build_s"],
+          "peak_lane_bytes": peak, "peak_lanes": PAPER_PEAK_LANES,
+          "peak_s": peak_s, "cpu_worker_wait_s": wait_s,
+          "example_s": example_s, "seconds": seconds, "all_agree": True,
+          "nvidia_smi": smi_line})
+    return dict(checks, seconds=seconds)
+
+
+def paper_output_checks(lines: list, ex) -> dict:
+    """The paper's invariants, read from the example's output ``lines``:
+    every header of ``ex.HEADERS`` in order; SONIC and TAILS finish on
+    every power system of the matrix; the risk table's two cross-charge
+    waste columns 0 at charge cv 0 and above 0 at cv 0.8; one plan-mode
+    launch for the design space; the peak lane buffer, the section walls
+    and the kernel launches.  Raises SystemExit on a broken invariant."""
+    at = []
+    for h in ex.HEADERS:
+        hits = [i for i, ln in enumerate(lines) if h in ln]
+        if not hits:
+            raise SystemExit(f"paper_demo: no {h!r} line in the output")
+        at.append(hits[0])
+    if at != sorted(at):
+        raise SystemExit(f"paper_demo: the sections are out of order: {at}")
+    table = lines[at[1]:at[1] + 1 + len(ex.STRATEGIES)]
+    finish = {}
+    for strat in ("sonic", "tails"):
+        row = [ln for ln in table if ln.split()[:1] == [strat]]
+        if len(row) != 1 or "DNF" in row[0] \
+                or row[0].count(" ms") != len(ex.POWER_SYSTEMS):
+            raise SystemExit(f"paper_demo: {strat} does not finish on every "
+                             f"power system: {row}")
+        finish[strat] = row[0].strip()
+    waste = {}
+    for ln in lines[at[5] + 2:at[5] + 2 + len(ex.RISK_CVS)]:
+        f = ln.split()
+        waste[float(f[0])] = (float(f[5]), float(f[6]))
+    if sorted(waste) != list(ex.RISK_CVS) or waste[0.0] != (0.0, 0.0) \
+            or not min(waste[0.8]) > 0:
+        raise SystemExit(f"paper_demo: wasted cycles by charge cv {waste}: "
+                         f"not 0 at cv 0 and above 0 at cv 0.8")
+    launches = re.search(r"plan-mode launches=(\d+)", lines[at[4]])
+    if launches is None or int(launches.group(1)) != 1:
+        raise SystemExit(f"paper_demo: the design space took "
+                         f"{lines[at[4]]!r}, not one plan-mode launch")
+    peak = [re.search(r"peak lane buffer: ([\d.]+) MB", ln) for ln in lines]
+    peak = [m.group(1) for m in peak if m]
+    walls = [ln for ln in lines if ln.startswith("section walls: ")]
+    counts = [ln for ln in lines if ln.startswith("kernel launches: ")]
+    if len(peak) != 1 or len(walls) != 1 or len(counts) != 1:
+        raise SystemExit("paper_demo: no peak lane buffer, section walls or "
+                         "kernel launches line")
+    wall_s = {k: float(v.rstrip("s")) for k, v in (
+        kv.split("=") for kv in walls[0][len("section walls: "):]
+        .split(", "))}
+    launched = {k: int(v) for k, v in (
+        kv.split("=") for kv in counts[0][len("kernel launches: "):]
+        .split(", "))}
+    return {"headers_found": len(at), "finish": finish,
+            "waste_by_cv": {str(k): v for k, v in waste.items()},
+            "design_plan_mode_launches": 1,
+            "peak_lane_buffer_mb": peak[0], "section_walls_s": wall_s,
+            "launches": launched,
+            "query": [ln.strip() for ln in lines[at[6]:at[6] + 5]]}
+
+
 #: Phase 5e: GENESIS end to end -- the JAX benchmark's fig4_5 MNIST call
 #: (``benchmarks/paper_figs.py``: ``make_task("mnist", n_train=768,
 #: n_test=256, noise=0.85)``, 2 epochs, 10 configurations) at MNIST's
@@ -4645,17 +5198,20 @@ def compressed_mnist(gen, net):
     return gen.apply_config(net, tuple(choices))
 
 
-def genesis(torch, np, emit, fleetsim, cr, wrapper) -> dict:
+def genesis(torch, np, emit, fleetsim, cr, wrapper, defer=False) -> dict:
     """Phase 5e: GENESIS through the port on the card -- ``sweep`` (every
     candidate retrained, the grid priced by one ``fleet_sweep`` of a
     ``PlanSet``: the lane kernel in plan mode over all-nominal charges,
     then the statistics fold), ``pareto_frontier`` and ``select``, then
     the SVM-against-DNN pair (its DNN priced by ``estimate_energy``'s
-    one-lane replay: the closed-form scan).  The pricing is held bitwise
-    against the same sweep on the CPU and the card's first 8 training
-    steps against the CPU's; the closed-form scan is timed on the sweep's
-    PlanSet.  Returns the phase's line, with the launches counted from
-    just before the sweep to just after."""
+    one-lane replay: the closed-form scan).  The card's first 8 training
+    steps are held against the CPU's; the closed-form scan is timed on
+    the sweep's PlanSet.  The pricing and that scan are held bitwise
+    against the same sweep and scan on the CPU, run by a
+    :class:`CpuWorker` beside the card: with ``defer`` the line returned
+    carries it as ``"cpu_reference"`` for :func:`genesis_cpu_check`, else
+    the check is made before returning.  Returns the phase's line, with
+    the launches counted from just before the sweep to just after."""
     import copy
     import dataclasses
 
@@ -4732,23 +5288,7 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper) -> dict:
     ev0, ev1 = call["events"]
     pricing_kernel_ms = ev0.elapsed_time(ev1)
 
-    # the pricing against the same sweep on the CPU (the plain event
-    # stream and the plain fold), bitwise
     kw, st = priced[0]
-    t0 = time.perf_counter()
-    st_cpu = fleetsim.fleet_sweep(**dict(kw, device="cpu"))
-    cpu_pricing_s = time.perf_counter() - t0
-    for what, a, b in (
-            ("completion", st.completion_rate, st_cpu.completion_rate),
-            ("mean live_cycles", st.mean("live_cycles"),
-             st_cpu.mean("live_cycles")),
-            ("mean total_s", st.mean("total_s"), st_cpu.mean("total_s"))):
-        if not np.array_equal(np.asarray(a), np.asarray(b)):
-            raise SystemExit(f"genesis: the card's {what} != the CPU's")
-    bad = stats_equal(np, st, st_cpu)
-    if bad:
-        raise SystemExit(f"genesis: the card's statistics != the CPU's on "
-                         f"{bad}")
     for g, r in enumerate(results):
         if r.completion > 0 and r.e_infer_j != gen.estimate_energy(
                 r.net, stats=st, group=g, device="cuda"):
@@ -4756,9 +5296,7 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper) -> dict:
                              f"e_infer_j of candidate {g}")
 
     emit({"phase": "genesis", "sweep_s": sweep_s,
-          "pricing_kernel_ms": pricing_kernel_ms,
-          "pricing_bitwise_equal_cpu": True, "cpu_pricing_s": cpu_pricing_s,
-          "seconds": dict(seconds)})
+          "pricing_kernel_ms": pricing_kernel_ms, "seconds": dict(seconds)})
 
     # the closed-form scan over the sweep's PlanSet and lanes (its charges
     # the nominal ones), 5 runs between CUDA events
@@ -4781,20 +5319,17 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper) -> dict:
         raise SystemExit("genesis: the closed-form scan gave non-finite "
                          "live cycles")
     table = a[0].packed
-    # the card's scan (CUDA graph replays) against the CPU's loop, bitwise
+    # the pricing (the plain event stream and the plain fold) and the scan
+    # (the CPU's loop against the card's CUDA graph replays) on the CPU
     rows_cpu = copy.copy(a[0])
     rows_cpu.packed, rows_cpu.hoisted = table.cpu(), None
-    t0 = time.perf_counter()
-    scan_cpu = fleetsim._scan_replay(
-        rows_cpu, *(v.cpu() for v in scan_args[1:5]), scan_args[5],
-        *(v.cpu() for v in scan_args[6:]),
-        **dict(scan_kw, plan_idx=scan_kw["plan_idx"].cpu()))
-    cpu_scan_s = time.perf_counter() - t0
-    ok, _err, bad = compare(torch, {k: v.cpu() for k, v in
-                                    scan_out.items()}, scan_cpu)
-    if not ok:
-        raise SystemExit(f"genesis: the closed-form scan on the card != the "
-                         f"CPU's on {bad}")
+    reference = CpuWorker(
+        "genesis_cpu_reference", dict(kw, device="cpu"), rows_cpu,
+        (*(v.cpu() for v in scan_args[1:5]), scan_args[5],
+         *(v.cpu() for v in scan_args[6:])),
+        dict(scan_kw, plan_idx=scan_kw["plan_idx"].cpu()))
+    pending = {"worker": reference, "stats": st,
+               "scan": {k: v.cpu() for k, v in scan_out.items()}}
 
     # the card's first 8 training steps against the CPU's, same weights
     # and batches: held in float64, reported in float32
@@ -4880,12 +5415,8 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper) -> dict:
             "lane_kernel_launches": lane_launches,
             "lane_kernel_launches_by_mode": by_mode,
             "stats_fold_launches": fold_launches,
-            "pricing_bitwise_equal_cpu": True,
-            "cpu_pricing_s": cpu_pricing_s,
             "closed_form_scan_ms": scan_ms, "closed_form_scan_runs_ms": times,
             "closed_form_scan_rows": int(table.shape[1]),
-            "closed_form_scan_bitwise_equal_cpu": True,
-            "closed_form_scan_cpu_s": cpu_scan_s,
             "closed_form_scan_ms_per_row": scan_ms / table.shape[1],
             "frontier": [{"choices": [(c.kind, c.arg) for c in r.choices],
                           "accuracy": r.accuracy, "e_infer_j": r.e_infer_j,
@@ -4909,7 +5440,52 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper) -> dict:
                            "dnn_e_infer_j": e_dnn,
                            "estimate_energy_s": energy_s}}
     emit(line)
+    if defer:
+        return dict(line, cpu_reference=pending)
+    genesis_cpu_check(torch, np, emit, pending)
     return line
+
+
+def genesis_cpu_reference(d: Path, kw: dict, rows, scan_args: tuple,
+                          scan_kw: dict) -> dict:
+    """The CPU halves of ``genesis``'s pricing and closed-form checks (a
+    :class:`CpuWorker`): the pricing sweep's ``fleet_sweep`` call on the
+    CPU, and ``_scan_replay`` over its PlanSet's lanes."""
+    from repro_torch.core import fleetsim
+
+    t0 = time.perf_counter()
+    st = fleetsim.fleet_sweep(**kw)
+    pricing_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan = fleetsim._scan_replay(rows, *scan_args, **scan_kw)
+    return dict(stats=st, scan=scan, pricing_s=pricing_s,
+                scan_s=time.perf_counter() - t0)
+
+
+def genesis_cpu_check(torch, np, emit, pending: dict) -> None:
+    """``genesis``'s pricing and closed-form scan on the card against the
+    CPU's (``pending``: the worker and the card's results), bitwise."""
+    cpu, waited = pending["worker"].result()
+    st, st_cpu = pending["stats"], cpu["stats"]
+    for what, a, b in (
+            ("completion", st.completion_rate, st_cpu.completion_rate),
+            ("mean live_cycles", st.mean("live_cycles"),
+             st_cpu.mean("live_cycles")),
+            ("mean total_s", st.mean("total_s"), st_cpu.mean("total_s"))):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise SystemExit(f"genesis: the card's {what} != the CPU's")
+    bad = stats_equal(np, st, st_cpu)
+    if bad:
+        raise SystemExit(f"genesis: the card's statistics != the CPU's on "
+                         f"{bad}")
+    ok, _err, bad = compare(torch, pending["scan"], cpu["scan"])
+    if not ok:
+        raise SystemExit(f"genesis: the closed-form scan on the card != the "
+                         f"CPU's on {bad}")
+    emit({"phase": "genesis", "part": "cpu_reference",
+          "pricing_bitwise_equal_cpu": True, "cpu_pricing_s":
+          cpu["pricing_s"], "closed_form_scan_bitwise_equal_cpu": True,
+          "closed_form_scan_cpu_s": cpu["scan_s"], "waited_s": waited})
 
 
 def main() -> int:
@@ -4996,6 +5572,9 @@ def main() -> int:
         hopper[source] = {n: dict(regs[n], **sass.get(n, {})) for n in regs}
         emit({"phase": "build", "kernel": source, "hopper_kernels":
               hopper[source]})
+
+    # the CPU halves of paper_demo's checks, beside the card from here on
+    paper_reference = start_paper_reference()
 
     wrapper = cr.charge_replay
     rec = Recorder(torch, wrapper)
@@ -5299,7 +5878,8 @@ def main() -> int:
     # ---- 5d. the overlapped pipeline under the JAX package's protocol
     overlap(torch, np, emit, fleetsim, classes)
     # ---- 5e. GENESIS end to end: the sweep's pricing folds on the card
-    genesis_line = genesis(torch, np, emit, fleetsim, cr, wrapper)
+    genesis_line = genesis(torch, np, emit, fleetsim, cr, wrapper,
+                           defer=True)
     fold_entry["launches"] += genesis_line["stats_fold_launches"]
     # ---- 5f. the legacy _while oracle against the lane kernel
     t0 = time.perf_counter()
@@ -5314,6 +5894,17 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     fold_entry["launches"] += mesh_launches["stats_fold"]
     fold_entry["mesh_launches"] = mesh_launches["stats_fold"]
+    # ---- 5h. the paper's end-to-end demonstration (its own process), the
+    # Fig. 9 matrix and the design space on the card against the CPU
+    paper = paper_demo(torch, np, emit, fleetsim, smi_line,
+                       reference=paper_reference)
+    # GENESIS's pricing and closed-form scan against the CPU's (its worker
+    # ran beside the phases since)
+    genesis_cpu_check(torch, np, emit, genesis_line["cpu_reference"])
+    paper_lane = {k.split("/")[1]: v for k, v in paper["launches"].items()
+                  if k.startswith("charge_replay/")}
+    fold_entry["launches"] += paper["launches"]["stats_fold"]
+    fold_entry["paper_demo_launches"] = paper["launches"]["stats_fold"]
 
     # ---- 6, 7. the compute kernels: against their plain versions, then at
     # full width with their launches counted
@@ -5368,8 +5959,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/charge_replay.cu",
         "replaces": "src/repro/kernels/charge_replay.py:907",
         "replaces_function": "pallas_replay",
-        "launches": main_launches + mesh_launches["charge_replay"],
+        "launches": main_launches + mesh_launches["charge_replay"]
+        + sum(paper_lane.values()),
         "mesh_launches": mesh_launches["charge_replay"],
+        "paper_demo_launches_by_mode": paper_lane,
         "max_abs_err": max_err,
         "max_abs_diff_vs_plain": max_err,
         "ms": headline["ms"], "previous_ms": headline["previous_ms"],
@@ -5395,4 +5988,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_workers()

@@ -1,8 +1,12 @@
-"""The port's three LM examples (``examples/quickstart_torch.py``,
-``serve_preemptible_torch.py``, ``train_llm_torch.py``, the twins of the
-JAX package's) run to their end on the CPU in a subprocess with
-``--device cpu``, each printing what its JAX twin prints."""
+"""The port's examples (``examples/quickstart_torch.py``,
+``serve_preemptible_torch.py``, ``train_llm_torch.py`` and
+``intermittent_mnist_torch.py``, the twins of the JAX package's) run to
+their end on the CPU in a subprocess with ``--device cpu``, each printing
+what its JAX twin prints; the paper's demonstration at ``--scale 0.01
+--smoke`` (MNIST's layers at a few channels: the published widths take
+the CPU's plain replay many minutes)."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -40,9 +44,36 @@ def test_train_llm_runs(tmp_path):
     assert "trained 3 steps" in out
 
 
+def test_intermittent_mnist_runs():
+    out = run_example("intermittent_mnist_torch.py", "--scale", "0.01",
+                      "--smoke")
+    lines = out.splitlines()
+    at = []
+    for header in ("GENESIS: ", "impl          continuous",
+                   "10-device fleet on the 1 mF capacitor",
+                   "uplink co-simulation: 10 sonic devices",
+                   "design-space sweep: 15 candidates x 1 devices",
+                   "adaptive-commit risk on a ",
+                   "10000-device fleet-level query"):
+        hits = [i for i, ln in enumerate(lines) if header in ln]
+        assert hits, header
+        at.append(hits[0])
+    assert at == sorted(at)
+    assert "peak lane buffer: " in out
+    assert lines[-2].startswith("section walls: genesis=")
+    assert lines[-1].startswith("kernel launches: charge_replay/shared=0")
+
+
 def test_examples_default_to_the_card():
     for name in ("quickstart_torch.py", "serve_preemptible_torch.py",
-                 "train_llm_torch.py"):
+                 "train_llm_torch.py", "intermittent_mnist_torch.py"):
         text = (ROOT / "examples" / name).read_text()
         assert 'ap.add_argument("--device", default="cuda")' in text
         assert "import jax" not in text and "from repro." not in text
+        tops = set()
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.Import):
+                tops |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                tops.add((node.module or "").split(".")[0])
+        assert not tops & {"jax", "jaxlib", "repro", "benchmarks"}, name

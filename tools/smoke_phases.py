@@ -6,7 +6,10 @@ PHASE is one of ``overlap`` (the JAX package's overlap protocol through the
 port), ``streamed_stats`` (the streamed sweep of ``mnist_net()``),
 ``genesis`` (GENESIS end to end), ``while_oracle`` (the legacy
 ``backend="_while"`` oracle against the lane kernel), ``mesh``
-(``mesh=`` sweeps against unmeshed ones), ``serving`` (qwen3-0.6b's
+(``mesh=`` sweeps against unmeshed ones), ``paper_demo``
+(``examples/intermittent_mnist_torch.py`` on the card at ``--scale 1.0``,
+the JAX example's sizes, where ``chip_smoke.py`` runs it at a tenth; its
+Fig. 9 matrix and design space against the CPU's), ``serving (qwen3-0.6b's
 prefill, decode and engine, and mamba2-370m's forward, decode and engine),
 ``moe`` (qwen3-moe-30b-a3b and llama4-scout-17b-a16e at full width, depth
 cut), ``vlm`` (internvl2-26b, depth cut), ``train`` (qwen3-0.6b and
@@ -47,8 +50,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("overlap", "streamed_stats", "genesis", "while_oracle", "mesh",
-          "serving", "moe", "vlm", "train", "hybrid", "encdec", "lm_mesh",
-          "host_alone", "unpinned")
+          "paper_demo", "serving", "moe", "vlm", "train", "hybrid", "encdec",
+          "lm_mesh", "host_alone", "unpinned")
 #: The LM phases, each a function of chip_smoke.py taking (torch, np,
 #: emit, smi).
 LM_PHASES = {"serving": "serving", "moe": "moe_phase", "vlm": "vlm_phase",
@@ -156,6 +159,9 @@ def main() -> int:
         elif phase == "while_oracle":
             emit({"phase": "while_oracle", **cs.while_oracle(
                 torch, np, emit, fleetsim, wrapper, classes)})
+        elif phase == "paper_demo":
+            emit({"phase": "paper_demo", "launches": cs.paper_demo(
+                torch, np, emit, fleetsim, smi, scale=1.0)["launches"]})
         elif phase in LM_PHASES:
             _build.build("flash_attention", "ssd_intra")
             getattr(cs, LM_PHASES[phase])(torch, np, emit, smi)
@@ -215,4 +221,8 @@ def unpinned(torch, np, cs, fleetsim, failures, plan) -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        if "chip_smoke" in sys.modules:
+            sys.modules["chip_smoke"].stop_workers()
