@@ -62,7 +62,8 @@ prints one JSON line per phase; any failure exits non-zero.
    equal, and prefetch 1 at least ``OVERLAP_FLOOR`` = 0.95 times as fast)
    and 1,048,576 (prefetch 1), counts zeroed before and read after each
    (one fold and one lane-kernel launch a chunk), host seconds by thread
-   and function (wall and CPU, ``HostTimer``) and the peak device memory
+   and function (wall and CPU, from the program's spans: ``host_report``)
+   and the peak device memory
    over its baseline, which must agree within 10 % between the two sizes;
    the fold kernel bitwise
    against its plain version (on the host) on one chunk's outputs, timed
@@ -4213,77 +4214,67 @@ def design_sweep(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
     return line
 
 
-class HostTimer:
-    """Host seconds by function and by thread while the streamed pipeline
-    runs: each named module function is wrapped for the ``with`` block,
-    and every call adds its wall seconds (``perf_counter``) and the CPU
-    seconds of its thread (``thread_time``) under its thread's role:
-    ``"producer"`` (the ``fleetsim-prefetch`` thread) or ``"caller"``.  A
-    call's wall time well above its CPU time was spent waiting for a core
-    or for the interpreter lock.  The totals count only outermost timed
-    calls, so nested ones (``_dispatch`` around ``_scan_replay``) are not
-    counted twice."""
+#: The overlapped pipeline's waits: spans that time no host work.
+PIPELINE_WAITS = ("entry/queue_wait", "entry/thread_join",
+                  "pipeline/slot_wait", "pipeline/setup_wait")
 
-    FAILURES = ("initial_charge_fraction_stream", "harvest_jitter_stream",
-                "reboot_recharge_times_stream",
-                "charge_capacity_jitter_stream", "charge_trace_cumulative",
-                "recharge_trace_cumulative", "pad_charge_trace_columns",
-                "charge_trace_nominal_from")
-    FLEETSIM = ("_prepare", "_bucket_rows", "_upload", "_chunk_tensors",
-                "_device_rows", "_stats_inputs", "_dispatch", "_scan_replay",
-                "reduce_lane_outputs", "merge_parts", "parts_numpy")
 
-    def __init__(self, fleetsim, failures):
-        self.local = threading.local()
-        self.lock = threading.Lock()
-        self.names = [(failures, n) for n in self.FAILURES] + \
-            [(fleetsim, n) for n in self.FLEETSIM]
-        self.saved = []
-        self.reset()
+def host_report(snap: dict) -> dict:
+    """Host seconds by thread and function from a snapshot of the
+    program's spans (``repro_torch.runtime.spans``): for the caller and
+    the pipeline's producer, the wall and CPU seconds of the host work in
+    spans (their self times summed, the pipeline's waits left out), and
+    each span's whole wall and CPU seconds and calls by its name.  A
+    span's wall time well above its CPU time was spent waiting for a core,
+    for the interpreter lock or for the card."""
+    out = {}
+    for role in ("caller", "producer"):
+        work = [(k, v[role]) for k, v in snap.items() if role in v]
+        out[role] = {
+            "s": sum(h["self_s"] for k, h in work
+                     if k not in PIPELINE_WAITS),
+            "cpu_s": sum(h["self_cpu_s"] for k, h in work
+                         if k not in PIPELINE_WAITS),
+            "by_function": {snap[k]["name"]: {"s": h["wall_s"],
+                                              "cpu_s": h["cpu_s"],
+                                              "calls": h["calls"]}
+                            for k, h in work}}
+    return out
 
-    def reset(self) -> None:
-        self.by = {"producer": {}, "caller": {}}
-        self.total = {"producer": [0.0, 0.0], "caller": [0.0, 0.0]}
 
-    def wrap(self, fn, name):
-        def run(*a, **k):
-            depth = getattr(self.local, "depth", 0)
-            self.local.depth = depth + 1
-            t, c = time.perf_counter(), time.thread_time()
-            try:
-                return fn(*a, **k)
-            finally:
-                dt, dc = time.perf_counter() - t, time.thread_time() - c
-                self.local.depth = depth
-                role = "producer" if threading.current_thread().name == \
-                    "fleetsim-prefetch" else "caller"
-                with self.lock:
-                    w = self.by[role].setdefault(name, [0.0, 0.0, 0])
-                    w[0] += dt
-                    w[1] += dc
-                    w[2] += 1
-                    if depth == 0:
-                        self.total[role][0] += dt
-                        self.total[role][1] += dc
-        return run
-
-    def __enter__(self):
-        self.saved = [(mod, n, getattr(mod, n)) for mod, n in self.names]
-        for mod, n, fn in self.saved:
-            setattr(mod, n, self.wrap(fn, n))
-        return self
-
-    def __exit__(self, *exc):
-        for mod, n, fn in self.saved:
-            setattr(mod, n, fn)
-
-    def report(self) -> dict:
-        return {role: {"s": self.total[role][0],
-                       "cpu_s": self.total[role][1],
-                       "by_function": {n: {"s": w[0], "cpu_s": w[1],
-                                           "calls": w[2]}
-                                       for n, w in self.by[role].items()}}
-                for role in ("caller", "producer")}
+def span_report(snap: dict, calls: int, call_s: float) -> dict:
+    """Readings a call of a snapshot of the program's spans taken over
+    ``calls`` calls of ``call_s`` seconds in all (host clock): each
+    layer's own host ms (self times, both threads, the pipeline's waits
+    left out), the pipeline's waits (wall ms), the card's ms in each
+    ``host_only`` span (its idle waiting on that step) and their share of
+    the calls' time (``host_gap_share``, %; ``None`` where no card timed
+    them), and the closed form's replay loop (its blocks' card ms and
+    their stall)."""
+    per = 1e3 / calls
+    layers, waits, gaps = {}, {}, {}
+    for k, v in sorted(snap.items()):
+        for role in ("caller", "producer"):
+            if role not in v:
+                continue
+            if k in PIPELINE_WAITS:
+                waits[k] = waits.get(k, 0.0) + v[role]["wall_s"] * per
+            else:
+                layers[v["layer"]] = layers.get(v["layer"], 0.0) \
+                    + v[role]["self_s"] * per
+        if v["host_only"] and "device_s" in v:
+            gaps[k] = v["device_s"] * per
+    out = {"self_ms_per_call": layers, "wait_ms_per_call": waits,
+           "host_gap_ms_per_call": gaps,
+           "host_gap_share": 100.0 * sum(gaps.values()) / (call_s * per)
+           if gaps else None}
+    loop = snap.get("closed_form/replay_loop", {})
+    if "blocks" in loop:
+        out["replay_loop"] = {"blocks": loop["blocks"],
+                              "block_rows": loop["block_rows"],
+                              "device_ms_per_call": loop["block_s"] * per,
+                              "stall_ms_per_call": loop["stall_s"] * per}
+    return out
 
 
 def host_threads(torch, np) -> dict:
@@ -4341,11 +4332,14 @@ def device_net(np, classes):
     return net, x
 
 
-def timed_sweep(torch, fleetsim, timer, **kw) -> tuple:
+def timed_sweep(torch, fleetsim, **kw) -> tuple:
     """One streamed ``fleet_sweep`` on the card: its statistics, and its
     wall seconds, peak device memory over the baseline and host seconds
-    by thread and function."""
-    timer.reset()
+    by thread and function (the program's spans, which the caller turns
+    on)."""
+    from repro_torch.runtime import spans
+
+    spans.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -4356,7 +4350,7 @@ def timed_sweep(torch, fleetsim, timer, **kw) -> tuple:
     return st, {"wall_s": wall, "sweep_wall_s": st.wall_s,
                 "peak_over_base_bytes": torch.cuda.max_memory_allocated()
                 - base, "peak_lane_bytes": st.peak_lane_bytes,
-                "host": timer.report()}
+                "host": host_report(spans.snapshot())}
 
 
 def overlap(torch, np, emit, fleetsim, classes) -> dict:
@@ -4366,20 +4360,22 @@ def overlap(torch, np, emit, fleetsim, classes) -> dict:
     single-chunk footprint."""
     from repro_torch.core.fleetstats import default_stat_edges, \
         partial_nbytes
-    from repro_torch.runtime import failures
+    from repro_torch.runtime import failures, spans
 
     net, x = device_net(np, classes)
     kw = dict(net=net, x=x, strategy="sonic", power="1mF",
               n_devices=OVERLAP_LANES, seed=7, reduce="stats",
               lane_chunk=OVERLAP_CHUNK, trace_reboots=OVERLAP_TRACE_REBOOTS,
               device="cuda")
-    timer = HostTimer(fleetsim, failures)
     runs = {0: [], 1: []}
-    with timer:
-        timed_sweep(torch, fleetsim, timer, prefetch=0, **kw)   # warm-up
+    spans.enable(events=False)
+    try:
+        timed_sweep(torch, fleetsim, prefetch=0, **kw)          # warm-up
         for prefetch in (0, 0, 1, 1):
-            runs[prefetch].append(timed_sweep(torch, fleetsim, timer,
+            runs[prefetch].append(timed_sweep(torch, fleetsim,
                                               prefetch=prefetch, **kw))
+    finally:
+        spans.disable()
     seq = min(runs[0], key=lambda r: r[0].wall_s)
     ovl = min(runs[1], key=lambda r: r[0].wall_s)
     bad = stats_equal(np, seq[0], ovl[0])
@@ -4443,13 +4439,12 @@ def streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
     statistics; returns the fold's entry of the kernels line."""
     from repro_torch.core.fleetstats import stats_from_outputs
     from repro_torch.kernels import stats_fold as sf
-    from repro_torch.runtime import failures
+    from repro_torch.runtime import spans
 
     kw = dict(plan=plan_tails, seed=42, charge_cv=0.25, charge_reboots=64,
               trace_reboots=64, policy="adaptive", theta=0.5, batch_rows=4,
               belief_alpha=0.2, reduce="stats", lane_chunk=STREAM_CHUNK,
               device="cuda")
-    timer = HostTimer(fleetsim, failures)
     cr.charge_replay = wrapper            # no recorder in the timed runs
     fold_launches = replay_launches = 0
 
@@ -4457,7 +4452,7 @@ def streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
         nonlocal fold_launches, replay_launches
         sf.stats_fold.launches = 0        # just before the streamed run
         zero_counts(wrapper)
-        st, m = timed_sweep(torch, fleetsim, timer, n_devices=lanes,
+        st, m = timed_sweep(torch, fleetsim, n_devices=lanes,
                             prefetch=prefetch, **kw)
         chunks = -(-lanes // STREAM_CHUNK)
         launches = (sf.stats_fold.launches, wrapper.launches)  # after
@@ -4481,12 +4476,15 @@ def streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
     # one warm-up a mode, then the modes in turns, the minimum of 2 a mode
     small = STREAM_LANES[0]
     runs = {0: [], 1: []}
-    with timer:
+    spans.enable(events=False)
+    try:
         run(small, 0)
         run(small, 1)
         for prefetch in (0, 1, 0, 1):
             runs[prefetch].append(run(small, prefetch))
         big = run(STREAM_LANES[1], 1)
+    finally:
+        spans.disable()
     seq = min(runs[0], key=lambda r: r[1]["wall_s"])
     ovl = min(runs[1], key=lambda r: r[1]["wall_s"])
     for st, row in (seq, ovl, big):

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..runtime import spans
 from .energy import (CLOCK_HZ, Device, JOULES_PER_CYCLE, LEA_COSTS,
                      OP_CLASSES, SOFTWARE_COSTS, class_cycle_vector,
                      make_power_system, rf_recharge_seconds)
@@ -275,6 +276,7 @@ def _merge(into: dict, counts: dict, times: float = 1.0) -> None:
         into[op] = into.get(op, 0.0) + k * times
 
 
+@spans.traced("plan_build", "reference_run")
 def _reference_run(net: SimNet, x, strategy: str):
     """Continuous-power scalar execution: bit-exact output + the scalar
     simulator's atomic-region bound (which, for TAILS, is sized with the
@@ -311,6 +313,7 @@ def _emit_parametric_tails_layer(buf: _RowBuffer, layer, in_shape,
         buf.tails_work(m, 1, "store", {}, _CURSOR_COMMIT, nominal_k)
 
 
+@spans.traced("plan_build")
 def build_plan(net: SimNet, x: np.ndarray, strategy: str, power,
                ref: tuple | None = None,
                parametric: bool = False) -> FleetPlan:
@@ -362,60 +365,65 @@ def build_plan(net: SimNet, x: np.ndarray, strategy: str, power,
     calibrated: dict[int, int] = {}      # taps -> burn count (tails)
     shapes = net.shapes()
 
-    for pc, layer in enumerate(net.layers):
-        if strategy == "tails":
-            # Pre-seed the capacity-calibrated tile (pure schedule) and emit
-            # the charge-burning discovery attempts -- as BURN rows baked for
-            # this capacitor, or as one CALIB row whose burn count the scan
-            # derives per lane -- in the first-use order the scalar executor
-            # performs them.
-            t = layer.w.shape[3] if isinstance(layer, Conv2D) else \
-                1 if isinstance(layer, DenseFC) else None
-            if t is not None and t not in calibrated:
-                tile, burns = tails_tile_schedule(costs, capacity, t)
-                calibrated[t] = burns
+    with spans.span("plan_build", "rows"):
+        for pc, layer in enumerate(net.layers):
+            if strategy == "tails":
+                # Pre-seed the capacity-calibrated tile (pure schedule) and
+                # emit the charge-burning discovery attempts -- as BURN rows
+                # baked for this capacitor, or as one CALIB row whose burn
+                # count the scan derives per lane -- in the first-use order
+                # the scalar executor performs them.
+                t = layer.w.shape[3] if isinstance(layer, Conv2D) else \
+                    1 if isinstance(layer, DenseFC) else None
+                if t is not None and t not in calibrated:
+                    tile, burns = tails_tile_schedule(costs, capacity, t)
+                    calibrated[t] = burns
+                    if parametric:
+                        buf.calib(t)
+                    else:
+                        nv.alloc(f"tails/tile/{t}", (), np.int64,
+                                 init=tile)
+                        if not power_sys.continuous:
+                            for _ in range(burns):
+                                buf.burn()
+            if parametric and isinstance(layer, (Conv2D, DenseFC)):
+                t = layer.w.shape[3] if isinstance(layer, Conv2D) else 1
+                _emit_parametric_tails_layer(
+                    buf, layer, shapes[pc],
+                    nominal_k=tails_tile_index(costs, capacity, t))
+            else:
                 if parametric:
-                    buf.calib(t)
+                    segs = sonic_segments(nv, layer, names[pc],
+                                          names[pc + 1], f"L{pc}")
                 else:
-                    nv.alloc(f"tails/tile/{t}", (), np.int64, init=tile)
-                    if not power_sys.continuous:
-                        for _ in range(burns):
-                            buf.burn()
-        if parametric and isinstance(layer, (Conv2D, DenseFC)):
-            t = layer.w.shape[3] if isinstance(layer, Conv2D) else 1
-            _emit_parametric_tails_layer(
-                buf, layer, shapes[pc],
-                nominal_k=tails_tile_index(costs, capacity, t))
-        else:
-            if parametric:
-                segs = sonic_segments(nv, layer, names[pc], names[pc + 1],
-                                      f"L{pc}")
-            else:
-                segs = build_layer_segments(nv, probe, layer, names[pc],
-                                            names[pc + 1], f"L{pc}", strategy)
-            if strategy in ("sonic", "tails"):
-                for s in segs:
-                    buf.work(s.n, s.iter_costs, s.seg_costs, _CURSOR_COMMIT)
-            else:
-                # Tile-k: enumerate the actual tasks (a task may span segment
-                # boundaries), each an atomic redo-log + commit + transition.
-                # The span-ordered dicts are the row's charge-segment list
-                # (the scalar runner charges seg entry, then iters, per
-                # span, then the commit walk).
-                for u, hi, spans in iter_task_spans(segs, tile_k):
-                    counts = {}
-                    seq = []
-                    for seg, lo_l, hi_l in spans:
-                        _merge(counts, seg.seg_costs)
-                        seq.append((seg.seg_costs, 1.0))
-                        _merge(counts, seg.iter_costs, hi_l - lo_l)
-                        seq.append((seg.iter_costs, float(hi_l - lo_l)))
-                    tail = {"commit_word": hi - u, "task_transition": 1}
-                    _merge(counts, tail)
-                    seq.append((tail, 1.0))
-                    buf.work(0, {}, counts, entry_seq=seq)
-        # Layer-boundary commit: one atomic NV word (the layer cursor).
-        buf.work(0, {}, {"fram_write": 1})
+                    segs = build_layer_segments(nv, probe, layer, names[pc],
+                                                names[pc + 1], f"L{pc}",
+                                                strategy)
+                if strategy in ("sonic", "tails"):
+                    for s in segs:
+                        buf.work(s.n, s.iter_costs, s.seg_costs,
+                                 _CURSOR_COMMIT)
+                else:
+                    # Tile-k: enumerate the actual tasks (a task may span
+                    # segment boundaries), each an atomic redo-log + commit
+                    # + transition.  The span-ordered dicts are the row's
+                    # charge-segment list (the scalar runner charges seg
+                    # entry, then iters, per span, then the commit walk).
+                    for u, hi, task in iter_task_spans(segs, tile_k):
+                        counts = {}
+                        seq = []
+                        for seg, lo_l, hi_l in task:
+                            _merge(counts, seg.seg_costs)
+                            seq.append((seg.seg_costs, 1.0))
+                            _merge(counts, seg.iter_costs, hi_l - lo_l)
+                            seq.append((seg.iter_costs, float(hi_l - lo_l)))
+                        tail = {"commit_word": hi - u,
+                                "task_transition": 1}
+                        _merge(counts, tail)
+                        seq.append((tail, 1.0))
+                        buf.work(0, {}, counts, entry_seq=seq)
+            # Layer-boundary commit: one atomic NV word (the layer cursor).
+            buf.work(0, {}, {"fram_write": 1})
 
     return FleetPlan(net.name, strategy, power_sys.name, capacity,
                      power_sys.recharge_s, max_atomic=max_atomic,
@@ -514,6 +522,7 @@ def _bucket_target(s: int, floor: int = 64) -> int:
     return max(floor, 1 << max(s - 1, 0).bit_length())
 
 
+@spans.traced("entry", host_only=True)
 def _bucket_rows(rows: dict, lane_axis) -> dict:
     """Pad the plan's row axis to a power-of-two bucket (>= 64) and the
     charge-segment axis to a power-of-two bucket (>= 4), the JAX
@@ -603,6 +612,7 @@ class PlanSet:
         return "tile_sel_cost" in self.rows
 
     @classmethod
+    @spans.traced("plan_build", "from_plans")
     def from_plans(cls, plans, labels=None) -> "PlanSet":
         plans = tuple(plans)
         if not plans:
@@ -799,6 +809,7 @@ def _scan_step(cap, trace_cum, tail_s, theta, conf, radio,
                      sent, deferred)
 
 
+@spans.traced("closed_form")
 def _scan_replay(rows, cap, rem0, trace_cum, tail_s, theta, conf,
                  radio, *, adaptive: bool, parametric: bool,
                  shared_rows, has_send: bool, plan_idx=None) -> dict:
@@ -858,35 +869,61 @@ def _while_replay(rows, cap, rem0, trace_cum, tail_s, charge_cum, theta,
 _while_replay.charge_steps = 0
 
 
+#: Rows of a block of the closed form's graph replays while spans are on
+#: (the card's seconds are read a block, never a row).
+REPLAY_BLOCK = 256
+
+
 def _replay_rows(row_step, n_rows: int, dev) -> None:
     """Run ``row_step`` (which advances its state in place) ``n_rows``
     times: on the CPU as a loop; on the card the first time eagerly, then
     as replays of one CUDA graph captured from it on a side stream (its
     allocations in the graph's own pool; only this thread's CUDA calls
     are barred while it captures, so a pipeline's producer may go on
-    copying)."""
+    copying).  ``_replay_rows.rows`` counts the rows run and
+    ``_replay_rows.captures`` the graphs captured.  Spans:
+    ``closed_form/eager_row``, ``capture`` (host only) and
+    ``replay_loop``; while spans are on, the loop replays in blocks of
+    :data:`REPLAY_BLOCK` rows, each closed by ``spans.block``."""
     if n_rows < 1:
         return
-    row_step()
+    _replay_rows.rows += n_rows
+    with spans.span("closed_form", "eager_row"):
+        row_step()
     if dev.type != "cuda":
-        for _ in range(n_rows - 1):
-            row_step()
+        with spans.span("closed_form", "replay_loop"):
+            for _ in range(n_rows - 1):
+                row_step()
         return
     if n_rows == 1:
         return
-    main = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(main)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(side):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            row_step()
-        finally:
-            graph.capture_end()
-    main.wait_stream(side)
-    for _ in range(n_rows - 1):
-        graph.replay()
+    with spans.span("closed_form", "capture", host_only=True):
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                row_step()
+            finally:
+                graph.capture_end()
+        main.wait_stream(side)
+    _replay_rows.captures += 1
+    if not spans.enabled():
+        for _ in range(n_rows - 1):
+            graph.replay()
+        return
+    with spans.span("closed_form", "replay_loop"):
+        for lo in range(1, n_rows, REPLAY_BLOCK):
+            rows = min(REPLAY_BLOCK, n_rows - lo)
+            for _ in range(rows):
+                graph.replay()
+            spans.block(rows)
+
+
+_replay_rows.rows = 0
+_replay_rows.captures = 0
 
 
 def _validate_replay_knobs(policy: str, batch_rows: int,
@@ -951,6 +988,7 @@ class _Prepared:
     chunk: int
 
 
+@spans.traced("entry", host_only=True)
 def _prepare(rows: dict, caps, rem0, shared_rows, trace_cum=None,
              tail_s=None, policy: str = "fixed", batch_rows: int = 1,
              charge_cum=None, n_rows=None, chunk=None, conf=None,
@@ -1057,6 +1095,7 @@ def _tensor(a, dev, pinned: bool = False):
     return torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
 
 
+@spans.traced("entry")
 def _upload(prep: _Prepared, dev, pinned: bool = False) -> dict:
     """The per-lane inputs (and the radio vector) of ``prep`` as tensors on
     ``dev``."""
@@ -1066,6 +1105,7 @@ def _upload(prep: _Prepared, dev, pinned: bool = False) -> dict:
     return out
 
 
+@spans.traced("entry")
 def _device_rows(rows: dict, dev, shared_rows, stochastic: bool):
     """A row dict on ``dev``: packed once (:class:`PackedRows`) for the
     event stream, field by field for the closed-form scan."""
@@ -1076,6 +1116,7 @@ def _device_rows(rows: dict, dev, shared_rows, stochastic: bool):
     return PackedRows(t_rows, shared_rows) if stochastic else t_rows
 
 
+@spans.traced("entry")
 def _dispatch(prep: _Prepared, t: dict, rows, shared_rows, theta: float,
               batch_rows: int, belief_alpha: float, backend: str,
               reduce: str = "none", stats_in: tuple | None = None,
@@ -1125,6 +1166,7 @@ def _dispatch(prep: _Prepared, t: dict, rows, shared_rows, theta: float,
     return out
 
 
+@spans.traced("entry")
 def _stats_inputs(gid, valid, n_lanes: int, edges: dict, n_groups: int,
                   dev, pinned: bool = False, edges_dev: dict | None = None):
     """``(group_id, valid, edges, n_groups)`` of a stats fold as tensors on
@@ -1140,6 +1182,7 @@ def _stats_inputs(gid, valid, n_lanes: int, edges: dict, n_groups: int,
             edges_dev, n_groups)
 
 
+@spans.traced("entry", device_arg="device")
 def _run_replay(rows: dict, caps: np.ndarray, rem0: np.ndarray,
                 shared_rows, trace_cum: np.ndarray | None = None,
                 tail_s: np.ndarray | None = None, policy: str = "fixed",
@@ -1290,6 +1333,7 @@ def _lane_io_bytes(n_lanes: int, *arrays) -> int:
             + n_lanes * (8 * (9 + _N_CLASSES) + 1))
 
 
+@spans.traced("entry", device_arg="device")
 def _chunked_replay(plan_rows: dict, n_rows, n_lanes: int,
                     lane_chunk: int, make_inputs, group_id_of,
                     policy: str, theta: float, batch_rows: int,
@@ -1426,6 +1470,7 @@ def _chunked_replay(plan_rows: dict, n_rows, n_lanes: int,
                               device)
 
 
+@spans.traced("entry")
 def _overlapped_replay(plan_rows: dict, n_rows, starts: list, build,
                        chunk_bytes, shared_rows, policy: str, theta: float,
                        batch_rows: int, belief_alpha: float, backend: str,
@@ -1506,13 +1551,15 @@ def _overlapped_replay(plan_rows: dict, n_rows, starts: list, build,
                 if j >= depth:
                     # chunk j takes the slot of chunk j - depth: wait for
                     # that chunk's last launch to end on the card
-                    end = retired.get()
-                    if end is not None:
-                        end.synchronize()
+                    with spans.span("pipeline", "slot_wait"):
+                        end = retired.get()
+                        if end is not None:
+                            end.synchronize()
                 if fail.is_set():
                     return
                 c = build(starts[j])
-                setup.wait()                # chunk 1 is built beside chunk 0
+                with spans.span("pipeline", "setup_wait"):
+                    setup.wait()            # chunk 1 is built beside chunk 0
                 if fail.is_set():
                     return
                 q.put(prep(c))
@@ -1545,7 +1592,8 @@ def _overlapped_replay(plan_rows: dict, n_rows, starts: list, build,
         setup.set()
         item0 = prep(first)
         for i in range(len(starts)):
-            item = item0 if i == 0 else q.get()
+            with spans.span("entry", "queue_wait", host_only=True):
+                item = item0 if i == 0 else q.get()
             if isinstance(item, BaseException):
                 raise item
             c, p, t, ready = item
@@ -1575,7 +1623,8 @@ def _overlapped_replay(plan_rows: dict, n_rows, starts: list, build,
             retired.put(None)
         raise
     finally:
-        thread.join()
+        with spans.span("entry", "thread_join"):
+            thread.join()
     peak = (peak_chunk * min(depth, len(starts))
             + (partial_nbytes(edges, n_groups) if stats else 0))
     if stats:
@@ -1586,6 +1635,7 @@ def _overlapped_replay(plan_rows: dict, n_rows, starts: list, build,
             for k in outs[0]}, peak
 
 
+@spans.traced("entry")
 def _chunk_tensors(p: _Prepared, c: dict, n: int, dev, pinned: bool,
                    rows_dev, per_lane_rows: bool, shared_rows,
                    stochastic: bool, stats: bool, edges_dev, n_groups: int
@@ -1974,6 +2024,7 @@ def _design_result(ps: PlanSet, n_devices: int, out: dict, t0: float,
         msgs_deferred=out["msgs_deferred"].reshape(shape))
 
 
+@spans.traced("entry")
 def _design_sweep(ps: PlanSet, n_devices: int, seed: int,
                   recharge_cv: float, policy: str, theta: float,
                   batch_rows: int, belief_alpha: float,
@@ -2068,30 +2119,32 @@ def _design_sweep(ps: PlanSet, n_devices: int, seed: int,
             return res
         out, _peak = res
         return _design_result(ps, dev, out, t0, policy)
-    pidx = np.repeat(np.arange(n_plans, dtype=np.int32), dev)
-    caps = ps.capacity[pidx]
-    # per-plan legacy draws with per-plan seeds: the bitwise pin against
-    # each candidate's own fleet_sweep
-    frac = np.tile(initial_charge_fraction(dev, seed=seed), n_plans)
-    jm = np.tile(harvest_jitter(dev, seed=seed + 1, cv=recharge_cv),
-                 n_plans)
-    rem0 = np.where(np.isinf(caps), np.inf, caps * frac)
-    tail = ps.recharge_s[pidx] * jm
-    cum = None
-    if trace_reboots > 0:
-        jm_d = jm[:dev]
-        cum = recharge_trace_cumulative(np.concatenate(
-            [reboot_recharge_times(dev, trace_reboots,
-                                   float(ps.recharge_s[p]),
-                                   seed=seed + 2) * jm_d[:, None]
+    with spans.span("entry", "legacy_draws", host_only=True):
+        pidx = np.repeat(np.arange(n_plans, dtype=np.int32), dev)
+        caps = ps.capacity[pidx]
+        # per-plan legacy draws with per-plan seeds: the bitwise pin
+        # against each candidate's own fleet_sweep
+        frac = np.tile(initial_charge_fraction(dev, seed=seed), n_plans)
+        jm = np.tile(harvest_jitter(dev, seed=seed + 1, cv=recharge_cv),
+                     n_plans)
+        rem0 = np.where(np.isinf(caps), np.inf, caps * frac)
+        tail = ps.recharge_s[pidx] * jm
+        cum = None
+        if trace_reboots > 0:
+            jm_d = jm[:dev]
+            cum = recharge_trace_cumulative(np.concatenate(
+                [reboot_recharge_times(dev, trace_reboots,
+                                       float(ps.recharge_s[p]),
+                                       seed=seed + 2) * jm_d[:, None]
+                 for p in range(n_plans)]))
+        ccum = charge_trace_cumulative(np.concatenate(
+            [charge_capacity_jitter(dev, n_charges, float(ps.capacity[p]),
+                                    seed=seed + 3, cv=charge_cv,
+                                    bias_cv=charge_bias_cv)
              for p in range(n_plans)]))
-    ccum = charge_trace_cumulative(np.concatenate(
-        [charge_capacity_jitter(dev, n_charges, float(ps.capacity[p]),
-                                seed=seed + 3, cv=charge_cv,
-                                bias_cv=charge_bias_cv)
-         for p in range(n_plans)]))
-    if radio is not None and conf is None:
-        conf = np.tile(inference_confidence(dev, seed=seed + 4), n_plans)
+        if radio is not None and conf is None:
+            conf = np.tile(inference_confidence(dev, seed=seed + 4),
+                           n_plans)
     common.update(trace_cum=cum, tail_s=tail, charge_cum=ccum,
                   n_rows=ps.n_rows[pidx], chunk=event_chunk,
                   plan_idx=pidx, conf=conf, radio=radio)
@@ -2109,6 +2162,7 @@ def _design_sweep(ps: PlanSet, n_devices: int, seed: int,
     return _design_result(ps, dev, out, t0, policy)
 
 
+@spans.traced("entry", device_arg="device")
 def fleet_sweep(net: SimNet | None = None, x: np.ndarray | None = None,
                 strategy: str | None = None, power=None,
                 n_devices: int = 1000, seed: int = 0,

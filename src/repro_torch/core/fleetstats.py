@@ -36,6 +36,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..runtime import spans
 from .energy import CLOCK_HZ, JOULES_PER_CYCLE, OP_CLASSES
 
 #: Per-lane scalar channels the reduction tracks (sum/sumsq/min/max/hist).
@@ -118,6 +119,7 @@ def lane_channels(out: dict) -> dict:
     }
 
 
+@spans.traced("stats_fold")
 def reduce_lane_outputs(out: dict, group_id, valid, edges: dict,
                         n_groups: int) -> tuple:
     """Fold a replay chunk's per-lane outputs (tensors on one device) into
@@ -137,6 +139,7 @@ def reduce_lane_outputs(out: dict, group_id, valid, edges: dict,
     return stats_fold(out, group_id, valid, edges, n_groups)
 
 
+@spans.traced("entry")
 def merge_parts(a: tuple, b: tuple) -> tuple:
     """Associative merge of two ``(psums, pmins, pmaxs)`` partials: sums
     add, mins take the elementwise minimum, maxs the maximum.  A left fold
@@ -150,6 +153,7 @@ def merge_parts(a: tuple, b: tuple) -> tuple:
             {k: torch.maximum(v, pxb[k]) for k, v in pxa.items()})
 
 
+@spans.traced("device_wait")
 def parts_numpy(parts: tuple) -> tuple:
     """A partial's tensors as numpy arrays (a host sync when they lie on
     the card)."""

@@ -45,6 +45,7 @@ import torch
 from ..core.fleetsim import (KIND_BURN, KIND_CALIB, KIND_SEND, KIND_WORK,
                              _BURN_IDX, _CONTROL_IDX, _K_TILES, _N_CLASSES,
                              _RADIO_IDX)
+from ..runtime import spans
 from ..runtime.radio import (N_RADIO, R_CLASS, R_CLK, R_CONF_HI, R_CONF_LO,
                              R_CPB, R_DUTY, R_HDR, R_PERIOD, R_TOPK,
                              R_WAKEUP)
@@ -961,6 +962,7 @@ def _check_lane(name, t, n_lanes, dtype, device, ndim=1):
         raise ValueError(f"{name} must be contiguous")
 
 
+@spans.traced("lane_kernel")
 def charge_replay(rows, cap, rem0, trace_cum, tail_s, charge_cum,
                   nominal_from, s_real, theta, window, alpha, *,
                   adaptive: bool, parametric: bool, shared_rows,

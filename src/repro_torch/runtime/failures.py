@@ -31,6 +31,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .spans import traced
+
+#: The samplers' spans: host work that launches nothing on the card.
+_sampler = traced("samplers", host_only=True)
+
 
 @dataclass(frozen=True)
 class FleetSpec:
@@ -88,6 +93,7 @@ def _failure_times(spec: FleetSpec, horizon_s: float, seed: int):
 # antenna distance/orientation, and a device joins the fleet at an arbitrary
 # point of its charge cycle.
 
+@_sampler
 def harvest_jitter(n_devices: int, seed: int = 0,
                    cv: float = 0.25) -> np.ndarray:
     """Per-device recharge-time multipliers: lognormal with mean 1 and
@@ -98,6 +104,7 @@ def harvest_jitter(n_devices: int, seed: int = 0,
                          size=n_devices)
 
 
+@_sampler
 def initial_charge_fraction(n_devices: int, seed: int = 0) -> np.ndarray:
     """Buffer fill level at which each device wakes, uniform over the charge
     cycle (devices are not phase-aligned)."""
@@ -105,6 +112,7 @@ def initial_charge_fraction(n_devices: int, seed: int = 0) -> np.ndarray:
     return rng.uniform(0.05, 1.0, size=n_devices)
 
 
+@_sampler
 def reboot_recharge_times(n_devices: int, n_reboots: int,
                           mean_recharge_s: float, seed: int = 0) -> np.ndarray:
     """Exponential per-reboot recharge times, shape ``(n_devices,
@@ -115,6 +123,7 @@ def reboot_recharge_times(n_devices: int, n_reboots: int,
     return rng.exponential(mean_recharge_s, size=(n_devices, n_reboots))
 
 
+@_sampler
 def recharge_trace_cumulative(traces: np.ndarray) -> np.ndarray:
     """Prefix-sum a ``(devices, reboots)`` recharge-trace matrix into the
     ``(devices, reboots + 1)`` float64 table the vectorized replay indexes
@@ -133,6 +142,7 @@ def recharge_trace_cumulative(traces: np.ndarray) -> np.ndarray:
     return out
 
 
+@_sampler
 def charge_capacity_jitter(n_devices: int, n_charges: int, nominal_cycles,
                            seed: int = 0, cv: float = 0.25,
                            bias_cv: float = 0.0,
@@ -193,6 +203,7 @@ def charge_capacity_jitter(n_devices: int, n_charges: int, nominal_cycles,
     return np.maximum(np.rint(nominal * mult), 1.0)
 
 
+@_sampler
 def charge_trace_cumulative(traces: np.ndarray) -> np.ndarray:
     """Prefix-sum a ``(devices, charges)`` capacity trace into the
     ``(devices, charges + 1)`` table the stochastic replay indexes by each
@@ -208,6 +219,7 @@ def charge_trace_cumulative(traces: np.ndarray) -> np.ndarray:
     return recharge_trace_cumulative(traces)
 
 
+@_sampler
 def charge_trace_nominal_from(charge_cum, caps) -> np.ndarray:
     """First trace index from which *every* subsequent charge delivers the
     nominal capacity, per lane: ``(devices,)`` float64.
@@ -231,6 +243,7 @@ def charge_trace_nominal_from(charge_cum, caps) -> np.ndarray:
     return (deliv.shape[1] - run).astype(np.float64)
 
 
+@_sampler
 def pad_charge_trace_columns(charge_cum: np.ndarray, caps,
                              min_cols: int = 8) -> np.ndarray:
     """Pad a cumulative charge-capacity table's column axis to the next
@@ -304,6 +317,7 @@ def _stream_normals(n_lanes: int, per_lane: int, seed: int, stream: int,
     return np.sqrt(-2.0 * np.log1p(-u1)) * np.cos(2.0 * np.pi * u2)
 
 
+@_sampler
 def initial_charge_fraction_stream(n_devices: int, seed: int = 0,
                                    lane_lo: int = 0) -> np.ndarray:
     """Chunk-invariant :func:`initial_charge_fraction`: uniform [0.05, 1)
@@ -312,6 +326,7 @@ def initial_charge_fraction_stream(n_devices: int, seed: int = 0,
     return 0.05 + 0.95 * u[:, 0]
 
 
+@_sampler
 def harvest_jitter_stream(n_devices: int, seed: int = 0, cv: float = 0.25,
                           lane_lo: int = 0) -> np.ndarray:
     """Chunk-invariant :func:`harvest_jitter`: mean-1 lognormal recharge
@@ -321,6 +336,7 @@ def harvest_jitter_stream(n_devices: int, seed: int = 0, cv: float = 0.25,
     return np.exp(-sigma * sigma / 2 + sigma * z)
 
 
+@_sampler
 def reboot_recharge_times_stream(n_devices: int, n_reboots: int,
                                  mean_recharge_s, seed: int = 0,
                                  lane_lo: int = 0) -> np.ndarray:
@@ -342,6 +358,7 @@ def reboot_recharge_times_stream(n_devices: int, n_reboots: int,
     return -mean * np.log1p(-u)
 
 
+@_sampler
 def charge_capacity_jitter_stream(n_devices: int, n_charges: int,
                                   nominal_cycles, seed: int = 0,
                                   cv: float = 0.25, bias_cv: float = 0.0,
@@ -380,6 +397,7 @@ def charge_capacity_jitter_stream(n_devices: int, n_charges: int,
     return np.maximum(np.rint(nominal * mult), 1.0)
 
 
+@_sampler
 def inference_confidence(n_devices: int, seed: int = 0) -> np.ndarray:
     """Per-device classifier confidence for the uplink send decision,
     uniform [0, 1): the top-softmax score each device observes for the
@@ -391,6 +409,7 @@ def inference_confidence(n_devices: int, seed: int = 0) -> np.ndarray:
     return rng.random(n_devices)
 
 
+@_sampler
 def inference_confidence_stream(n_devices: int, seed: int = 0,
                                 lane_lo: int = 0) -> np.ndarray:
     """Chunk-invariant :func:`inference_confidence`: uniform [0, 1)

@@ -20,8 +20,7 @@ published: the encoder's non-causal attention over 1,500 keys) and
 ``lm_mesh`` (qwen3-0.6b trained unmeshed and on a (1, 1) mesh, bitwise;
 a dry-run record; the three LM examples) -- these seven build the
 attention and SSD kernels only -- or one of two
-diagnostics of the
-streamed pipeline's producer thread:
+diagnostics of the streamed pipeline's producer thread:
 
 * ``host_alone``: three 65,536-lane chunks' host work (the samplers and
   ``_prepare``) timed on the main thread, on a second thread while the
@@ -29,14 +28,23 @@ streamed pipeline's producer thread:
   runs Python (as the closed-form scan's caller does), wall and CPU
   seconds;
 * ``unpinned``: the 262,144-lane streamed sweep at prefetch=1 with its
-  uploads made through pinned memory and without, in turns.
+  uploads made through pinned memory and without, in turns;
+
+or ``spans``: the program's spans (``repro_torch.runtime.spans``) on
+MNIST's tails plans, over a design sweep and a two-chunk closed-form
+statistics query, each off and then on: the plan build's parts, each
+layer's host ms a call, the pipeline's waits, the card's idle by host
+step (``host_gap_share``), the replay loop's stall, and the closed form's
+counters ``_replay_rows.rows`` and ``.captures`` (``span_probe``).
 
 Each phase prints its JSON lines as ``chip_smoke.py`` does.  TREE (default:
 this checkout) is the root of a checkout whose ``src/repro_torch`` is
 imported, for example the parent commit unpacked with ``git archive`` into
 a directory that ``.gitignore`` lists; the phases' code is this
-checkout's.  Two trees compare only within one call on one card, in turns
-(parent, change, change, parent).  It needs one card and builds the lane
+checkout's (``overlap``, ``streamed_stats``, ``unpinned`` and ``spans``
+read the tree's ``repro_torch.runtime.spans``).  Two trees
+compare only within one call on one card, in turns (parent, change,
+change, parent).  It needs one card and builds the lane
 kernel and the statistics fold for the fleet phases.
 """
 
@@ -51,7 +59,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("overlap", "streamed_stats", "genesis", "while_oracle", "mesh",
           "paper_demo", "serving", "moe", "vlm", "train", "hybrid", "encdec",
-          "lm_mesh", "host_alone", "unpinned")
+          "lm_mesh", "host_alone", "unpinned", "spans")
 #: The LM phases, each a function of chip_smoke.py taking (torch, np,
 #: emit, smi).
 LM_PHASES = {"serving": "serving", "moe": "moe_phase", "vlm": "vlm_phase",
@@ -165,6 +173,8 @@ def main() -> int:
         elif phase in LM_PHASES:
             _build.build("flash_attention", "ssd_intra")
             getattr(cs, LM_PHASES[phase])(torch, np, emit, smi)
+        elif phase == "spans":
+            emit(span_probe(torch, np, cs, fleetsim, net, x))
         else:
             if plan is None:
                 plan = fleetsim.build_plan(net, x, "tails", "1mF")
@@ -183,40 +193,127 @@ def main() -> int:
                                    cs.STREAM_CHUNK)})
             else:
                 emit({"probe": "unpinned", **unpinned(torch, np, cs,
-                                                      fleetsim, failures,
-                                                      plan)})
+                                                      fleetsim, plan)})
         emit({"tool": "smoke_phases", "phase": phase,
               "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     return 0
 
 
-def unpinned(torch, np, cs, fleetsim, failures, plan) -> dict:
-    """The streamed sweep at prefetch=1, its uploads pinned or not."""
+#: The ``spans`` probe: devices of the design sweep (a candidate) and of
+#: the closed-form query, the query's chunk, timed calls a path, the seed.
+SPAN_DEVICES = (8192, 16384)
+SPAN_CHUNK = 8192
+SPAN_CALLS = 2
+SPAN_SEED = 3000000001
+
+
+def span_probe(torch, np, cs, fleetsim, net, x, device="cuda",
+               devices=SPAN_DEVICES, chunk=SPAN_CHUNK,
+               calls=SPAN_CALLS) -> dict:
+    """The program's spans over the two paths the benchmark's cells run:
+    a design sweep (tails at 100uF and 1mF in one ``PlanSet``, jittered
+    charges and recharge traces: the lane kernel in plan mode) and a
+    closed-form statistics query (tails at 1mF, nominal charges, in
+    chunks through the overlapped pipeline).  The plans are built with
+    spans on (the ``plan_build`` spans' seconds).  Each path runs once
+    with spans off, then ``calls`` times with spans on (CUDA events on a
+    card), each answer bitwise that of spans off; the closed form's
+    counters, zeroed just before, must count each chunk's rows and, on a
+    card, one graph a chunk.  Gives ``chip_smoke.span_report`` for each
+    path."""
+    from repro_torch.runtime import spans
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    spans.reset()
+    spans.enable()
+    try:
+        t0 = time.perf_counter()
+        query = fleetsim.build_plan(net, x, "tails", "1mF")
+        design = fleetsim.PlanSet.from_plans([fleetsim.build_plan(
+            net, x, "tails", "100uF",
+            ref=(query.ref_output, query.max_atomic)), query])
+        build_s = time.perf_counter() - t0
+    finally:
+        spans.disable()
+    out = {"probe": "spans", "device": device, "plan_build_s": build_s,
+           "plan_build_spans_s": {
+               v["name"]: v["caller"]["wall_s"]
+               for v in spans.snapshot().values()
+               if v["layer"] == "plan_build"}}
+    paths = {"design": dict(plan=design, n_devices=devices[0],
+                            charge_cv=0.25, charge_reboots=64,
+                            trace_reboots=16),
+             "query": dict(plan=query, n_devices=devices[1],
+                           lane_chunk=chunk)}
+    rr = fleetsim._replay_rows
+    for name, kw in paths.items():
+        kw.update(seed=SPAN_SEED, recharge_cv=0.25, reduce="stats",
+                  device=device)
+        off = fleetsim.fleet_sweep(**kw)         # also the warm-up
+        sync()
+        spans.reset()
+        spans.enable()
+        rr.rows = rr.captures = 0                # just before
+        walls = []
+        try:
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                on = fleetsim.fleet_sweep(**kw)
+                sync()
+                walls.append(time.perf_counter() - t0)
+                bad = cs.stats_equal(np, off, on)
+                if bad:
+                    raise SystemExit(f"spans: the {name} sweep with spans "
+                                     f"on != off on {bad}")
+        finally:
+            spans.disable()
+        counted = (rr.rows, rr.captures)         # just after
+        line = {"wall_s": walls, "replay_rows": counted[0],
+                "captures": counted[1],
+                **cs.span_report(spans.snapshot(), calls, sum(walls))}
+        if name == "query":
+            chunks = -(-devices[1] // chunk)
+            want = (calls * chunks * len(query),
+                    calls * chunks if device == "cuda" else 0)
+            if counted != want:
+                raise SystemExit(f"spans: the closed form counted (rows, "
+                                 f"captures) {counted}, not {want}")
+        out[name] = line
+    spans.reset()
+    return out
+
+
+def unpinned(torch, np, cs, fleetsim, plan) -> dict:
+    """The streamed sweep at prefetch=1, its uploads pinned or not; the
+    producer's host seconds from the program's spans."""
+    from repro_torch.runtime import spans
+
     kw = dict(plan=plan, seed=42, charge_cv=0.25, charge_reboots=64,
               trace_reboots=64, policy="adaptive", theta=0.5, batch_rows=4,
               belief_alpha=0.2, reduce="stats", lane_chunk=cs.STREAM_CHUNK,
               n_devices=cs.STREAM_LANES[0], device="cuda")
-    timer = cs.HostTimer(fleetsim, failures)
     pinned_tensor = fleetsim._tensor
 
     def plain_tensor(a, dev, pinned=False):
         return pinned_tensor(a, dev, False)
 
     out = {"lanes": cs.STREAM_LANES[0]}
-    with timer:
+    spans.enable(events=False)
+    try:
         for label in ("pinned", "unpinned", "unpinned", "pinned"):
             fleetsim._tensor = plain_tensor if label == "unpinned" \
                 else pinned_tensor
             try:
-                _st, m = cs.timed_sweep(torch, fleetsim, timer, prefetch=1,
-                                        **kw)
+                _st, m = cs.timed_sweep(torch, fleetsim, prefetch=1, **kw)
             finally:
                 fleetsim._tensor = pinned_tensor
             out.setdefault(label, []).append(
                 {"wall_s": m["wall_s"],
                  "producer_s": m["host"]["producer"]["s"],
                  "producer_cpu_s": m["host"]["producer"]["cpu_s"]})
+    finally:
+        spans.disable()
     return out
 
 
