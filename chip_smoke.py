@@ -14,10 +14,11 @@ prints one JSON line per phase; any failure exits non-zero.
 1. device  -- the card's name and count, and its ``nvidia-smi`` name and
    power limit.  With no card visible the script exits non-zero at once.
 2. build   -- nvcc builds every kernel from the checkout's sources (the
-   lane kernel, the statistics fold and the five compute kernels; one
-   nvcc per source, all started together) and prints the ptxas register
-   and spill lines, and each lane-kernel instantiation's and narrow
-   matmul kernel's registers, spill bytes and stack frame; for the Hopper
+   lane kernel, the closed form, the statistics fold and the five compute
+   kernels; one nvcc per source, all started together) and prints the
+   ptxas register and spill lines, and each lane-kernel and closed-form
+   instantiation's and narrow matmul kernel's registers, spill bytes and
+   stack frame; for the Hopper
    kernels (the matmul's bf16 and 3xTF32
    kernels, the bf16 attention kernel, the block-sparse FC's bf16 and
    3xTF32 kernels and the SSD cell's 3xTF32 kernel, on ``wgmma`` fed by
@@ -71,7 +72,15 @@ prints one JSON line per phase; any failure exits non-zero.
    (lanes x the f64 add's latency); a ``capacitor_sweep`` of the
    parametric tails plan over 5 capacitors x 4,096 devices, its
    ``reduce="stats"`` groups bitwise equal to ``stats_from_outputs`` of
-   its lanes.  Then overlap: the JAX package's own overlap protocol and
+   its lanes.  Then closed_form: the closed form's kernel on one call's
+   inputs of a ``reduce="stats"`` query of ``mnist_net()`` under tails/1mF
+   (nominal charges) at 8,192 and 16,384 lanes, one launch and the plan's
+   rows counted over the query itself (zeroed just before, read just
+   after), timed (median of 5) beside the aten per-row CUDA graph it
+   replaced (``previous_ms``) and its bound by operations, bitwise equal
+   to the graph on every channel and, at 8,192 lanes, to the CPU's row
+   loop (``plain_ms``).  Then overlap: the JAX package's own
+   overlap protocol and
    gate (``benchmarks/fleet.py`` ``_overlap_comparison``) through the port
    -- its device network rebuilt from its seed, sonic/1mF, seed 7,
    ``reduce="stats"``, 256 recharges a lane, 100,000 lanes in 8,192-lane
@@ -88,13 +97,14 @@ prints one JSON line per phase; any failure exits non-zero.
    and ``select`` (non-empty, within ``DEVICE_WEIGHT_BYTES``); the
    pricing bitwise against the same sweep with ``device="cpu"``; the
    closed-form scan timed on the sweep's PlanSet (median of 5 between
-   CUDA events; one CUDA graph a row) and held bitwise against the CPU's
-   loop; the chosen configuration's first 8 training steps on the
-   card against the CPU's (``TRAIN_RTOL``, ``TRAIN_ATOL`` on float64
-   weights and inputs; the float32 distance reported); and the JAX
-   benchmark's svm_vs_dnn MNIST pair (``train_svm`` and ``svm_impj``
-   against ``train`` of the compressed net and ``estimate_energy``).  It
-   prints ``PYTHONHASHSEED``, on which ``make_task``'s data depends.
+   CUDA events; the closed form's kernel in plan mode) and held bitwise
+   against the CPU's loop; the chosen configuration's first 8 training
+   steps on the card against the CPU's (``TRAIN_RTOL``, ``TRAIN_ATOL`` on
+   float64 weights and inputs; the float32 distance reported); and the
+   JAX benchmark's svm_vs_dnn MNIST pair (``train_svm`` and ``svm_impj``
+   against ``train`` of the compressed net and ``estimate_energy``, one
+   launch of the closed form's kernel, counted from just before it to
+   just after).  It prints ``PYTHONHASHSEED``, on which ``make_task``'s data depends.
    Then while_oracle: the legacy ``backend="_while"`` oracle (a row scan
    with a data-dependent charge loop a row, eager on the card) on a small
    seeded network with charge jitter (cv 0.25, 16 charge draws, 64 lanes
@@ -123,9 +133,9 @@ prints one JSON line per phase; any failure exits non-zero.
    finishing on every power system, no wasted cycles at charge cv 0 and
    some at 0.8, one plan-mode launch, and the query's peak lane buffer
    equal to the same call's over 65,536 lanes; its section walls and its
-   launches of the lane kernel (by row mode) and of the fold, which join
-   the kernels line's.  Beside it this process computes on the card, and
-   a worker process started after the build on the CPU, the Fig. 9
+   launches of the lane kernel (by row mode), of the fold and of the
+   closed form, which join the kernels line's.  Beside it this process
+   computes on the card, and a worker process started after the build on the CPU, the Fig. 9
    matrix of the compressed net and the design space's sweep at 8
    devices a candidate, held bitwise against each other (all 24
    ``RunResult``s; the ``summary()`` rows).
@@ -327,7 +337,11 @@ prints one JSON line per phase; any failure exits non-zero.
    (``examples/*_torch.py``) on the card, each in its own process, the
    three side by side.
 17. the kernels line (the lane kernel's and the fold's entries count
-   ``paper_demo``'s example's launches too, the flash and SSD entries
+   ``paper_demo``'s example's launches too; the closed form's entry
+   counts its launches by phase: the ``closed_form`` queries, GENESIS's
+   pricing and its DNN's ``estimate_energy``, and ``paper_demo``'s
+   example, peak run and matrix, each zeroed just before and read just
+   after; the flash and SSD entries
    these phases': ``moe_launches``, ``vlm_launches``, ``train_launches``,
    ``hybrid_launches``, ``encdec_launches`` and ``lm_mesh_launches``, the
    last three also by kernel, with each kernel's time at the hybrid and
@@ -4249,8 +4263,7 @@ def span_report(snap: dict, calls: int, call_s: float) -> dict:
     left out), the pipeline's waits (wall ms), the card's ms in each
     ``host_only`` span (its idle waiting on that step) and their share of
     the calls' time (``host_gap_share``, %; ``None`` where no card timed
-    them), and the closed form's replay loop (its blocks' card ms and
-    their stall)."""
+    them)."""
     per = 1e3 / calls
     layers, waits, gaps = {}, {}, {}
     for k, v in sorted(snap.items()):
@@ -4268,12 +4281,6 @@ def span_report(snap: dict, calls: int, call_s: float) -> dict:
            "host_gap_ms_per_call": gaps,
            "host_gap_share": 100.0 * sum(gaps.values()) / (call_s * per)
            if gaps else None}
-    loop = snap.get("closed_form/replay_loop", {})
-    if "blocks" in loop:
-        out["replay_loop"] = {"blocks": loop["blocks"],
-                              "block_rows": loop["block_rows"],
-                              "device_ms_per_call": loop["block_s"] * per,
-                              "stall_ms_per_call": loop["stall_s"] * per}
     return out
 
 
@@ -4621,6 +4628,165 @@ def streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper, net, x,
         "chain_floor_ms": chain_ms, "library_ms": None,
         "shape": f"{n} lanes, {n_groups} group, "
                  f"{sum(e.numel() - 1 for e in edges.values())} bins"}
+
+
+#: Phase 5c': lanes of the closed form's runs (the benchmark's query chunk
+#: and twice it) and the seed of their fleets.
+CLOSED_FORM_LANES = (8192, 16384)
+CLOSED_FORM_SEED = 3000000001
+
+def aten_graph_scan(torch, fleetsim, rows, cap, rem0, trace_cum, tail_s,
+                    theta, conf, radio, *, adaptive, parametric,
+                    shared_rows, has_send, plan_idx=None) -> dict:
+    """The closed form as the port ran it on the card before its kernel,
+    ``fleetsim._scan_replay``'s arguments: ``fleetsim._scan_step`` (aten,
+    some 165 launches a row) on the first row eagerly, then one CUDA graph
+    of a row's launches, captured on a side stream, replayed for every
+    other row.  The yardstick of phase 5c'."""
+    from repro_torch.kernels.charge_replay import _packed, unpack_row
+
+    packed, layout = _packed(rows, shared_rows)
+    plan = None if plan_idx is None else plan_idx.to(torch.int64)
+    st = fleetsim._scan_state0(cap, rem0)
+    cursor = torch.zeros(cap.shape[0], dtype=torch.int64, device=cap.device)
+
+    def row_step():
+        new = fleetsim._scan_step(cap, trace_cum, tail_s, theta, conf, radio,
+                                  adaptive, parametric, has_send, st,
+                                  unpack_row(packed, layout, cursor, plan))
+        for dst, src in zip(st, new):
+            dst.copy_(src)
+        cursor.add_(1)
+
+    n_rows = packed.shape[-2]
+    if n_rows:
+        row_step()
+    if n_rows > 1:
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                row_step()
+            finally:
+                graph.capture_end()
+        main.wait_stream(side)
+        for _ in range(n_rows - 1):
+            graph.replay()
+    return fleetsim._scan_outputs(st)
+
+
+def _on_cpu(v):
+    """A closed-form argument on the CPU: tensors, and row dicts of them."""
+    if isinstance(v, dict):
+        return {k: _on_cpu(x) for k, x in v.items()}
+    return v.cpu() if hasattr(v, "cpu") else v
+
+
+def closed_form_phase(torch, np, emit, fleetsim, plan) -> list[dict]:
+    """Phase 5c': the closed form's kernel (``fleetsim._scan_replay`` on
+    CUDA tensors) on one ``reduce="stats"`` query call of ``plan``
+    (MNIST's tails/1mF: nominal charges, ``recharge_cv`` 0.25) at each of
+    :data:`CLOSED_FORM_LANES` lanes: the kernel's launches and the plan's
+    rows counted over the query call itself (zeroed just before, read just
+    after: one launch, the plan's rows), then on that call's arguments the
+    kernel's median of 5 runs between CUDA events beside the aten per-row
+    graph it replaced (:func:`aten_graph_scan`, one run), every channel of
+    the query's own outputs bitwise equal to the graph's, and the bound by
+    operations; at the first lane count also the plain version (the CPU's
+    row loop on the same arguments), timed and held bitwise."""
+    from repro_torch.kernels import closed_form as cf
+    from repro_torch.kernels.charge_replay import lane_block
+
+    scan, rr = fleetsim._scan_replay, fleetsim._replay_rows
+    lines = []
+    for lanes in CLOSED_FORM_LANES:
+        calls = []
+
+        def capture(*a, **k):
+            out = scan(*a, **k)
+            calls.append((a, k, out))
+            return out
+
+        fleetsim._scan_replay = capture
+        try:
+            cf.closed_form.launches = rr.rows = 0   # zero just before
+            fleetsim.fleet_sweep(plan=plan, n_devices=lanes,
+                                 seed=CLOSED_FORM_SEED, recharge_cv=0.25,
+                                 reduce="stats", device="cuda")
+            torch.cuda.synchronize()
+            counted = (cf.closed_form.launches, rr.rows)   # read just after
+        finally:
+            fleetsim._scan_replay = scan
+        if counted != (1, len(plan)) or len(calls) != 1:
+            raise SystemExit(f"closed_form: the query at {lanes} lanes "
+                             f"counted (launches, rows) {counted} over "
+                             f"{len(calls)} calls, not (1, {len(plan)}) "
+                             f"over one")
+        (a, k, out), = calls
+        ms = median_ms(torch, lambda: scan(*a, **k))
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        ref = aten_graph_scan(torch, fleetsim, *a, **k)
+        ev1.record()
+        torch.cuda.synchronize()
+        graph_ms_ = ev0.elapsed_time(ev1)
+        ok, err, bad = compare(torch, out, ref)
+        if not ok:
+            raise SystemExit(f"closed_form: the kernel != the aten graph at "
+                             f"{lanes} lanes on {bad} (max abs {err})")
+        bound_ms = (cf.MIN_F64_OPS_PER_ROW * lanes * len(plan)
+                    / PEAK_F64_OPS * 1e3)
+        line = {"phase": "closed_form", "lanes": lanes, "rows": len(plan),
+                "block": lane_block(lanes), "ms": ms,
+                "us_per_row": ms * 1e3 / len(plan),
+                "previous_ms": graph_ms_,
+                "previous_us_per_row": graph_ms_ * 1e3 / len(plan),
+                "speedup": graph_ms_ / ms, "bound_ms": bound_ms,
+                "bound_by": "operations", "bitwise_equal_aten_graph": True,
+                "launches": counted[0], "rows_counted": counted[1]}
+        if not lines:
+            t0 = time.perf_counter()
+            plain = scan(*(_on_cpu(v) for v in a),
+                         **{n: _on_cpu(v) for n, v in k.items()})
+            line["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            ok, err, bad = compare(torch, out, {
+                n: v.to(out[n].device) for n, v in plain.items()})
+            if not ok:
+                raise SystemExit(f"closed_form: the kernel != the CPU's row "
+                                 f"loop at {lanes} lanes on {bad}")
+            line.update(bitwise_equal_plain=True, max_abs_err=err)
+        emit(line)
+        lines.append(line)
+    return lines
+
+
+def closed_form_entry(lines: list, launches: dict) -> dict:
+    """The kernels line's ``closed_form`` entry: times, bound and plain
+    version from phase 5c''s first line (:data:`CLOSED_FORM_LANES`'s first
+    count, the benchmark's query chunk), ``launches`` the kernel's
+    launches counted on each main-path phase that runs it, by phase."""
+    head = lines[0]
+    return {"name": "closed_form", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/closed_form.cu",
+            "replaces": "src/repro/core/fleetsim.py:875",
+            "replaces_function": "_scan_one (a lax.scan of _scan_step, "
+                                 "which XLA fuses; no Pallas kernel)",
+            "launches": sum(launches.values()),
+            "launches_by_phase": dict(launches),
+            "max_abs_err": head["max_abs_err"],
+            "max_abs_diff_vs_plain": head["max_abs_err"],
+            "ms": head["ms"], "previous_ms": head["previous_ms"],
+            "previous": "the aten closed form, one CUDA graph of a row's "
+                        "launches replayed a row",
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "shape": f"{head['rows']} rows x {head['lanes']} lanes",
+            "by_lanes": [{k: ln[k] for k in ("lanes", "ms", "previous_ms",
+                                             "bound_ms")} for ln in lines]}
 
 
 #: Phase 5f: the legacy ``backend="_while"`` oracle on the card -- lanes a
@@ -5010,6 +5176,8 @@ def paper_demo(torch, np, emit, fleetsim, smi_line, scale=PAPER_SCALE,
     statistics fold, its section walls and the checks' seconds."""
     import pickle
 
+    from repro_torch.kernels import closed_form as cf
+
     t_phase = time.perf_counter()
     worker, (orig, net, x) = reference or start_paper_reference()
     ex = load_example(PAPER_EXAMPLE)
@@ -5032,6 +5200,7 @@ def paper_demo(torch, np, emit, fleetsim, smi_line, scale=PAPER_SCALE,
     try:
         # the peak run first, on the card while the example builds its
         # plans on the host, then the matrix's plan builds while its scan
+        cf.closed_form.launches = 0       # just before the peak run
         t1 = time.perf_counter()
         peak = fleetsim.fleet_sweep(
             net, x, "sonic", "1mF", n_devices=PAPER_PEAK_LANES, seed=42,
@@ -5041,6 +5210,7 @@ def paper_demo(torch, np, emit, fleetsim, smi_line, scale=PAPER_SCALE,
         t1 = time.perf_counter()
         cells = fleetsim.fleet_evaluate(net, x, device="cuda")
         matrix_s = time.perf_counter() - t1
+        closed_here = cf.closed_form.launches   # just after the matrix
         planset = worker.dir / "planset.pkl"
         while not planset.exists() and worker.proc.poll() is None:
             time.sleep(1.0)
@@ -5080,6 +5250,11 @@ def paper_demo(torch, np, emit, fleetsim, smi_line, scale=PAPER_SCALE,
         raise SystemExit(f"paper_demo: the query's peak lane buffer "
                          f"{checks['peak_lane_buffer_mb']} MB != "
                          f"{printed} MB at {PAPER_PEAK_LANES} lanes")
+    closed = {"example": checks["launches"]["closed_form"],
+              "peak_and_matrix": closed_here}
+    if not all(closed.values()):
+        raise SystemExit(f"paper_demo: the closed form's kernel launched "
+                         f"{closed}, not on every part")
     seconds = time.perf_counter() - t_phase
     emit({"phase": "paper_demo", "matrix_bitwise_equal_cpu": True,
           "matrix_cells": 24, "matrix_s": matrix_s,
@@ -5092,8 +5267,9 @@ def paper_demo(torch, np, emit, fleetsim, smi_line, scale=PAPER_SCALE,
           "peak_lane_bytes": peak, "peak_lanes": PAPER_PEAK_LANES,
           "peak_s": peak_s, "cpu_worker_wait_s": wait_s,
           "example_s": example_s, "seconds": seconds, "all_agree": True,
-          "nvidia_smi": smi_line})
-    return dict(checks, seconds=seconds)
+          "closed_form_launches": closed, "nvidia_smi": smi_line})
+    return dict(checks, seconds=seconds,
+                closed_form_launches=sum(closed.values()))
 
 
 def paper_output_checks(lines: list, ex) -> dict:
@@ -5218,6 +5394,7 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper, defer=False) -> dict:
     from repro_torch.core import WILDLIFE
     from repro_torch.core.imp import AppModel
     from repro_torch.data import make_task
+    from repro_torch.kernels import closed_form as cf
     from repro_torch.kernels import stats_fold as sf
     from repro_torch.models.dnn import mnist_net
 
@@ -5249,6 +5426,7 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper, defer=False) -> dict:
             setattr(mod, n, timed(mod, n))
         cr.charge_replay = rec
         sf.stats_fold.launches = 0        # just before the sweep
+        cf.closed_form.launches = 0
         zero_counts(wrapper)
         t0 = time.perf_counter()
         results = gen.sweep(net, data, WILDLIFE, epochs=GENESIS_EPOCHS,
@@ -5256,6 +5434,7 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper, defer=False) -> dict:
         torch.cuda.synchronize()
         sweep_s = time.perf_counter() - t0
         fold_launches = sf.stats_fold.launches      # read just after
+        closed_launches = {"pricing": cf.closed_form.launches}
         lane_launches = wrapper.launches
         by_mode = dict(wrapper.launches_by_mode)
         by_design = dict(wrapper.launches_by_design)
@@ -5318,7 +5497,7 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper, defer=False) -> dict:
                          "live cycles")
     table = a[0].packed
     # the pricing (the plain event stream and the plain fold) and the scan
-    # (the CPU's loop against the card's CUDA graph replays) on the CPU
+    # (the CPU's loop against the card's kernel) on the CPU
     rows_cpu = copy.copy(a[0])
     rows_cpu.packed, rows_cpu.hoisted = table.cpu(), None
     reference = CpuWorker(
@@ -5390,9 +5569,15 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper, defer=False) -> dict:
                                      epochs=SVM_DNN_EPOCHS, device="cuda")
     tp, tn = train_small.class_rates(dnn, task, 0, device="cuda")
     dnn_train_s = time.perf_counter() - t0
+    cf.closed_form.launches = 0           # just before the DNN's pricing
     t0 = time.perf_counter()
     e_dnn = gen.estimate_energy(dnn, device="cuda")
     energy_s = time.perf_counter() - t0
+    closed_launches["estimate_energy"] = cf.closed_form.launches  # after
+    if closed_launches["estimate_energy"] != 1:
+        raise SystemExit(f"genesis: estimate_energy launched the closed "
+                         f"form {closed_launches['estimate_energy']} times, "
+                         f"not once")
     dnn_impj = AppModel(WILDLIFE.p, WILDLIFE.e_sense, WILDLIFE.e_comm,
                         e_dnn).inference(tp, tn)
     pair = [svm["impj"], svm_acc, dnn_impj, dnn_acc, e_dnn]
@@ -5413,6 +5598,8 @@ def genesis(torch, np, emit, fleetsim, cr, wrapper, defer=False) -> dict:
             "lane_kernel_launches": lane_launches,
             "lane_kernel_launches_by_mode": by_mode,
             "stats_fold_launches": fold_launches,
+            "closed_form_launches": sum(closed_launches.values()),
+            "closed_form_launches_by_run": closed_launches,
             "closed_form_scan_ms": scan_ms, "closed_form_scan_runs_ms": times,
             "closed_form_scan_rows": int(table.shape[1]),
             "closed_form_scan_ms_per_row": scan_ms / table.shape[1],
@@ -5526,9 +5713,10 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # ---- 2. build every kernel of the path
-    built = _build.build("charge_replay", "stats_fold", "dense_matmul",
-                         "sparse_fc", "fir_conv1d", "flash_attention",
-                         "ssd_intra", "ssd_intra_thread_fed")
+    built = _build.build("charge_replay", "closed_form", "stats_fold",
+                         "dense_matmul", "sparse_fc", "fir_conv1d",
+                         "flash_attention", "ssd_intra",
+                         "ssd_intra_thread_fed")
     for b in built.values():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln or "stack" in ln]
@@ -5538,6 +5726,8 @@ def main() -> int:
     # registers, spill bytes and stack frame
     emit({"phase": "build", "kernel": "charge_replay", "lane_kernels":
           ptxas_by_kernel(built["charge_replay"].log)})
+    emit({"phase": "build", "kernel": "closed_form", "closed_form_kernels":
+          ptxas_by_kernel(built["closed_form"].log)})
     emit({"phase": "build", "kernel": "dense_matmul", "narrow_kernels": {
         n: r for n, r in ptxas_by_kernel(built["dense_matmul"].log).items()
         if "matmul_narrow_kernel" in n}})
@@ -5873,6 +6063,8 @@ def main() -> int:
     fold_entry = streamed_stats(torch, np, emit, fleetsim, cr, rec, wrapper,
                                 net, x, plan_tails, lat)
     cr.charge_replay = wrapper
+    # ---- 5c'. the closed form's kernel beside the aten graph it replaced
+    closed_lines = closed_form_phase(torch, np, emit, fleetsim, plan_tails)
     # ---- 5d. the overlapped pipeline under the JAX package's protocol
     overlap(torch, np, emit, fleetsim, classes)
     # ---- 5e. GENESIS end to end: the sweep's pricing folds on the card
@@ -5903,6 +6095,10 @@ def main() -> int:
                   if k.startswith("charge_replay/")}
     fold_entry["launches"] += paper["launches"]["stats_fold"]
     fold_entry["paper_demo_launches"] = paper["launches"]["stats_fold"]
+    closed_entry = closed_form_entry(closed_lines, {
+        "closed_form": sum(ln["launches"] for ln in closed_lines),
+        "genesis": genesis_line["closed_form_launches"],
+        "paper_demo": paper["closed_form_launches"]})
 
     # ---- 6, 7. the compute kernels: against their plain versions, then at
     # full width with their launches counted
@@ -5976,7 +6172,7 @@ def main() -> int:
                            f"x {design_line['devices_per_candidate']} "
                            f"lanes, table {design_line['table_shape']}",
         "shape": f"{results[0][0]}: {len(results[0][1])} rows x "
-                 f"{int(a[1].shape[0])} lanes"}, fold_entry]
+                 f"{int(a[1].shape[0])} lanes"}, fold_entry, closed_entry]
         + compute + lm})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)

@@ -378,8 +378,10 @@ def main(argv=None) -> int:
     walls = {}
     cr = importlib.import_module("repro_torch.kernels.charge_replay")
     fold = importlib.import_module("repro_torch.kernels.stats_fold")
+    cf = importlib.import_module("repro_torch.kernels.closed_form")
     by_mode = dict(cr.charge_replay.launches_by_mode)
     folds = fold.stats_fold.launches
+    closed = cf.closed_form.launches
 
     def timed(name, fn, *a):
         t0 = time.perf_counter()
@@ -402,7 +404,8 @@ def main(argv=None) -> int:
     print("kernel launches: " + ", ".join(
         f"charge_replay/{m}={n - by_mode[m]}"
         for m, n in cr.charge_replay.launches_by_mode.items())
-        + f", stats_fold={fold.stats_fold.launches - folds}")
+        + f", stats_fold={fold.stats_fold.launches - folds}"
+        + f", closed_form={cf.closed_form.launches - closed}")
     return 0
 
 

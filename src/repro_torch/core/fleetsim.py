@@ -22,9 +22,10 @@ Two replay paths:
   hand-written CUDA lane kernel on the card, its plain PyTorch version on
   the CPU (``backend="auto"``), or the plain version on either device
   (``backend="torch"``).
-* **Deterministic** replays run the closed-form row scan
-  (:func:`_scan_step`) in plain PyTorch, one row per step (on the card
-  replayed from one CUDA graph of a row's launches).
+* **Deterministic** replays run the closed-form row scan: on the card the
+  hand-written ``closed_form_kernel`` (``kernels/csrc/closed_form.cu``,
+  one launch a call), on the CPU its plain version (:func:`_scan_step`),
+  one row per step.
 
 Both are bit-identical to the JAX package's replay on the same inputs.
 The entry points cover the JAX package's surface: ``replay_plans``,
@@ -814,13 +815,27 @@ def _scan_replay(rows, cap, rem0, trace_cum, tail_s, theta, conf,
                  radio, *, adaptive: bool, parametric: bool,
                  shared_rows, has_send: bool, plan_idx=None) -> dict:
     """The deterministic closed-form replay: :func:`_scan_step` over every
-    row of the (padded) table, all lanes at once.  On the card the first
-    row runs eagerly and the rest replay one CUDA graph of that row's
-    launches (:func:`_replay_rows`): the same kernels in the same order,
-    so the same bits, for one launch a row instead of some hundred."""
-    from ..kernels.charge_replay import _packed, unpack_row
+    row of the (padded) table, all lanes at once.  CPU tensors take the
+    plain version, a loop of row steps (:func:`_replay_rows`); CUDA tensors
+    launch ``closed_form_kernel`` once (``kernels.closed_form``: one thread
+    a lane walks every row with the same operations in the same order, so
+    the same bits; ``closed_form.closed_form.launches`` counts its
+    launches).  ``_replay_rows.rows`` counts the rows either path ran."""
+    from ..kernels import closed_form
+    from ..kernels.charge_replay import _packed, row_mode, unpack_row
 
     packed, layout = _packed(rows, shared_rows)
+    if cap.device.type == "cuda":
+        out = closed_form.closed_form(
+            packed, layout, cap, rem0, trace_cum, tail_s, theta, conf,
+            radio, adaptive=adaptive, parametric=parametric,
+            mode=row_mode(shared_rows), has_send=has_send,
+            plan_idx=plan_idx)
+        _replay_rows.rows += packed.shape[-2]
+        return out
+    if cap.device.type != "cpu":
+        raise ValueError(f"the closed form runs on CUDA or CPU tensors, "
+                         f"got {cap.device}")
     plan = None if plan_idx is None else plan_idx.to(torch.int64)
     st = _scan_state0(cap, rem0)
     cursor = torch.zeros(cap.shape[0], dtype=torch.int64, device=cap.device)
@@ -833,7 +848,7 @@ def _scan_replay(rows, cap, rem0, trace_cum, tail_s, theta, conf,
             dst.copy_(src)
         cursor.add_(1)
 
-    _replay_rows(row_step, packed.shape[-2], cap.device)
+    _replay_rows(row_step, packed.shape[-2])
     return _scan_outputs(st)
 
 
@@ -869,61 +884,17 @@ def _while_replay(rows, cap, rem0, trace_cum, tail_s, charge_cum, theta,
 _while_replay.charge_steps = 0
 
 
-#: Rows of a block of the closed form's graph replays while spans are on
-#: (the card's seconds are read a block, never a row).
-REPLAY_BLOCK = 256
-
-
-def _replay_rows(row_step, n_rows: int, dev) -> None:
-    """Run ``row_step`` (which advances its state in place) ``n_rows``
-    times: on the CPU as a loop; on the card the first time eagerly, then
-    as replays of one CUDA graph captured from it on a side stream (its
-    allocations in the graph's own pool; only this thread's CUDA calls
-    are barred while it captures, so a pipeline's producer may go on
-    copying).  ``_replay_rows.rows`` counts the rows run and
-    ``_replay_rows.captures`` the graphs captured.  Spans:
-    ``closed_form/eager_row``, ``capture`` (host only) and
-    ``replay_loop``; while spans are on, the loop replays in blocks of
-    :data:`REPLAY_BLOCK` rows, each closed by ``spans.block``."""
-    if n_rows < 1:
-        return
+def _replay_rows(row_step, n_rows: int) -> None:
+    """The closed form's plain loop: run ``row_step`` (which advances its
+    state in place) ``n_rows`` times, counted in ``_replay_rows.rows``,
+    under the span ``closed_form/replay_loop``."""
     _replay_rows.rows += n_rows
-    with spans.span("closed_form", "eager_row"):
-        row_step()
-    if dev.type != "cuda":
-        with spans.span("closed_form", "replay_loop"):
-            for _ in range(n_rows - 1):
-                row_step()
-        return
-    if n_rows == 1:
-        return
-    with spans.span("closed_form", "capture", host_only=True):
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                row_step()
-            finally:
-                graph.capture_end()
-        main.wait_stream(side)
-    _replay_rows.captures += 1
-    if not spans.enabled():
-        for _ in range(n_rows - 1):
-            graph.replay()
-        return
     with spans.span("closed_form", "replay_loop"):
-        for lo in range(1, n_rows, REPLAY_BLOCK):
-            rows = min(REPLAY_BLOCK, n_rows - lo)
-            for _ in range(rows):
-                graph.replay()
-            spans.block(rows)
+        for _ in range(n_rows):
+            row_step()
 
 
 _replay_rows.rows = 0
-_replay_rows.captures = 0
 
 
 def _validate_replay_knobs(policy: str, batch_rows: int,

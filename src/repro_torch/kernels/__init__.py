@@ -2,6 +2,9 @@
 
   charge_replay -- the fleet replay's lane kernel (replaces
                    ``repro/kernels/charge_replay.py:pallas_replay``)
+  closed_form   -- the deterministic replay's closed form, one thread a
+                   lane over every row (XLA's fused scan in the JAX
+                   package; no Pallas kernel)
   dense_matmul  -- tiled matmul, SONIC's loop-ordered accumulation
                    (replaces ``repro/kernels/dense_matmul.py:matmul``)
   sparse_fc     -- GENESIS's block-CSR pruned FC (replaces

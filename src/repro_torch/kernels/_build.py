@@ -35,11 +35,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: multiply and an add into one FMA.
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
-#: Each source's flags: the lane kernel, the statistics fold and the FIR
-#: are held bitwise against their plain versions and keep one rounding per
-#: operation.
-SOURCE_FLAGS = {"charge_replay": NVCC_FLAGS, "fir_conv1d": NVCC_FLAGS,
-                "stats_fold": NVCC_FLAGS,
+#: Each source's flags: the lane kernel, the closed form, the statistics
+#: fold and the FIR are held bitwise against their plain versions and keep
+#: one rounding per operation.
+SOURCE_FLAGS = {"charge_replay": NVCC_FLAGS, "closed_form": NVCC_FLAGS,
+                "fir_conv1d": NVCC_FLAGS, "stats_fold": NVCC_FLAGS,
                 "dense_matmul": FMAD_FLAGS, "sparse_fc": FMAD_FLAGS,
                 "flash_attention": FMAD_FLAGS, "ssd_intra": FMAD_FLAGS,
                 "charge_replay_profile": NVCC_FLAGS + ("-DREPLAY_PROFILE",),

@@ -837,10 +837,9 @@ _KERNEL_CONSTANTS = dict(
     KIND_CALIB=2, KIND_SEND=3)
 
 
-def _library():
-    """Build (first use) and bind the kernel's C entry points."""
-    from . import _build
-
+def _check_constants() -> None:
+    """The radio slots and row kinds the CUDA sources hard-code
+    (csrc/charge_replay.cuh) must be the Python ones."""
     here = dict(R_WAKEUP=R_WAKEUP, R_CPB=R_CPB, R_HDR=R_HDR,
                 R_CLASS=R_CLASS, R_TOPK=R_TOPK, R_CONF_HI=R_CONF_HI,
                 R_CONF_LO=R_CONF_LO, R_PERIOD=R_PERIOD, R_DUTY=R_DUTY,
@@ -848,7 +847,14 @@ def _library():
                 KIND_CALIB=KIND_CALIB, KIND_SEND=KIND_SEND)
     if here != _KERNEL_CONSTANTS:
         raise RuntimeError("radio slots or row kinds moved; update "
-                           "csrc/charge_replay.cu")
+                           "csrc/charge_replay.cuh")
+
+
+def _library():
+    """Build (first use) and bind the kernel's C entry points."""
+    from . import _build
+
+    _check_constants()
     lib = _build.load("charge_replay").lib
     if getattr(lib, "_bound", False):
         return lib

@@ -2,7 +2,7 @@
 
 A span is one named piece of the fleet replay's host work, ``<layer>/<name>``
 (``entry/_prepare``, ``samplers/harvest_jitter_stream``,
-``closed_form/replay_loop``, ...).  A function becomes one with
+``closed_form/_scan_replay``, ...).  A function becomes one with
 :func:`traced`; a part of a function with ``with span(layer, name):``.
 The registry is off by default, and off a span costs one check of a
 module global: it makes no object, no CUDA event and no profiler range.
@@ -31,12 +31,6 @@ current stream captures a CUDA graph.  Events come from a pool; the
 pending ones are resolved in :func:`snapshot` (after the caller has
 synchronised) and, once ``RESOLVE_AT`` are pending, the completed ones
 are resolved on the way (``query``, never a wait).
-
-:func:`block` closes a block of rows inside the innermost span (the closed
-form's ``replay_loop`` issues its graph replays in blocks while spans are
-on).  Every block replays the same work, so a block slower a row than the
-fastest was held back by the host: ``snapshot()`` gives that excess as
-``stall_s``.
 
 Counters stay where they are (``charge_replay.launches*``,
 ``stats_fold.launches``, ``_replay_rows.rows``, ...): always on, one add a
@@ -71,8 +65,7 @@ _lock = threading.Lock()
 _local = threading.local()
 _meta: dict = {}        # key -> (layer, name, host_only)
 _host: dict = {}        # (role, key) -> [calls, wall, self, cpu, self cpu]
-_device: dict = {}      # key -> [device s, blocks, block rows, block s,
-#                                 fastest block s a row]
+_device: dict = {}      # key -> device seconds
 _chains: dict = {}      # (thread, device, stream) -> _Chain
 
 
@@ -166,16 +159,6 @@ def span(layer: str, name: str, host_only: bool = False):
     return _Span(key)
 
 
-def block(rows: int) -> None:
-    """Close a block of ``rows`` rows issued inside the innermost span: its
-    device seconds join that span's blocks (see :func:`snapshot`)."""
-    if not _on:
-        return
-    th = _thread()
-    if th.chain is not None and th.stack:
-        th.chain.mark(th.stack[-1][0], rows)
-
-
 class _Thread:
     """One thread's open spans, its role, and the chain of events it
     records while its outermost span times a card."""
@@ -264,24 +247,15 @@ def _chain(dev):
     return c
 
 
-def _add_device(key: str, s: float, rows: int) -> None:
+def _add_device(key: str, s: float) -> None:
     with _lock:
-        d = _device.get(key)
-        if d is None:
-            d = _device[key] = [0.0, 0, 0, 0.0, float("inf")]
-        d[0] += s
-        if rows:
-            d[1] += 1
-            d[2] += rows
-            d[3] += s
-            d[4] = min(d[4], s / rows)
+        _device[key] = _device.get(key, 0.0) + s
 
 
 class _Chain:
     """The timing events one caller thread records on one stream, in
     order: each with the span that owns the stretch after it (``None``:
-    no span, the stretch is dropped) and the rows of the block it closes
-    (0: none)."""
+    no span, the stretch is dropped)."""
 
     def __init__(self, stream):
         self.stream = stream
@@ -289,7 +263,7 @@ class _Chain:
         self.last = None                # the newest resolved (event, owner)
         self.free: list = []
 
-    def mark(self, owner, rows: int = 0) -> None:
+    def mark(self, owner) -> None:
         import torch
 
         if torch.cuda.is_current_stream_capturing():
@@ -297,7 +271,7 @@ class _Chain:
         ev = self.free.pop() if self.free else \
             torch.cuda.Event(enable_timing=True)
         ev.record(self.stream)
-        self.pending.append((ev, owner, rows))
+        self.pending.append((ev, owner))
         if len(self.pending) >= RESOLVE_AT:
             self.resolve(wait=False)
 
@@ -308,14 +282,13 @@ class _Chain:
         if wait and self.pending:
             self.pending[-1][0].synchronize()
         n = 0
-        for ev, owner, rows in self.pending:
+        for ev, owner in self.pending:
             if not (wait or ev.query()):
                 break
             if self.last is not None:
                 prev, prev_owner = self.last
                 if prev_owner is not None:
-                    _add_device(prev_owner, prev.elapsed_time(ev) * 1e-3,
-                                rows)
+                    _add_device(prev_owner, prev.elapsed_time(ev) * 1e-3)
                 self.free.append(prev)
             self.last = (ev, owner)
             n += 1
@@ -332,10 +305,7 @@ def snapshot() -> dict:
     """Everything recorded since the last :func:`reset`, by span key:
     ``layer``, ``name``, ``host_only``; per role that ran it
     (``"caller"``, ``"producer"``) a dict of :data:`HOST_FIELDS`; where
-    its stretches were timed on a card, ``device_s``; where it closed
-    blocks (:func:`block`), ``blocks``, ``block_rows``, ``block_s``,
-    ``fastest_s_per_row``, ``stall_s`` (each block's seconds less the
-    fastest block's a row times its rows, summed).  Empty while nothing
+    its stretches were timed on a card, ``device_s``.  Empty while nothing
     has run.  Call it from the caller's thread after the card has
     synchronised."""
     with _lock:
@@ -353,11 +323,6 @@ def snapshot() -> dict:
     with _lock:
         for (role, key), h in _host.items():
             entry(key)[role] = dict(zip(HOST_FIELDS, h))
-        for key, (dev_s, n, rows, block_s, fastest) in _device.items():
-            e = entry(key)
-            e["device_s"] = dev_s
-            if n:
-                e.update(blocks=n, block_rows=rows, block_s=block_s,
-                         fastest_s_per_row=fastest,
-                         stall_s=block_s - fastest * rows)
+        for key, dev_s in _device.items():
+            entry(key)["device_s"] = dev_s
     return out

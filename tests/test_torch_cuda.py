@@ -16,8 +16,8 @@ the same bit for bit.  The lane kernel in plan mode (a ``PlanSet``
 design sweep) must equal the plain version, the direct design and every
 candidate's own sweep; the statistics fold kernel its plain version
 bitwise; a streamed ``reduce="stats"`` sweep on the card the same sweep on
-the CPU, whatever its prefetch depth; the closed-form scan (one CUDA
-graph a row) the CPU's loop bitwise.  Serving: ``prefill`` must launch
+the CPU, whatever its prefetch depth; the closed-form scan (its kernel)
+the CPU's loop bitwise.  Serving: ``prefill`` must launch
 the attention kernel once a layer, and prefill and decode agree with the
 forward; mamba2's forward must launch the SSD kernel once a layer (on its
 wgmma design) and agree with the plain cell's, and its decode with its
@@ -104,7 +104,7 @@ def test_kernel_equals_plain_fleet_sweep(strategy, policy):
     ("naive", "fixed")])
 def test_closed_form_on_card_equals_the_cpu(strategy, policy):
     """A deterministic sweep (no charge jitter) runs the closed-form scan,
-    on the card as replays of one CUDA graph a row: every channel equals
+    on the card one launch of its kernel: every channel equals
     the CPU's loop bitwise, for a shared plan with recharge traces and for
     one plan a lane (``replay_plans``, 100uF)."""
     _need_card()

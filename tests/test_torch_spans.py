@@ -6,7 +6,7 @@ gives, the overlapped pipeline's waits land on their threads, every
 documented span of a design sweep, a chunked statistics sweep and the plan
 build is recorded, no span count grows with a plan's rows, and the outputs
 are bitwise those of spans off.  The card's side (events on the replay
-stream, the stretches they time, blocks and their stall) runs here against
+stream and the stretches they time) runs here against
 a fake CUDA clock; on the card the same sweeps run for real (``gpu``
 marker, skipped without a card).
 """
@@ -23,12 +23,13 @@ import torch
 
 from repro_torch.core import fleetsim as tfs
 from repro_torch.core.inference import Conv2D, DenseFC, MaxPool2D, SimNet
+from repro_torch.kernels import closed_form as cf
 from repro_torch.runtime import spans
 
 ROOT = Path(__file__).resolve().parents[1]
 
-#: The spans a CPU run of each path records (the card's runs add
-#: ``closed_form/capture``).
+#: The spans a CPU run of each path records (on the card the closed form
+#: is one kernel launch, with no ``closed_form/replay_loop``).
 DESIGN_SPANS = {
     "entry/fleet_sweep", "entry/_design_sweep", "entry/legacy_draws",
     "entry/_run_replay", "entry/_prepare", "entry/_bucket_rows",
@@ -46,8 +47,8 @@ CHUNKED_SPANS = {
     "entry/_stats_inputs", "entry/_device_rows", "entry/_dispatch",
     "entry/merge_parts", "entry/queue_wait", "entry/thread_join",
     "pipeline/setup_wait", "pipeline/slot_wait",
-    "closed_form/_scan_replay", "closed_form/eager_row",
-    "closed_form/replay_loop", "stats_fold/reduce_lane_outputs",
+    "closed_form/_scan_replay", "closed_form/replay_loop",
+    "stats_fold/reduce_lane_outputs",
     "device_wait/parts_numpy", "samplers/initial_charge_fraction_stream",
     "samplers/harvest_jitter_stream",
     "samplers/reboot_recharge_times_stream",
@@ -260,21 +261,22 @@ def test_outputs_bitwise_with_spans_on_and_off(plans, path):
 
 def test_replay_rows_counts_rows_and_no_span_scales_with_them():
     """``_replay_rows.rows`` adds each closed-form call's rows (a chunk's
-    plan rows); on the CPU nothing is captured; and every span's count is
-    the same for a plan of a few hundred rows and one of thousands."""
+    plan rows); on the CPU the kernel is not launched; and every span's
+    count is the same for a plan of a few hundred rows and one of
+    thousands."""
     counts = []
     for width in (1, 6):
         net, x = _net(width=width)
         plan = tfs.build_plan(net, x, "tails", "1mF")
         rows0 = tfs._replay_rows.rows
-        captures0 = tfs._replay_rows.captures
+        launches0 = cf.closed_form.launches
         spans.reset()
         spans.enable()
         tfs.fleet_sweep(plan=plan, n_devices=16, seed=1, lane_chunk=8,
                         prefetch=1, reduce="stats", device="cpu")
         spans.disable()
         assert tfs._replay_rows.rows - rows0 == 2 * len(plan)
-        assert tfs._replay_rows.captures == captures0
+        assert cf.closed_form.launches == launches0
         counts.append({k: {r: v[r]["calls"] for r in ("caller", "producer")
                            if r in v} for k, v in spans.snapshot().items()})
         counts[-1]["rows"] = len(plan)
@@ -324,8 +326,8 @@ def test_host_report_reads_a_chunked_pipeline_snapshot(plans, cs):
 
 def test_span_report_of_a_cpu_sweep(plans, cs):
     """On the CPU no card times a span: ``host_gap_share`` is ``None``,
-    the replay loop closes no blocks, and every layer the chunked sweep
-    ran reads its own host ms."""
+    the report has no replay loop reading, and every layer the chunked
+    sweep ran reads its own host ms."""
     spans.enable()
     _chunked(plans)
     rep = cs.span_report(spans.snapshot(), 1, 1.0)
@@ -339,7 +341,8 @@ def test_span_report_of_a_cpu_sweep(plans, cs):
 
 
 def _hand_snapshot():
-    """Two calls' worth of spans, as ``snapshot()`` gives them."""
+    """Two calls' worth of spans, as ``snapshot()`` gives them (the replay
+    loop's block fields as the closed form's graph loop once gave them)."""
     def host(calls, wall, self_s):
         return dict(calls=calls, wall_s=wall, self_s=self_s, cpu_s=wall,
                     self_cpu_s=self_s)
@@ -376,14 +379,18 @@ def _hand_snapshot():
     (("wait_ms_per_call", "pipeline/slot_wait"), 1e3 * 0.3 / 2),
     (("host_gap_ms_per_call", "entry/_prepare"), 1e3 * 0.05 / 2),
     (("host_gap_share",), 100.0 * (0.05 + 0.01 + 0.14) / 5.0),
-    (("replay_loop", "stall_ms_per_call"), 1e3 * 0.2 / 2),
-    (("replay_loop", "device_ms_per_call"), 1e3 * 3.2 / 2),
+    (("replay_loop", "stall_ms_per_call"), None),
+    (("replay_loop", "device_ms_per_call"), None),
 ])
 def test_span_report_by_hand(cs, path, value):
     """Each reading of ``chip_smoke.span_report`` on a snapshot by hand:
-    two calls of 5 s in all; the waits' time is no layer's host work, and
-    a span that is not ``host_only`` gives no host gap."""
+    two calls of 5 s in all; the waits' time is no layer's host work, a
+    span that is not ``host_only`` gives no host gap, and block fields
+    give no ``replay_loop`` reading (``None``: the path is absent)."""
     got = cs.span_report(_hand_snapshot(), 2, 5.0)
+    if value is None:
+        assert path[0] not in got
+        return
     for k in path:
         got = got[k]
     assert got == pytest.approx(value, rel=1e-12)
@@ -400,7 +407,7 @@ def test_span_report_of_nothing(cs):
 def test_span_probe_on_the_cpu(cs):
     """``tools/smoke_phases.py spans`` at a toy size on the CPU: both
     paths' answers with spans on equal those off, the closed form counted
-    each chunk's rows and captured nothing, the plan build's parts are
+    each chunk's rows and launched no kernel, the plan build's parts are
     read, and spans are off and empty afterwards."""
     sp = _load("tools/smoke_phases.py", "spans_smoke_phases")
     net, x = _net()
@@ -408,7 +415,7 @@ def test_span_probe_on_the_cpu(cs):
                          devices=(12, 20), chunk=8, calls=2)
     plan = tfs.build_plan(net, x, "tails", "1mF")
     assert line["query"]["replay_rows"] == 2 * 3 * len(plan)
-    assert line["query"]["captures"] == 0
+    assert line["query"]["kernel_launches"] == 0
     assert line["design"]["replay_rows"] == 0
     assert set(line["plan_build_spans_s"]) == {
         "build_plan", "reference_run", "rows", "from_plans"}
@@ -540,24 +547,26 @@ def test_no_event_without_a_card_from_the_producer_or_while_capturing(
 
 
 def test_blocks_give_the_stall_against_the_fastest(fake_card):
-    """Blocks of rows inside a span: one that the host starts 20 ms after
-    the card ran out of queued work reads 20 ms of stall; the others
-    none."""
+    """Launches in a loop inside a span, one of them 20 ms after the card
+    ran out of queued work: the span reads the card's seconds of its
+    launches, and carries no blocks and no stall (they went with the
+    closed form's graph loop: ``spans`` has no ``block`` any longer)."""
     def body():
         with spans.span("test", "loop"):
             for k in range(4):
                 if k == 2:
                     time.sleep(0.04)    # 20 ms past the queued work
                 fake_card.launch(0.01)
-                spans.block(256)
             time.sleep(0.02)
 
     spans.enable()
     _sweep(body)
     loop = spans.snapshot()["test/loop"]
-    assert loop["blocks"] == 4 and loop["block_rows"] == 1024
-    assert loop["fastest_s_per_row"] * 256 == pytest.approx(0.01, abs=1e-3)
-    assert 0.019 <= loop["stall_s"] <= loop["caller"]["wall_s"] - 0.03
+    assert not hasattr(spans, "block")
+    assert {"blocks", "block_rows", "block_s", "fastest_s_per_row",
+            "stall_s"}.isdisjoint(loop)
+    assert loop["caller"]["calls"] == 1
+    assert loop["device_s"] >= 0.04 - 1e-3
 
 
 def test_pending_events_stay_bounded(fake_card):
@@ -583,13 +592,15 @@ def test_pending_events_stay_bounded(fake_card):
 def test_card_sweeps_time_the_card(plans):
     """On the card: a chunked closed-form sweep and a design sweep give
     the same bits with spans on and off; the host-only spans and the
-    replay loop's blocks are timed on the card, and the closed form
-    captured one graph a chunk."""
+    closed form's launches are timed on the card, and the closed form
+    launched its kernel once a chunk, over the chunk's rows, and ran no
+    row loop."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for run in (_chunked, _design):
         off = run(plans, device="cuda")
-        captures = tfs._replay_rows.captures
+        launches = cf.closed_form.launches
+        rows = tfs._replay_rows.rows
         spans.reset()
         spans.enable()
         on = run(plans, device="cuda")
@@ -600,10 +611,9 @@ def test_card_sweeps_time_the_card(plans):
         assert snap["entry/_prepare"]["device_s"] >= 0
         assert snap["entry/fleet_sweep"]["device_s"] > 0
         if run is _chunked:
-            assert tfs._replay_rows.captures - captures == 5
-            assert "device_s" in snap["closed_form/capture"]
-            loop = snap["closed_form/replay_loop"]
-            assert loop["block_rows"] == 5 * (len(plans[0]) - 1)
-            assert loop["stall_s"] >= 0
+            assert cf.closed_form.launches - launches == 5
+            assert tfs._replay_rows.rows - rows == 5 * len(plans[0])
+            assert snap["closed_form/_scan_replay"]["device_s"] > 0
+            assert "closed_form/replay_loop" not in snap
         else:
             assert snap["lane_kernel/charge_replay"]["device_s"] > 0

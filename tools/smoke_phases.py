@@ -4,8 +4,12 @@
 
 PHASE is one of ``overlap`` (the JAX package's overlap protocol through the
 port), ``streamed_stats`` (the streamed sweep of ``mnist_net()``),
-``genesis`` (GENESIS end to end), ``while_oracle`` (the legacy
-``backend="_while"`` oracle against the lane kernel), ``mesh``
+``genesis`` (GENESIS end to end), ``closed_form`` (the closed form's
+kernel beside the aten per-row graph it replaced, bitwise, at 8,192 and
+16,384 lanes of MNIST's tails/1mF query, then the kernels line's
+``closed_form`` entry with the launches of this run's phases),
+``while_oracle`` (the legacy ``backend="_while"`` oracle against the lane
+kernel), ``mesh``
 (``mesh=`` sweeps against unmeshed ones), ``paper_demo``
 (``examples/intermittent_mnist_torch.py`` on the card at ``--scale 1.0``,
 the JAX example's sizes, where ``chip_smoke.py`` runs it at a tenth; its
@@ -34,8 +38,9 @@ or ``spans``: the program's spans (``repro_torch.runtime.spans``) on
 MNIST's tails plans, over a design sweep and a two-chunk closed-form
 statistics query, each off and then on: the plan build's parts, each
 layer's host ms a call, the pipeline's waits, the card's idle by host
-step (``host_gap_share``), the replay loop's stall, and the closed form's
-counters ``_replay_rows.rows`` and ``.captures`` (``span_probe``).
+step (``host_gap_share``), and the closed form's counters
+``fleetsim._replay_rows.rows`` and ``closed_form.launches``
+(``span_probe``).
 
 Each phase prints its JSON lines as ``chip_smoke.py`` does.  TREE (default:
 this checkout) is the root of a checkout whose ``src/repro_torch`` is
@@ -57,7 +62,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("overlap", "streamed_stats", "genesis", "while_oracle", "mesh",
+PHASES = ("overlap", "streamed_stats", "genesis", "closed_form",
+          "while_oracle", "mesh",
           "paper_demo", "serving", "moe", "vlm", "train", "hybrid", "encdec",
           "lm_mesh", "host_alone", "unpinned", "spans")
 #: The LM phases, each a function of chip_smoke.py taking (torch, np,
@@ -152,24 +158,28 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           **cs.host_threads(torch, np)})
     if any(p not in LM_PHASES for p in args):
-        _build.build("charge_replay", "stats_fold")
+        _build.build("charge_replay", "closed_form", "stats_fold")
     wrapper = cr.charge_replay
     x = np.random.default_rng(42).normal(size=(1, 28, 28)).astype(np.float32)
     net = mnist_net()
     classes = (Conv2D, DenseFC, MaxPool2D, SimNet, SparseFC)
     plan = None
+    closed_lines, closed_launches = None, {}
     for phase in args:
         t0 = time.perf_counter()
         if phase == "overlap":
             cs.overlap(torch, np, emit, fleetsim, classes)
         elif phase == "genesis":
-            cs.genesis(torch, np, emit, fleetsim, cr, wrapper)
+            closed_launches["genesis"] = cs.genesis(
+                torch, np, emit, fleetsim, cr, wrapper)[
+                "closed_form_launches"]
         elif phase == "while_oracle":
             emit({"phase": "while_oracle", **cs.while_oracle(
                 torch, np, emit, fleetsim, wrapper, classes)})
         elif phase == "paper_demo":
-            emit({"phase": "paper_demo", "launches": cs.paper_demo(
-                torch, np, emit, fleetsim, smi, scale=1.0)["launches"]})
+            demo = cs.paper_demo(torch, np, emit, fleetsim, smi, scale=1.0)
+            closed_launches["paper_demo"] = demo["closed_form_launches"]
+            emit({"phase": "paper_demo", "launches": demo["launches"]})
         elif phase in LM_PHASES:
             _build.build("flash_attention", "ssd_intra")
             getattr(cs, LM_PHASES[phase])(torch, np, emit, smi)
@@ -178,7 +188,12 @@ def main() -> int:
         else:
             if plan is None:
                 plan = fleetsim.build_plan(net, x, "tails", "1mF")
-            if phase == "mesh":
+            if phase == "closed_form":
+                closed_lines = cs.closed_form_phase(torch, np, emit,
+                                                    fleetsim, plan)
+                closed_launches["closed_form"] = sum(
+                    ln["launches"] for ln in closed_lines)
+            elif phase == "mesh":
                 emit({"phase": "mesh", "launches": cs.mesh(
                     torch, np, emit, fleetsim, wrapper, net, x, plan)})
             elif phase == "streamed_stats":
@@ -196,6 +211,9 @@ def main() -> int:
                                                       fleetsim, plan)})
         emit({"tool": "smoke_phases", "phase": phase,
               "seconds": time.perf_counter() - t0})
+    if closed_lines is not None:
+        emit({"kernels": [cs.closed_form_entry(closed_lines,
+                                               closed_launches)]})
     print(smi, flush=True)
     return 0
 
@@ -220,8 +238,9 @@ def span_probe(torch, np, cs, fleetsim, net, x, device="cuda",
     with spans off, then ``calls`` times with spans on (CUDA events on a
     card), each answer bitwise that of spans off; the closed form's
     counters, zeroed just before, must count each chunk's rows and, on a
-    card, one graph a chunk.  Gives ``chip_smoke.span_report`` for each
-    path."""
+    card, one kernel launch a chunk.  Gives
+    ``chip_smoke.span_report`` for each path."""
+    from repro_torch.kernels import closed_form as cf
     from repro_torch.runtime import spans
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -246,7 +265,7 @@ def span_probe(torch, np, cs, fleetsim, net, x, device="cuda",
                             trace_reboots=16),
              "query": dict(plan=query, n_devices=devices[1],
                            lane_chunk=chunk)}
-    rr = fleetsim._replay_rows
+    rr, scan = fleetsim._replay_rows, cf.closed_form
     for name, kw in paths.items():
         kw.update(seed=SPAN_SEED, recharge_cv=0.25, reduce="stats",
                   device=device)
@@ -254,7 +273,7 @@ def span_probe(torch, np, cs, fleetsim, net, x, device="cuda",
         sync()
         spans.reset()
         spans.enable()
-        rr.rows = rr.captures = 0                # just before
+        rr.rows = scan.launches = 0              # just before
         walls = []
         try:
             for _ in range(calls):
@@ -268,9 +287,9 @@ def span_probe(torch, np, cs, fleetsim, net, x, device="cuda",
                                      f"on != off on {bad}")
         finally:
             spans.disable()
-        counted = (rr.rows, rr.captures)         # just after
+        counted = (rr.rows, scan.launches)       # just after
         line = {"wall_s": walls, "replay_rows": counted[0],
-                "captures": counted[1],
+                "kernel_launches": counted[1],
                 **cs.span_report(spans.snapshot(), calls, sum(walls))}
         if name == "query":
             chunks = -(-devices[1] // chunk)
@@ -278,7 +297,7 @@ def span_probe(torch, np, cs, fleetsim, net, x, device="cuda",
                     calls * chunks if device == "cuda" else 0)
             if counted != want:
                 raise SystemExit(f"spans: the closed form counted (rows, "
-                                 f"captures) {counted}, not {want}")
+                                 f"launches) {counted}, not {want}")
         out[name] = line
     spans.reset()
     return out
