@@ -14,20 +14,10 @@ them around the program's functions.
 from __future__ import annotations
 
 CALL_RANGE = "perfbench:call"
-#: Kernel names, as the profiler reports the program's CUDA kernels.
-LANE_KERNEL = "charge_replay_kernel"
-FOLD_KERNELS = ("fold_hist_kernel", "fold_ordered_kernel")
 
 
 def is_copy(name: str) -> bool:
     return name.startswith(("Memcpy", "Memset"))
-
-
-def is_other_kernel(name: str) -> bool:
-    """A kernel that is neither the lane kernel nor the fold (in a cell
-    without the lane kernel: the closed form's)."""
-    return not (is_copy(name) or LANE_KERNEL in name
-                or any(k in name for k in FOLD_KERNELS))
 
 
 def summarize(events) -> dict | None:

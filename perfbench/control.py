@@ -2,9 +2,12 @@
 
     python3 perfbench/control.py --workload <cell> --seed <n> [<n> ...]
 
-Prints one JSON line a seed: the ``lanes`` gap of the reference computed
-in float32 in the program's place, beside the cell's limit; exits 1 if a
-seed's control would pass the check.  See ``fleetbench/control.py``.
+Prints one JSON line a seed: for a fleet cell the ``lanes`` gap of the
+reference computed in float32 in the program's place, beside the cell's
+limit (``fleetbench/control.py``); for a language-model cell the program's
+numbers and those of the reference with every layer's output in float8
+(``lmbench/control.py``).  Exits 1 if a seed's control would pass the
+check.
 """
 
 import sys
@@ -12,7 +15,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from fleetbench.control import main  # noqa: E402
+from benchcore.core import control_main as main  # noqa: E402
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -19,8 +19,9 @@ network and input and each call's seed:
   lanes the program handed it (the widest relative gap; limit 0);
 * ``stats``: every call's answer against the merge of those reference
   folds in chunk order (limit 0);
-* ``count``: every candidate's lane count in every answer against the
-  mix's devices (limit 0), which a replay that drops lanes before the fold
+* ``count``: every group's lane count in every answer (a group a
+  candidate, or a capacitor of a capacitor sweep) against the mix's
+  devices (limit 0), which a replay that drops lanes before the fold
   cannot pass.
 
 The fold and stats checks follow the program from its own lane outputs;
@@ -40,6 +41,9 @@ from fleetref import fold as RF
 from fleetref import inputs as RI
 from fleetref import oracle as RO
 from fleetref import plan as RP
+from fleetref.energy import rf_recharge_seconds
+
+from .program import n_groups
 
 #: The per-lane channels compared (``stuck`` as 0 / 1).
 LANE_CHANNELS = ("live", "reboots", "dead", "classes", "wasted", "belief",
@@ -67,10 +71,11 @@ def gap(a, b) -> float:
     return float(np.nan_to_num(d, nan=math.inf).max())
 
 
-def reference_plans(cfg: dict, arrays: list, x, candidates) -> list[dict]:
+def reference_plans(cfg: dict, arrays: list, x, candidates,
+                    parametric: bool = False) -> list[dict]:
     from fleetref import inference
     net = RI.build_net(cfg, arrays, inference)
-    return [RP.build_rows(net, x, c["strategy"], c["power"])
+    return [RP.build_rows(net, x, c["strategy"], c["power"], parametric)
             for c in candidates]
 
 
@@ -89,7 +94,14 @@ def plan_mismatches(program_plans, ref_plans) -> int:
     return bad
 
 
-def reference_edges(ref_plans: list[dict], bins: int) -> dict:
+def reference_edges(ref_plans: list[dict], bins: int,
+                    capacities=None) -> dict:
+    if capacities is not None:           # a capacitor sweep's grid
+        caps = np.asarray(capacities, np.float64)
+        fin = caps[np.isfinite(caps)]
+        rec = rf_recharge_seconds(fin) if fin.size else np.zeros(1)
+        return RF.default_stat_edges(ref_plans[0]["total_cycles"], caps,
+                                     rec, bins)
     if len(ref_plans) == 1:
         r = ref_plans[0]
         return RF.default_stat_edges(r["total_cycles"], r["capacity"],
@@ -168,9 +180,13 @@ def replay_lane(traffic: dict, ref_plans: list[dict], seed: int, lane: int,
     """The oracle's replay of lane ``lane`` of the call with fleet seed
     ``seed``, from the inputs it draws itself."""
     sweep = traffic["sweep"]
-    heads = [dict(capacity=r["capacity"], recharge_s=r["recharge_s"])
-             for r in ref_plans]
-    li = RI.lane_inputs(sweep, heads, seed, lane, len(ref_plans) > 1)
+    if traffic.get("capacities"):
+        li = RI.capacitor_lane_inputs(sweep, traffic["capacities"], seed,
+                                      lane)
+    else:
+        heads = [dict(capacity=r["capacity"], recharge_s=r["recharge_s"])
+                 for r in ref_plans]
+        li = RI.lane_inputs(sweep, heads, seed, lane, len(ref_plans) > 1)
     return RO.reference_replay(
         ref_plans[li["plan"]]["rows"], li["cap"], li["rem0"],
         tail_s=li["tail_s"], recharge_cum=li["recharge_cum"],
@@ -229,11 +245,13 @@ def judge(cell, arrays, x, program_plans, answers: list, seeds: list,
     traffic, sweep = cell.traffic, cell.traffic["sweep"]
     limits = dict(traffic["limits"])
     cands = traffic["candidates"]
+    caps = traffic.get("capacities")
+    groups = n_groups(traffic)
     n_dev = sweep["n_devices"]
-    ref_plans = reference_plans(cell.config, arrays, x, cands)
+    ref_plans = reference_plans(cell.config, arrays, x, cands, bool(caps))
     rows_bad = plan_mismatches(program_plans, ref_plans)
 
-    edges = reference_edges(ref_plans, sweep.get("stats_bins", 64))
+    edges = reference_edges(ref_plans, sweep.get("stats_bins", 64), caps)
     edges_bad = 0
     for st in answers:
         for c in RF.STAT_CHANNELS:
@@ -253,7 +271,7 @@ def judge(cell, arrays, x, program_plans, answers: list, seeds: list,
             merged = ref if merged is None else RF.merge(merged, ref)
         stats_g = math.inf if merged is None else \
             stats_gap(stats_dict(st), merged)
-        want = np.full(len(cands), float(n_dev))
+        want = np.full(groups, float(n_dev))
         cnt = np.asarray(st.count, np.float64)
         count_g = math.inf if cnt.shape != want.shape else \
             float(np.max(np.abs(cnt - want)))
@@ -261,11 +279,11 @@ def judge(cell, arrays, x, program_plans, answers: list, seeds: list,
 
     longest = []
     lane_chunk = sweep.get("lane_chunk")
-    for p in range(len(cands)):
+    for p in range(groups):
         live = [lane_output(calls[-1], i, lane_chunk)["live"]
                 for i in range(p * n_dev, (p + 1) * n_dev)]
         longest.append(p * n_dev + int(np.argmax(live)))
-    picks = sample_lanes(seed, len(calls), len(cands), n_dev,
+    picks = sample_lanes(seed, len(calls), groups, n_dev,
                          traffic["check"]["lanes_per_candidate"], longest,
                          lane_chunk)
     want = replay_reference(traffic, ref_plans, seeds, picks)

@@ -19,7 +19,7 @@ import time
 
 from fleetref import inputs as RI
 
-from . import check, spec
+from . import check
 
 
 def reading(cell, seed: int, calls: int) -> dict:
@@ -30,9 +30,11 @@ def reading(cell, seed: int, calls: int) -> dict:
     cands = traffic["candidates"]
     arrays = RI.network_arrays(cell.config)
     x = RI.network_input(cell.config)
-    refs = check.reference_plans(cell.config, arrays, x, cands)
+    refs = check.reference_plans(cell.config, arrays, x, cands,
+                                 bool(traffic.get("capacities")))
     seeds = [program.call_seed(seed, i) for i in range(calls)]
-    picks = check.sample_lanes(seed, calls, len(cands), sweep["n_devices"],
+    picks = check.sample_lanes(seed, calls, program.n_groups(traffic),
+                               sweep["n_devices"],
                                traffic["check"]["lanes_per_candidate"], [],
                                sweep.get("lane_chunk"))
     closed = not check.charge_wise(sweep, len(cands))
@@ -46,16 +48,15 @@ def reading(cell, seed: int, calls: int) -> dict:
             "seconds": time.perf_counter() - t}
 
 
-def main(argv=None) -> int:
+def main(cell, seeds, argv=()) -> int:
+    """A line a seed (``argv``: ``--calls``, the calls of a run the picks
+    spread over); 1 if a seed's control would pass the check."""
     ap = argparse.ArgumentParser(prog="perfbench/control.py")
-    ap.add_argument("--workload", required=True)
-    ap.add_argument("--seed", type=int, nargs="+", required=True)
     ap.add_argument("--calls", type=int, default=4,
                     help="calls of a run the picks spread over")
-    args = ap.parse_args(argv)
-    cell = spec.find_cell(spec.load_benchmark(), args.workload, False)
+    args = ap.parse_args(list(argv))
     failed = 0
-    for s in args.seed:
+    for s in seeds:
         r = reading(cell, s, args.calls)
         r["control_fails"] = r["lanes"] > r["limit"]
         failed += not r["control_fails"]

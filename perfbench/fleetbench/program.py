@@ -4,7 +4,10 @@ driven by one traffic mix.
 A mix (``perfbench/traffic/<name>.json``) names its candidates (strategy
 and power system each) and the keyword arguments of ``fleet_sweep``.  One
 candidate replays as a ``FleetPlan``; several as one ``PlanSet``, a design
-sweep.  Every call is a fresh fleet drawn from its own seed.
+sweep.  A mix that names ``capacities`` builds its one candidate's plan
+parametric and replays it over that grid of capacitors (``capacitor_sweep``:
+every lane calibrates its own TAILS tile).  Every call is a fresh fleet drawn
+from its own seed.
 """
 
 from __future__ import annotations
@@ -26,15 +29,24 @@ def call_seed(seed: int, i: int) -> int:
     return (hi << 32 | lo) >> 2
 
 
-def build_plans(fleetsim, make_power_system, net, x, candidates) -> list:
+def n_groups(traffic: dict) -> int:
+    """The statistics groups of a call: one a capacitor of a capacitor
+    sweep, else one a candidate."""
+    return len(traffic.get("capacities") or traffic["candidates"])
+
+
+def build_plans(fleetsim, make_power_system, net, x, candidates,
+                parametric: bool = False) -> list:
     """The program's plans, in the mix's order: TAILS built for each power
-    system (sharing its continuous-power reference run), the rest built
-    once and restamped with each capacitor."""
+    system (sharing its continuous-power reference run; ``parametric``
+    for a capacitor sweep), the rest built once and restamped with each
+    capacitor."""
     plans, built, refs = [], {}, {}
     for c in candidates:
         s, power = c["strategy"], c["power"]
         if s in POWER_DEPENDENT:
-            p = fleetsim.build_plan(net, x, s, power, ref=refs.get(s))
+            p = fleetsim.build_plan(net, x, s, power, ref=refs.get(s),
+                                    parametric=parametric)
             refs[s] = (p.ref_output, p.max_atomic)
         elif s not in built:
             p = built[s] = fleetsim.build_plan(net, x, s, power)

@@ -1,60 +1,17 @@
-"""One run of one cell: set-up, the measured window, the check, the line."""
+"""One run of one fleet cell: set-up, the measured window, the check, the
+line (``benchcore.core.main`` hands a configuration without a ``kind``
+here)."""
 
 from __future__ import annotations
 
-import argparse
 import importlib
-import json
-import os
-import subprocess
-import sys
 import time
 from types import SimpleNamespace
 
-from . import check, hosttimer, peaks, program, spec, trace
+from benchcore import spec, trace
+from benchcore.core import card, emit, finish, start_trace, stop_trace
 
-#: Top-level module names that must not be loaded when the window closes:
-#: JAX and the JAX package (``repro``), compared whole (``repro_torch``
-#: starts with ``repro`` and is the program).
-FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-
-
-def parse(argv):
-    ap = argparse.ArgumentParser(prog="perfbench/run.py")
-    ap.add_argument("--workload", required=True)
-    ap.add_argument("--seed", type=int, required=True)
-    ap.add_argument("--seconds", type=float, required=True)
-    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    return ap.parse_args(argv)
-
-
-def forbidden_modules(modules=None) -> list:
-    names = sys.modules if modules is None else modules
-    return sorted({m.split(".")[0] for m in names} & set(FORBIDDEN))
-
-
-def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
-
-
-def main(argv, t_start: float) -> int:
-    args = parse(argv)
-    root = spec.ROOT
-    cell = spec.find_cell(spec.load_benchmark(root), args.workload,
-                          bool(args.trace), root)
-    # every build and kernel cache of the program inside the checkout
-    os.environ["TORCH_EXTENSIONS_DIR"] = str(root / "build" / "torch_ext")
-    os.environ["TRITON_CACHE_DIR"] = str(root / "build" / "triton")
-    import torch
-
-    if not torch.cuda.is_available() or \
-            torch.cuda.device_count() < cell.chips:
-        print(f"perfbench: {cell.name} needs {cell.chips} CUDA device(s); "
-              f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
-              file=sys.stderr)
-        return 3
-    sys.path.insert(0, str(root / "src"))
-    return Run(cell, args, t_start).execute()
+from . import check, hosttimer, kernels, peaks, program
 
 
 class Run:
@@ -125,9 +82,11 @@ class Run:
         arrays = RI.network_arrays(cfg)
         x = RI.network_input(cfg)
         net = RI.build_net(cfg, arrays, self.inference)
+        caps = self.traffic.get("capacities")
         t0 = time.perf_counter()
         plans = program.build_plans(fs, self.energy.make_power_system, net,
-                                    x, self.traffic["candidates"])
+                                    x, self.traffic["candidates"],
+                                    parametric=bool(caps))
         target = program.sweep_target(fs, plans, cfg["network"])
         plan_build_s = time.perf_counter() - t0
 
@@ -135,8 +94,12 @@ class Run:
         sync = torch.cuda.synchronize if cuda else (lambda: None)
 
         def call(seed, **over):
+            kw = {**self.sweep, **over}
+            if caps:
+                return fs.capacitor_sweep(net, x, caps, plan=target,
+                                          seed=seed, device=self.device, **kw)
             return fs.fleet_sweep(plan=target, seed=seed, device=self.device,
-                                  **{**self.sweep, **over})
+                                  **kw)
 
         capture = program.Capture(fs.reduce_lane_outputs)
         scan = fs._scan_replay
@@ -160,7 +123,7 @@ class Run:
             emit({"trace_read_s": time.perf_counter() - t})
         host_calls = program.host_calls(capture)
 
-        lanes = self.sweep["n_devices"] * len(plans)
+        lanes = self.sweep["n_devices"] * program.n_groups(self.traffic)
         for c in calls:
             c["lanes"] = lanes
         host = None if host_s is None else \
@@ -169,7 +132,7 @@ class Run:
             setup_s=setup_s, plan_build_s=plan_build_s, calls=calls,
             host=host, trace=summary,
             traced=self.traced_work(plans, host_calls[-1]), peaks=peaks,
-            trace_module=trace)
+            trace_module=kernels)
         metrics = {}
         for m in cell.metrics:
             v = spec.reader(m["name"])(info)
@@ -186,32 +149,8 @@ class Run:
         emit({"reference_s": time.perf_counter() - t,
               "lanes_checked": n_checked})
 
-        bad = [m for m in forbidden_modules() if m not in self.preloaded]
-        if bad:
-            print(f"perfbench: loaded {bad} (JAX or the JAX package)",
-                  file=sys.stderr)
-            return 4
-        device = {"platform": "gpu" if cuda else "cpu",
-                  "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-                  "count": cell.chips, "memory_peak_bytes": mem_peak}
-        result = {"correct": correct, "attempted": len(answers),
-                  "failed": failed, "metrics": metrics, "device": device}
-        if args.trace and cuda:
-            if summary is None:
-                print("perfbench: the profiler's trace held no device "
-                      "event", file=sys.stderr)
-                return 5
-            device["busy_s"] = summary["busy_s"]
-            device["window_s"] = summary["window_s"]
-            result["breakdown"] = {"device_ops": summary["device_ops"],
-                                   "idle_gaps": summary["idle_gaps"]}
-        result["checks"] = {n: {"value": v, "limit": lim}
-                            for n, v, lim in checks}
-        for n, v, lim in checks:
-            print(f"check {n} {v!r} limit {lim!r}", file=sys.stderr)
-        sys.stderr.flush()
-        emit(result)
-        return 0
+        return finish(self, correct, len(answers), failed, metrics, checks,
+                      mem_peak, summary, cuda)
 
     def window(self, call, capture, sync, cuda):
         """The warm-up call (of one chunk where the mix streams its lanes
@@ -259,11 +198,11 @@ class Run:
             if args.trace and cuda:
                 s = program.call_seed(args.seed, i)
                 capture.new_call()
-                prof, rng = self.start_trace(timer)
+                prof, rng = start_trace(timer)
                 answers.append(call(s))
                 sync()
                 t = time.perf_counter()
-                events = self.stop_trace(prof, rng, timer)
+                events = stop_trace(prof, rng, timer)
                 del prof
                 emit({"trace_stop_s": time.perf_counter() - t})
                 seeds.append(s)
@@ -274,24 +213,6 @@ class Run:
         return (calls, answers, seeds, setup_s, host_s, events, mem_peak,
                 self.path_counts())
 
-    def start_trace(self, timer):
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        prof.__enter__()
-        timer.annotate = True
-        rng = torch.profiler.record_function(trace.CALL_RANGE)
-        rng.__enter__()
-        return prof, rng
-
-    def stop_trace(self, prof, rng, timer):
-        rng.__exit__(None, None, None)
-        timer.annotate = False
-        prof.__exit__(None, None, None)
-        return prof.profiler.kineto_results.events()
-
     def traced_work(self, plans, chunks: list[dict]) -> dict:
         """The work of one call (each is alike; ``chunks`` are the traced
         call's folds), counted from the real plan rows and the mix."""
@@ -301,7 +222,11 @@ class Run:
 
         sw = self.sweep
         n_dev = sw["n_devices"]
+        groups = program.n_groups(self.traffic)
         rows = [len(p) for p in plans]
+        # a capacitor sweep replays its one plan in every group
+        group_rows = rows * groups if self.traffic.get("capacities") \
+            else rows
         width = [sum(int(np.prod(np.shape(getattr(p, k))[1:]))
                      for k in ROW_FIELDS + (TILE_FIELDS if p.parametric
                                             else ())) for p in plans]
@@ -312,23 +237,14 @@ class Run:
         n_charges = sw.get("charge_reboots", 0) or (256 if use_charge else 8)
         charge_cols = n_charges + 1 if charge_wise else 1
         return dict(
-            charge_wise=charge_wise, lanes=n_dev * len(plans),
-            lane_rows=n_dev * sum(rows),
+            charge_wise=charge_wise, lanes=n_dev * groups,
+            lane_rows=n_dev * sum(group_rows),
             table_values=sum(r * w for r, w in zip(rows, width)),
             lane_bytes=peaks.lane_in_bytes(sw.get("trace_reboots", 0),
                                            charge_cols)
             + peaks.LANE_OUT_BYTES,
             rows_replayed=len(chunks) * rows[0] if not charge_wise else 0,
             fold_lanes=sum(int(np.sum(c["valid"])) for c in chunks),
-            folds=len(chunks), n_groups=len(plans),
+            folds=len(chunks), n_groups=groups,
             bins=sw.get("stats_bins", 64))
 
-
-def card() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip()
-    except (OSError, subprocess.TimeoutExpired):
-        return "nvidia-smi not available"

@@ -7,7 +7,8 @@ draws them (layer by layer from ``numpy.random.default_rng(weights_seed)``:
 them into a ``SimNet`` of whichever layer classes it is given, so the
 program and the reference receive the same arrays.  ``lane_inputs`` draws
 one lane's inputs again from the call's seed, as ``fleet_sweep`` and its
-design sweep draw them (``src/repro_torch/core/fleetsim.py``).
+design sweep draw them, and ``capacitor_lane_inputs`` as ``capacitor_sweep``
+does (``src/repro_torch/core/fleetsim.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import math
 import numpy as np
 
 from . import samplers as S
+from .energy import rf_recharge_seconds
 
 
 def network_arrays(cfg: dict) -> list[dict]:
@@ -112,3 +114,41 @@ def lane_inputs(sweep: dict, heads: list[dict], seed: int, lane: int,
     rem0 = math.inf if math.isinf(cap) else cap * frac
     return dict(plan=p, cap=cap, rem0=rem0, tail_s=rs * jm,
                 recharge_cum=cum, charge_cum=ccum)
+
+
+def capacitor_lane_inputs(sweep: dict, capacities, seed: int,
+                          lane: int) -> dict:
+    """The inputs of lane ``lane`` of one capacitor sweep: ``n_devices``
+    lanes a capacitor, capacitor-major, each with the capacitor's RF
+    recharge time as its mean dead time and the one plan.  Unchunked calls
+    draw the legacy streams over the whole grid (seeds ``seed``,
+    ``seed + 1`` and, for stochastic charges, ``seed + 3``); chunked ones
+    draw the lane alone from the counter-based streams."""
+    caps = np.asarray(capacities, np.float64)
+    lanes = caps.size * sweep["n_devices"]
+    g = lane // sweep["n_devices"]
+    cap = float(caps[g])
+    cv = sweep.get("recharge_cv", 0.25)
+    ccv, bcv = sweep.get("charge_cv", 0.0), sweep.get("charge_bias_cv", 0.0)
+    creb = sweep.get("charge_reboots", 0)
+    use_charge = ccv > 0 or bcv > 0 or creb > 0
+    ccum = None
+    if sweep.get("lane_chunk") is None:
+        frac = S.initial_charge_fraction(lanes, seed=seed)[lane]
+        jm = S.harvest_jitter(lanes, seed=seed + 1, cv=cv)[lane]
+        if use_charge:
+            ccum = S.cumulative(S.charge_capacity_jitter(
+                lanes, creb or 256, np.repeat(caps, sweep["n_devices"]),
+                seed=seed + 3, cv=ccv, bias_cv=bcv))[lane]
+    else:
+        frac = S.initial_charge_fraction_stream(1, seed=seed,
+                                                lane_lo=lane)[0]
+        jm = S.harvest_jitter_stream(1, seed=seed, cv=cv, lane_lo=lane)[0]
+        if use_charge:
+            ccum = S.cumulative(S.charge_capacity_jitter_stream(
+                1, creb or 256, cap, seed=seed, cv=ccv, bias_cv=bcv,
+                lane_lo=lane))[0]
+    inf = math.isinf(cap)
+    return dict(plan=0, cap=cap, rem0=math.inf if inf else cap * frac,
+                tail_s=0.0 if inf else float(rf_recharge_seconds(cap)) * jm,
+                recharge_cum=None, charge_cum=ccum)

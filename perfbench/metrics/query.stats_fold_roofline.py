@@ -1,0 +1,6 @@
+"""``stats_fold_roofline``'s reading in a fleet query cell, which moves
+``query_lanes_per_s`` in place of ``lanes_per_s``."""
+
+from benchcore import spec
+
+read = spec.reader("stats_fold_roofline")

@@ -19,7 +19,7 @@ from pathlib import Path                # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from fleetbench.runner import main      # noqa: E402
+from benchcore.core import main        # noqa: E402
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:], T_START))

@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-from perfbench_support import CELLS, PERFBENCH, ROOT, tiny_cell
+from perfbench_support import CELLS, FLEET_CELLS, PERFBENCH, ROOT, tiny_cell
 from fleetbench import control
 
 
@@ -29,7 +29,7 @@ def card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", FLEET_CELLS)
 def test_control_at_the_cells_size(card, workload):
     out = subprocess.run(
         [sys.executable, str(PERFBENCH / "control.py"), "--workload",

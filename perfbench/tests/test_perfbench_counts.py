@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 
 from perfbench_support import CELLS, runner, spec, tiny_cell
-from fleetbench import peaks, trace
+from benchcore import trace
+from fleetbench import kernels, peaks
 from fleetref import inputs as RI
 
 
@@ -40,18 +41,26 @@ def test_traced_work_counts_real_rows(workload):
     arrays = RI.network_arrays(cell.config)
     net = RI.build_net(cell.config, arrays, run.inference)
     from fleetbench import program
+    caps = cell.traffic.get("capacities")
     plans = program.build_plans(run.fleetsim,
                                 run.energy.make_power_system, net,
                                 RI.network_input(cell.config),
-                                cell.traffic["candidates"])
+                                cell.traffic["candidates"],
+                                parametric=bool(caps))
     chunks = [dict(valid=np.ones(8, bool)), dict(valid=np.r_[[True] * 4,
                                                              [False] * 4])]
     w = run.traced_work(plans, chunks)
     sw = cell.traffic["sweep"]
     rows = [len(p) for p in plans]
-    assert w["lanes"] == sw["n_devices"] * len(plans)
-    assert w["lane_rows"] == sw["n_devices"] * sum(rows)
-    width = [57 + 2 * p.entry_seg_class.shape[1] for p in plans]
+    groups = len(caps) if caps else len(plans)
+    assert w["lanes"] == sw["n_devices"] * groups
+    assert w["lane_rows"] == sw["n_devices"] * (
+        rows[0] * groups if caps else sum(rows))
+    assert w["n_groups"] == groups
+    # a parametric plan's tile tables: n, iter cycles and the selection
+    # cost a candidate tile, and its 17-class iteration vector
+    k_tiles = 20 * plans[0].tile_n.shape[1] if caps else 0
+    width = [57 + 2 * p.entry_seg_class.shape[1] + k_tiles for p in plans]
     assert w["table_values"] == sum(r * k for r, k in zip(rows, width))
     assert w["fold_lanes"] == 12 and w["folds"] == 2
     if workload == "har.design-space":
@@ -110,7 +119,7 @@ def test_trace_union_gaps_and_labels():
         "host outside the program's timed functions"]
     assert [g[1] for g in s["idle_gaps"]] == pytest.approx(
         [300e-9, 250e-9, 100e-9])
-    assert trace.kernel_time(s, lambda n: trace.LANE_KERNEL in n) == \
+    assert kernels.kernel_time(s, lambda n: kernels.LANE_KERNEL in n) == \
         (1, pytest.approx(2e-7))
 
 
@@ -121,7 +130,7 @@ def fake_run(charge_wise):
         "void at::elementwise_kernel<...>": (300, 0.3),
         "Memcpy HtoD": (4, 0.01)})
     return SimpleNamespace(
-        setup_s=12.5, plan_build_s=3.0, peaks=peaks, trace_module=trace,
+        setup_s=12.5, plan_build_s=3.0, peaks=peaks, trace_module=kernels,
         calls=[dict(t0=1.0, t1=2.0, lanes=100), dict(t0=2.0, t1=5.0,
                                                      lanes=100)],
         host={"entry": 0.05, "samplers": 0.2}, trace=summary,
@@ -165,3 +174,17 @@ def test_readers_without_a_trace_read_nothing():
               "replay_mfu", "charge_replay_roofline", "stats_fold_roofline",
               "closed_form.us_per_row", "closed_form.kernels_per_row"):
         assert spec.reader(m)(r) is None, m
+
+
+@pytest.mark.parametrize("base", ["lanes_per_s", "host_ms_per_call",
+                                  "sampler_ms_per_call",
+                                  "stats_fold_roofline", "replay_mfu"])
+def test_query_readers_read_as_their_base(base):
+    """The query cells' metrics, split off for their own bound and moves,
+    read exactly what their base reads, and nothing where it reads
+    nothing."""
+    name = "query_" + base if base == "lanes_per_s" else "query." + base
+    for r in (fake_run(True), fake_run(False)):
+        assert spec.reader(name)(r) == spec.reader(base)(r)
+        r.trace, r.host = None, None
+        assert spec.reader(name)(r) == spec.reader(base)(r)

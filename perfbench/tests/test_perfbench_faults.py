@@ -83,6 +83,8 @@ FAULTS = {
                          answer_altered, lanes_altered],
     "mnist.stats-query": [unchanged_scan_step, half_the_batch,
                           answer_altered, lanes_altered],
+    "har.capacitor-sweep": [unchanged_scan_step, half_the_batch,
+                            answer_altered, lanes_altered],
 }
 
 

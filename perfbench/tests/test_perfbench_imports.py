@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-from perfbench_support import PERFBENCH, ROOT, runner
+from perfbench_support import PERFBENCH, ROOT, core
 
 STDLIB = set(sys.stdlib_module_names)
 
@@ -22,7 +22,7 @@ STDLIB = set(sys.stdlib_module_names)
     (["flax.linen", "numpy"], ["flax"]),
 ])
 def test_forbidden_by_whole_top_level_name(modules, bad):
-    assert runner.forbidden_modules(modules) == bad
+    assert core.forbidden_modules(modules) == bad
 
 
 def _loaded(code: str) -> list:
@@ -37,13 +37,60 @@ def test_what_the_runner_loads():
     code = (
         "import sys; sys.path[:0] = ['perfbench', 'src']\n"
         "import importlib, torch.profiler\n"
-        "from fleetbench import runner, check, trace, hosttimer\n"
+        "from benchcore import core, spec, trace\n"
+        "from fleetbench import runner, check, hosttimer, kernels\n"
         "for m in ('core.fleetsim', 'core.inference', 'core.energy',\n"
         "          'runtime.failures', 'kernels.charge_replay',\n"
         "          'kernels.stats_fold'):\n"
         "    importlib.import_module('repro_torch.' + m)\n"
-        "print(*runner.forbidden_modules() or ['none'])\n")
+        "print(*core.forbidden_modules() or ['none'])\n")
     assert _loaded(code) == ["none"]
+
+
+def test_what_the_lm_runner_loads():
+    code = (
+        "import sys; sys.path[:0] = ['perfbench', 'src']\n"
+        "import torch.profiler\n"
+        "from benchcore import core, spec\n"
+        "from lmbench import runner as lm, check, control, peaks, program\n"
+        "c = lm.Run(spec.find_cell(spec.load_benchmark(),\n"
+        "           'qwen3-0.6b.chat', True), None, 0.0, 'cpu')\n"
+        "c.load_program()\n"
+        "program.reference('dense', lm.LMREF)\n"
+        "print(*core.forbidden_modules() or ['none'])\n")
+    assert _loaded(code) == ["none"]
+
+
+def test_the_lm_reference_loads_nothing_of_the_program():
+    code = (
+        "import sys; sys.path[:0] = ['perfbench']\n"
+        "import importlib.util as u\n"
+        "s = u.spec_from_file_location('d', 'perfbench/lmref/dense.py')\n"
+        "s.loader.exec_module(u.module_from_spec(s))\n"
+        "top = {m.split('.')[0] for m in sys.modules}\n"
+        "print(*sorted(top & {'jax', 'jaxlib', 'flax', 'repro',\n"
+        "                     'repro_torch', 'fleetbench', 'lmbench',\n"
+        "                     'benchcore'})\n"
+        "      or ['none'])\n")
+    assert _loaded(code) == ["none"]
+
+
+@pytest.mark.parametrize("path", sorted(
+    (PERFBENCH / "lmref").glob("*.py")), ids=lambda p: p.name)
+def test_lm_reference_sources_import_torch_and_stdlib_only(path):
+    for n in _imports(path):
+        top = n.split(".")[0]
+        assert top == "torch" or top in STDLIB, (path.name, n)
+
+
+def _imports(path) -> list:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names.append(node.module)
+    return names
 
 
 def test_the_reference_loads_nothing_of_the_program():
@@ -103,7 +150,7 @@ def test_a_run_that_loads_jax_prints_no_result(monkeypatch):
     from perfbench_support import CELLS, cpu_run, tiny_cell
     from repro_torch.core import fleetsim
 
-    loaded = runner.forbidden_modules()
+    loaded = core.forbidden_modules()
     name = next((n for n in ("flax", "jaxlib", "jax", "repro")
                  if n not in loaded), None)
     if name is None:

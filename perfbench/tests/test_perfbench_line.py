@@ -8,7 +8,8 @@ import sys
 
 import pytest
 
-from perfbench_support import CELLS, ROOT, cpu_run, result, tiny_cell
+from perfbench_support import (CELLS, ROOT, cpu_run, fleet_rate, result,
+                               tiny_cell)
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -23,11 +24,12 @@ def test_last_line(workload, trace):
     assert set(res["device"]) >= {"platform", "kind", "count",
                                   "memory_peak_bytes"}
     names = set(res["metrics"])
+    rate, pre = fleet_rate(workload)
     if trace:
-        assert {"plan_build_s", "host_ms_per_call",
-                "sampler_ms_per_call"} <= names
+        assert {"plan_build_s", pre + "host_ms_per_call",
+                pre + "sampler_ms_per_call"} <= names
     else:
-        assert names == {"lanes_per_s", "setup_s"}
+        assert names == {rate, "setup_s"}
     for m in res["metrics"].values():
         assert set(m) == {"value", "unit"} and m["value"] > 0
     tail = err.strip().splitlines()[-len(res["checks"]):]

@@ -56,10 +56,12 @@ def test_plan_rows_of_the_tiny_net(workload):
     arrays = RI.network_arrays(cell.config)
     x = RI.network_input(cell.config)
     net = RI.build_net(cell.config, arrays, prog_inference)
+    parametric = bool(cell.traffic.get("capacities"))
     plans = program.build_plans(fleetsim, make_power_system, net, x,
-                                cell.traffic["candidates"])
+                                cell.traffic["candidates"], parametric)
     refs = check.reference_plans(cell.config, arrays, x,
-                                 cell.traffic["candidates"])
+                                 cell.traffic["candidates"], parametric)
+    assert all(p.parametric == parametric for p in plans)
     for p, r in zip(plans, refs):
         _rows_equal(p, r)
     assert check.plan_mismatches(plans, refs) == 0
@@ -128,3 +130,58 @@ def test_a_run_on_the_cpu_is_correct(workload):
     assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 1
     assert all(c["value"] <= c["limit"] for c in res["checks"].values())
     assert err.strip().splitlines()[-1].startswith("check lanes ")
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("charges", [False, True])
+def test_capacitor_lanes_are_capacitor_sweeps_draws(chunked, charges):
+    """Each lane of a capacitor sweep, capacitor-major, as
+    ``capacitor_sweep`` draws it: its capacitor, ``rf_recharge_seconds``
+    of it times the lane's jitter, and (with stochastic charges) its
+    charge trace, from ``seed``, ``seed + 1`` and ``seed + 3`` unchunked
+    and the counter-based streams chunked."""
+    from repro_torch.core.energy import rf_recharge_seconds
+
+    seed, dev = 2**40 + 7, 8
+    caps = np.asarray([6e3, 2e4, 1e5, 1e6, 5e7])
+    sweep = dict(n_devices=dev, recharge_cv=0.25)
+    if charges:
+        sweep.update(charge_cv=0.25, charge_reboots=8)
+    if chunked:
+        sweep["lane_chunk"] = 8
+    lanes = caps.size * dev
+    lane_caps = np.repeat(caps, dev)
+    if chunked:
+        frac = failures.initial_charge_fraction_stream(lanes, seed=seed)
+        jm = failures.harvest_jitter_stream(lanes, seed=seed)
+        ccum = failures.charge_trace_cumulative(
+            failures.charge_capacity_jitter_stream(
+                lanes, 8, lane_caps, seed=seed, cv=0.25))
+    else:
+        frac = failures.initial_charge_fraction(lanes, seed=seed)
+        jm = failures.harvest_jitter(lanes, seed=seed + 1)
+        ccum = failures.charge_trace_cumulative(
+            failures.charge_capacity_jitter(lanes, 8, lane_caps,
+                                            seed=seed + 3, cv=0.25))
+    for lane in (0, 5, dev, 3 * dev + 1, lanes - 1):
+        li = RI.capacitor_lane_inputs(sweep, caps, seed, lane)
+        assert li["plan"] == 0 and li["cap"] == lane_caps[lane]
+        assert li["rem0"] == lane_caps[lane] * frac[lane]
+        assert li["tail_s"] == rf_recharge_seconds(lane_caps[lane]) * jm[lane]
+        assert li["recharge_cum"] is None
+        if charges:
+            assert np.array_equal(li["charge_cum"], ccum[lane])
+        else:
+            assert li["charge_cum"] is None
+
+
+def test_capacitor_sweep_answer_counts_every_capacitor():
+    """A run of the capacitor mix replays the closed form once a call and
+    never the lane kernel, and folds one group a capacitor."""
+    cell = tiny_cell("har.capacitor-sweep")
+    rc, lines, err = cpu_run(cell)
+    assert rc == 0, err
+    paths = json.loads(lines[0])["paths"]
+    assert paths["charge_replay.launches"] == 0
+    assert paths["closed_form.replays"] == json.loads(lines[0])["calls"]
+    assert result(lines)["checks"]["count"]["value"] == 0

@@ -4,8 +4,8 @@ oracle or the program does."""
 
 import pytest
 
-from perfbench_support import CELLS, cpu_run, tiny_cell
-from fleetbench import check, program, spec
+from perfbench_support import CELLS, cpu_run, find_cell, tiny_cell
+from fleetbench import check, program
 from fleetref import inputs as RI
 
 from repro_torch.core import fleetsim
@@ -13,9 +13,9 @@ from repro_torch.core import fleetsim
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_sample_covers_every_block_and_chunk(workload):
-    cell = spec.find_cell(spec.load_benchmark(), workload, False)
+    cell = find_cell(workload)
     sw, tr = cell.traffic["sweep"], cell.traffic
-    n_cand, n_dev = len(tr["candidates"]), sw["n_devices"]
+    n_cand, n_dev = program.n_groups(tr), sw["n_devices"]
     n_lanes, chunk = n_cand * n_dev, sw.get("lane_chunk")
     longest = [p * n_dev + 3 for p in range(n_cand)]
     picks = check.sample_lanes(2**33 + 5, 6, n_cand, n_dev,
